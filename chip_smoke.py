@@ -7,22 +7,38 @@ Phases, each printed as one JSON line:
 
   device   the card (nvidia-smi name and power limit), the TF32 flags
   build    nvcc builds of every kernel in jax_mapping_torch/csrc/
-  fleet    the main path: `fleet_step` of the default SlamConfig (4096^2
-           grid at 0.05 m, 8 robots, 360-beam scans padded to 512, 640^2
-           patches, 1024-pose rings) on plank_course(4096, 0.05,
-           n_planks=40, seed=0). Launch counts are zeroed just before the
-           ticks and read just after; every kernel must have launched.
+  fleet    slice 1's main path: `fleet_step` of the default SlamConfig
+           (4096^2 grid at 0.05 m, 8 robots, 360-beam scans padded to
+           512, 640^2 patches, 1024-pose rings) on plank_course(4096,
+           0.05, n_planks=40, seed=0). Launch counts are zeroed just
+           before the ticks and read just after; every kernel of the
+           fleet path (K1-K3) must have launched.
   stages   the same stages called one at a time on the final state
   profile  the next ticks, timed alone and then under torch.profiler:
            device busy share, device work per stream, launches per tick,
            the kernels that take the device's time; loop verifications
            are counted per tick
-  kernels  each kernel against its plain PyTorch version on the same
-           inputs at the main path's shapes; exact equality is required
   refuse   the loop-closure re-fuse shape: 8192 ring scans into an empty
            4096^2 grid, with its peak device memory
+  mapper   slice 2's main path, the mapper's per-robot SLAM step: the
+           default SlamConfig, 8 robots with their own SlamState sharing
+           one 4096^2 grid, each driving a 0.4 m circle 3.5 m from two
+           walls of rooms_world(4096, 0.05, seed=1); a tick is one
+           16-scan window per robot through `slam_step_window` and two
+           single scans through `slam_step`. Counts are zeroed before the
+           ticks and read after; K1 (both modes) and K5 must have
+           launched. Host syncs of one step of each kind, the stages of a
+           window step, one profiled tick; then three windows with
+           fused_fusion=False, where the window sum goes through K4.
+  window   the bench's window workload: 256 scans on a 0.4 m loop into
+           the 4096^2 grid through `fuse_scans_window` (K5), and 1024
+           scans (K4 subtotals of 512, then one apply)
+  kernels  each kernel against its plain PyTorch version on the same
+           inputs at the main paths' shapes; exact equality is required
   parity   a tiny mission, each tick run on the card and on the CPU from
            the same state with the same wheel noise
+  slam_parity  a tiny single robot, window and single steps, each run on
+           the card and on the CPU from the same state
 
 Then one line {"kernels": [...]} and, last, the result line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero before the
@@ -43,6 +59,10 @@ import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+
+#: Device of the slice-2 phases (a rehearsal on a machine without a card
+#: may point it elsewhere; the script itself always runs on the card).
+DEV = "cuda"
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and the
 # float32 rate outside the tensor cores.
@@ -209,6 +229,11 @@ def _split_ms(tick_ms, verifies) -> dict:
             if without else None}
 
 
+#: The kernels the fleet tick runs (K1 in both modes, K2, K3).
+FLEET_KERNELS = ("sensor_model_delta", "sensor_model_raster", "label_prop",
+                 "costfield_relax")
+
+
 def phase_fleet(torch, cfg, world, ticks: int, seed: int):
     from jax_mapping_torch.models import fleet as FL
     from jax_mapping_torch.ops import _cuda
@@ -261,8 +286,9 @@ def phase_fleet(torch, cfg, world, ticks: int, seed: int):
     check(bool(torch.isfinite(diag.pose_err).all()), "non-finite pose_err")
     check(observed > 0, "the fleet observed no cell")
     check(keys > 0, "no tick had a key robot")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} never launched on the main path")
+    for name in FLEET_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} never launched on the fleet path")
     return st, out
 
 
@@ -351,6 +377,19 @@ def _union_us(spans) -> float:
     return total
 
 
+def _device_events(prof) -> list:
+    """The kernels, copies and memsets of a finished torch.profiler run,
+    from its exported trace."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    return [e for e in events
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
 def phase_profile(torch, cfg, st, world, seed: int, ticks: int = 3):
     """The next ticks of the mission: `ticks` timed alone, then `ticks`
     under torch.profiler for the device's busy share of the wall time
@@ -387,21 +426,14 @@ def phase_profile(torch, cfg, st, world, seed: int, ticks: int = 3):
         v = getattr(e, "self_device_time_total", None)
         return v if v is not None else getattr(e, "self_cuda_time_total", 0)
 
-    # Device work by stream, from the exported trace: cuDNN may run the
-    # groups of a grouped convolution on streams of its own, so kernels
-    # overlap and their summed time exceeds the time the device was busy.
-    with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            trace = json.load(f)
-    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    # Device work by stream: cuDNN may run the groups of a grouped
+    # convolution on streams of its own, so kernels overlap and their
+    # summed time exceeds the time the device was busy.
     streams = {}
-    for e in events:
-        if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
-            ts = float(e["ts"])
-            streams.setdefault(str(e.get("tid")), []).append(
-                (ts, ts + float(e["dur"])))
+    for e in _device_events(prof):
+        ts = float(e["ts"])
+        streams.setdefault(str(e.get("tid")), []).append(
+            (ts, ts + float(e["dur"])))
     spans = [s for v in streams.values() for s in v]
     busy_ms = _union_us(spans) / 1e3
     avg = sorted(prof.key_averages(), key=dev_us, reverse=True)
@@ -424,7 +456,7 @@ def phase_profile(torch, cfg, st, world, seed: int, ticks: int = 3):
           "top": top})
 
 
-def phase_kernels(torch, cfg, world, mapped, seed: int):
+def phase_kernels(torch, cfg, world, mapped, seed: int, mapper: dict):
     """Each kernel against its plain version at the main path's shapes.
     The scans are taken near walls and the frontier comes from `mapped`,
     the re-fused map, so that every kernel sees non-trivial input."""
@@ -549,6 +581,7 @@ def phase_kernels(torch, cfg, world, mapped, seed: int):
             relax=CF._relax_level_xla)),
         **bound(n_bytes, n_ops))
 
+    rows.update(window_kernel_rows(torch, cfg, world, mapped, seed, mapper))
     emit({"phase": "kernels", "rows": rows})
     for name, r in rows.items():
         check(r["mismatches"] == 0,
@@ -557,19 +590,25 @@ def phase_kernels(torch, cfg, world, mapped, seed: int):
     return rows
 
 
+def _rows_kept(cfg, poses, row0, i0, i1):
+    """(scans, ranges) bool: which patch-row ranges [i0, i1] (inclusive)
+    of a patch whose first row is row0 the kernels' range cull keeps for
+    each scan's pose (their own test, csrc/sensor_cell.cuh)."""
+    import torch
+    res = cfg.grid.resolution_m
+    pr = ((poses[:, 1] - cfg.grid.origin_m[1]) / res - 0.5
+          - row0.float())[:, None]
+    gap = torch.clamp_min(torch.maximum(i0 - pr, pr - i1), 0.0)
+    return gap * res <= cfg.grid.max_range_m + 2 * res
+
+
 def _k1_live_cells(cfg, poses, origins) -> int:
-    """Cells K1 evaluates: those in row bands its range cull keeps (the
-    kernel's bands are 4 rows; the cull is the kernel's own test)."""
+    """Cells K1 evaluates: those in the 4-row bands its cull keeps."""
     import torch
     P = cfg.grid.patch_cells
-    res = cfg.grid.resolution_m
-    oy = cfg.grid.origin_m[1]
-    band = 4
-    i0 = torch.arange(0, P, band, device=poses.device, dtype=torch.float32)
-    i1 = torch.clamp_max(i0 + band, P) - 1
-    pr = ((poses[:, 1] - oy) / res - 0.5 - origins[:, 0].float())[:, None]
-    gap = torch.clamp_min(torch.maximum(i0 - pr, pr - i1), 0.0)
-    keep = gap * res <= cfg.grid.max_range_m + 2 * res
+    i0 = torch.arange(0, P, 4, device=poses.device, dtype=torch.float32)
+    i1 = torch.clamp_max(i0 + 4, P) - 1
+    keep = _rows_kept(cfg, poses, origins[:, 0], i0, i1)
     return int(((i1 - i0 + 1) * keep).sum().item()) * P
 
 
@@ -656,6 +695,472 @@ def phase_parity(torch, seed: int, ticks: int = 6):
 
 # ---------------------------------------------------------------------------
 
+def _count_syncs(torch, fn):
+    """(fn(), host syncs it made), counted by PyTorch's CUDA sync debug
+    mode, which warns at every synchronising call."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _p50_p90(xs) -> dict:
+    q = statistics.quantiles(xs, n=10) if len(xs) > 1 else xs
+    return {"p50": statistics.median(xs), "p90": q[-1]}
+
+
+class _Drive:
+    """8 robots, each on a 0.4 m circle whose centre is 3.5 m from two
+    walls of rooms_world (a wall crossing), at 0.1 m/s: a 16-scan window
+    covers 0.16 m, so every window's last scan passes the 0.1 m key gate,
+    and the two single scans after it (0.01 and 0.02 m) do not. True
+    poses follow the commanded wheel speeds; the measured ones carry 2%
+    noise from a torch.Generator."""
+
+    RADIUS = 0.4
+    SPEED = 0.1
+    DT = 0.1
+
+    def __init__(self, torch, cfg, seed: int):
+        from jax_mapping_torch.ops.odometry import twist_to_wheel_units
+        from jax_mapping_torch.sim import world as W
+        self.torch, self.cfg = torch, cfg
+        dev = torch.device(DEV)
+        n, res = cfg.grid.size_cells, cfg.grid.resolution_m
+        self.world = torch.as_tensor(W.rooms_world(n, res, seed=1),
+                                     device=dev)
+        self.n_samples = int(cfg.scan.range_max_m / (res * 0.5))
+        walls = [int(n * f) for f in (0.33, 0.66)]   # rooms_world's walls
+        centres = []
+        for wx in walls:
+            for wy in walls:
+                for s in (1, -1):
+                    # The wall's face on side s, then 3.5 m into the room.
+                    fx = (wx + (2 if s > 0 else 0) - n / 2) * res
+                    fy = (wy + (2 if s > 0 else 0) - n / 2) * res
+                    centres.append((fx + 3.5 * s, fy + 3.5 * s))
+        R = cfg.fleet.n_robots
+        c = torch.tensor(centres[:R], dtype=torch.float32, device=dev)
+        self.truth = torch.stack([c[:, 0] + self.RADIUS, c[:, 1],
+                                  torch.full((R,), math.pi / 2,
+                                             device=dev)], 1)
+        wl, wr = twist_to_wheel_units(cfg.robot, self.SPEED,
+                                      self.SPEED / self.RADIUS)
+        self.cmd = torch.tensor([wl, wr], dtype=torch.float32, device=dev)
+        self.gen = torch.Generator().manual_seed(seed)
+
+    def next(self, n_scans: int):
+        """The next n_scans of every robot: ((R, n, beams) scans at the
+        true poses, (R, n, 2) measured wheel speeds)."""
+        from jax_mapping_torch.ops.odometry import rk2_step
+        from jax_mapping_torch.sim import lidar
+        torch, cfg = self.torch, self.cfg
+        R = self.truth.shape[0]
+        dt = torch.tensor(self.DT, device=self.truth.device)
+        poses = []
+        for _ in range(n_scans):
+            self.truth = rk2_step(cfg.robot, self.truth, self.cmd[0],
+                                  self.cmd[1], dt)
+            poses.append(self.truth)
+        poses = torch.stack(poses, 1)                          # (R, n, 3)
+        scans = lidar.simulate_scans(
+            cfg.scan, self.world, cfg.grid.resolution_m, self.n_samples,
+            poses.reshape(R * n_scans, 3)).reshape(R, n_scans, -1)
+        noise = torch.randn((R, n_scans, 2), generator=self.gen).to(
+            self.truth.device)
+        return scans, self.cmd * (1.0 + 0.02 * noise)
+
+
+def phase_mapper(torch, cfg, seed: int, ticks: int = 10):
+    """Slice 2's main path, as `MapperNode` runs it: per robot, its own
+    SlamState on the shared grid; the shared grid becomes each step's
+    output grid."""
+    import dataclasses
+    from jax_mapping_torch.models import slam as S
+    from jax_mapping_torch.ops import _cuda
+    W = cfg.fleet.batch_scans
+    drive = _Drive(torch, cfg, seed)
+    R = cfg.fleet.n_robots
+    states = [S.init_state(cfg, drive.truth[r], DEV) for r in range(R)]
+    check(states[0].grid.device.type == DEV, "SLAM state not on the card")
+    shared = states[0].grid
+
+    def robot_tick(r, scans, wheels, c=cfg, times=None, diags=None):
+        t0 = time.perf_counter()
+        st, d = S.slam_step_window(c, states[r]._replace(grid=shared),
+                                   scans[r, :W], wheels[r, :W], drive.DT)
+        torch.cuda.synchronize()
+        if times is not None:
+            times["window"].append((time.perf_counter() - t0) * 1e3)
+            diags.append(d)
+        for j in range(W, scans.shape[1]):
+            t0 = time.perf_counter()
+            st, d = S.slam_step(c, st, scans[r, j], wheels[r, j, 0],
+                                wheels[r, j, 1], drive.DT)
+            torch.cuda.synchronize()
+            if times is not None:
+                times["single"].append((time.perf_counter() - t0) * 1e3)
+                diags.append(d)
+        return st
+
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    tick_ms, times, diags = [], {"window": [], "single": []}, []
+    for _ in range(ticks):
+        scans, wheels = drive.next(W + 2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in range(R):
+            states[r] = robot_tick(r, scans, wheels, times=times,
+                                   diags=diags)
+            shared = states[r].grid
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(_cuda.LAUNCHES)
+    truth = drive.truth.clone()
+
+    # Host syncs of one step of each kind, and the purity of a step.
+    scans, wheels = drive.next(W + 2)
+    before = shared.clone()
+    (st, d), n_window = _count_syncs(torch, lambda: S.slam_step_window(
+        cfg, states[0]._replace(grid=shared), scans[0, :W], wheels[0, :W],
+        drive.DT))
+    (_, d1), n_single = _count_syncs(torch, lambda: S.slam_step(
+        cfg, st, scans[0, W], wheels[0, W, 0], wheels[0, W, 1], drive.DT))
+    check(torch.equal(before, shared), "a SLAM step changed its input grid")
+    del before
+
+    # fused_fusion=False: the window sum goes through K4, then apply_patch.
+    cfg_k4 = cfg.replace(grid=dataclasses.replace(cfg.grid,
+                                                  fused_fusion=False))
+    _cuda.reset_launches()
+    for r in range(3):
+        out = robot_tick(r, scans, wheels, c=cfg_k4)
+        check(bool(torch.isfinite(out.grid).all()), "K4 window non-finite")
+    torch.cuda.synchronize()
+    launches_k4 = dict(_cuda.LAUNCHES)
+
+    stages = _mapper_stages(torch, cfg, states[0]._replace(grid=shared),
+                            scans[0], wheels[0], drive.DT)
+    busy = _mapper_profile(torch, lambda: [
+        robot_tick(r, scans, wheels) for r in range(R)])
+
+    grid = shared
+    occ = int((grid > cfg.grid.occ_threshold).sum())
+    free = int((grid < cfg.grid.free_threshold).sum())
+    n_scans = R * (W + 2)
+    steady = tick_ms[1:] if len(tick_ms) > 1 else tick_ms
+    matched = sum(int(d.matched) for d in diags)
+    keys = sum(int(d.key_added) for d in diags)
+    out = {"phase": "mapper", "ticks": ticks, "robots": R, "window": W,
+           "scans_per_tick": n_scans, "first_tick_ms": tick_ms[0],
+           "tick_ms": _p50_p90(steady),
+           "window_step_ms": _p50_p90(times["window"][R:]),
+           "single_step_ms": _p50_p90(times["single"][2 * R:]),
+           "scans_per_s": n_scans / (statistics.median(steady) / 1e3),
+           "matched": matched, "key_steps": keys, "steps": len(diags),
+           "n_keyscans": [int(s.n_keyscans) for s in states],
+           "occ_cells": occ, "free_cells": free,
+           "host_syncs": {"window_step": n_window,
+                          "single_step": n_single,
+                          "single_step_was_key": bool(d1.key_added)},
+           "launches": launches,
+           "launches_per_tick": {k: v / ticks for k, v in launches.items()},
+           "launches_fused_fusion_false_3_windows": launches_k4,
+           "window_step_stages_ms": stages, "profiled_tick": busy,
+           "pose_err_m": [float(torch.dist(s.pose[:2], truth[r, :2]))
+                          for r, s in enumerate(states)]}
+    emit(out)
+    check(bool(torch.isfinite(grid).all()), "mapper grid non-finite")
+    check(all(bool(torch.isfinite(s.pose).all()) for s in states),
+          "non-finite SLAM pose")
+    check(matched > 0, "no match was accepted in the mapper phase")
+    check(occ > 0, "the mapper mapped no occupied cell")
+    for name in ("sensor_model_delta", "sensor_model_raster",
+                 "window_apply"):
+        check(launches[name] > 0, f"kernel {name} never launched on the "
+              "mapper path")
+    check(launches_k4["window_delta"] > 0,
+          "kernel window_delta never launched with fused_fusion=False")
+    return out
+
+
+def _mapper_stages(torch, cfg, st, scans, wheels, dt) -> dict:
+    """Time of each stage of one window step, called alone on `st`
+    (CUDA-event medians; the stages are host-bound, so these include the
+    host's gaps between launches)."""
+    from jax_mapping_torch.models import slam as S
+    from jax_mapping_torch.ops import grid as G
+    from jax_mapping_torch.ops import posegraph as PG
+    from jax_mapping_torch.ops import scan_match as M
+    from jax_mapping_torch.ops.odometry import rk2_step
+    W = cfg.fleet.batch_scans
+    dtt = torch.full((), dt, device=st.pose.device)
+
+    def integrate():
+        p, out = st.pose, []
+        for i in range(W):
+            p = rk2_step(cfg.robot, p, wheels[i, 0], wheels[i, 1], dtt)
+            out.append(p)
+        return torch.stack(out)
+
+    poses = integrate()
+    k = int(st.graph.n_poses)
+
+    def graph_ops():
+        g = PG.add_pose(st.graph, poses[-1])
+        g = PG.odometry_edge(g, k - 1, k) if k > 0 else g
+        return PG.loop_candidate(cfg.loop, PG.batch1(g),
+                                 torch.full((1,), k, dtype=torch.int32,
+                                            device=poses.device))
+    stages = {
+        "integrate": integrate,
+        "window_agreement": lambda: S._window_agreement(
+            cfg, st.grid, scans[:W - 1], poses[:W - 1]),
+        "fuse_scans_window_checked": lambda: G.fuse_scans_window_checked(
+            cfg.grid, cfg.scan, st.grid, scans[:W - 1], poses[:W - 1]),
+        "match": lambda: M.match(cfg.grid, cfg.scan, cfg.matcher, st.grid,
+                                 scans[W - 1], poses[-1]),
+        "fuse_scan": lambda: G.fuse_scan(cfg.grid, cfg.scan, st.grid,
+                                         scans[W - 1], poses[-1]),
+        "graph_and_loop_candidate": graph_ops,
+        "window_step": lambda: S.slam_step_window(cfg, st, scans[:W],
+                                                  wheels[:W], dt),
+    }
+    return {k: cuda_ms(f, reps=5, warmup=1) for k, f in stages.items()}
+
+
+def _mapper_profile(torch, fn) -> dict:
+    """One call of fn under torch.profiler: wall time, the time in which
+    any stream ran a kernel or copy, and the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+             for e in _device_events(prof)]
+    busy_ms = _union_us(spans) / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / wall_ms if spans else None,
+            "device_ops": len(spans)}
+
+
+def _bench_window(torch, cfg, B: int):
+    """bench.py's window workload: B scans on a 0.4 m loop, ranges
+    uniform 1-10 m with 5% dropouts (numpy seed 0)."""
+    import numpy as np
+    s = cfg.scan
+    rng = np.random.default_rng(0)
+    t = np.linspace(0, 2 * math.pi, B, endpoint=False)
+    poses = np.stack([0.4 * np.cos(t), 0.4 * np.sin(t), t + math.pi / 2],
+                     axis=1).astype(np.float32)
+    ranges = rng.uniform(1.0, 10.0, (B, s.padded_beams)).astype(np.float32)
+    ranges[:, s.n_beams:] = 0.0
+    ranges[rng.random((B, s.padded_beams)) < 0.05] = 0.0
+    return (torch.as_tensor(ranges, device=DEV),
+            torch.as_tensor(poses, device=DEV))
+
+
+def phase_window(torch, cfg):
+    """`fuse_scans_window` on the bench's workload, B = 256 (one K5
+    launch) and B = 1024 (two K4 subtotals, then one apply)."""
+    from jax_mapping_torch.ops import _cuda
+    from jax_mapping_torch.ops import grid as G
+    from jax_mapping_torch.ops import sensor_kernel as SK
+    out = {"phase": "window"}
+    empty = G.empty_grid(cfg.grid, DEV)
+    for B in (256, 1024):
+        ranges, poses = _bench_window(torch, cfg, B)
+        origin = G.patch_origin(cfg.grid, poses[:, :2].mean(dim=0))
+        fits = bool(SK.window_fits(cfg.grid, poses, origin))
+        check(fits, f"the {B}-scan window does not fit its patch")
+        before = dict(_cuda.LAUNCHES)
+        res = G.fuse_scans_window(cfg.grid, cfg.scan, empty, ranges, poses)
+        torch.cuda.synchronize()
+        used = {k: v - before[k] for k, v in _cuda.LAUNCHES.items()
+                if v != before[k]}
+        check(bool(torch.isfinite(res).all()), "window grid non-finite")
+        check(int((res != 0).sum()) > 0, "the window changed no cell")
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        G.fuse_scans_window(cfg.grid, cfg.scan, empty, ranges, poses)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        ms = cuda_ms(lambda: G.fuse_scans_window(cfg.grid, cfg.scan, empty,
+                                                 ranges, poses))
+        out[f"b{B}"] = {"fits": fits, "ms": ms, "scans_per_s": B / ms * 1e3,
+                        "launches_per_call": used,
+                        "peak_mem_bytes": peak,
+                        "peak_above_inputs_bytes": peak - base,
+                        "changed_cells": int((res != 0).sum())}
+    emit(out)
+    return out
+
+
+def _window_live_cells(cfg, poses, origin) -> int:
+    """Cell evaluations of K4/K5 summed over scans: the cells of every
+    block of 1024 flattened patch cells that the block's range cull keeps
+    for that scan (the cull is the kernels' own test)."""
+    import torch
+    P = cfg.grid.patch_cells
+    per_block = 1024
+    base = torch.arange(0, P * P, per_block, device=poses.device)
+    last = torch.clamp_max(base + per_block, P * P) - 1
+    keep = _rows_kept(cfg, poses, origin[0], (base // P).float(),
+                      (last // P).float())
+    return int(((last - base + 1).float() * keep).sum().item())
+
+
+def _window_inputs(torch, cfg, world, B: int, gen):
+    """B scans on a 0.4 m loop around a pose near walls whose loop fits
+    one shared patch (a pose near the border may not): scans that see
+    walls."""
+    from jax_mapping_torch.ops import grid as G
+    from jax_mapping_torch.ops import sensor_kernel as SK
+    from jax_mapping_torch.sim import lidar
+    res = cfg.grid.resolution_m
+    t = torch.linspace(0, 2 * math.pi, B + 1, device=world.device)[:B]
+    for c in _poses_near_walls(torch, cfg, world, 64, gen):
+        poses = torch.stack([c[0] + 0.4 * torch.cos(t),
+                             c[1] + 0.4 * torch.sin(t), c[2] + t],
+                            1).contiguous()
+        origin = G.patch_origin(cfg.grid, poses[:, :2].mean(dim=0))
+        if bool(SK.window_fits(cfg.grid, poses, origin)):
+            break
+    ranges = lidar.simulate_scans(cfg.scan, world, res,
+                                  int(cfg.scan.range_max_m / (res * 0.5)),
+                                  poses)
+    return ranges, poses, origin
+
+
+def window_kernel_rows(torch, cfg, world, mapped, seed: int,
+                       mapper: dict) -> dict:
+    """K4 and K5 against their plain versions at B = 15 (the mapper's
+    W - 1), 16 and 256, on scans near walls; K5 on a copy of a mapped
+    grid. No single PyTorch call computes either function (library_ms
+    none). Launches per mapper tick: K5 at the default fused_fusion=True,
+    K4 per window with fused_fusion=False."""
+    per_tick = mapper["launches_per_tick"]
+    k4_per_window = (mapper["launches_fused_fusion_false_3_windows"]
+                     ["window_delta"] / 3)
+    from jax_mapping_torch.ops import fuse_kernel as FK
+    from jax_mapping_torch.ops import sensor_kernel as SK
+    gen = torch.Generator().manual_seed(seed + 4)
+    P = cfg.grid.patch_cells
+    nb = cfg.scan.padded_beams
+    rows = {}
+    for B in (15, 16, 256):
+        ranges, poses, origin = _window_inputs(torch, cfg, world, B, gen)
+        check(bool(SK.window_fits(cfg.grid, poses, origin)),
+              "kernel-check window does not fit its patch")
+        live = _window_live_cells(cfg, poses, origin)
+        tables = B * (nb * 4 + 12) + 8
+        got = SK.window_delta(cfg.grid, cfg.scan, ranges, poses, origin)
+        want = SK.window_delta_plain(cfg.grid, cfg.scan, ranges, poses,
+                                     origin)
+        cmp = compare(got, want)
+        cmp["nonzero_cells"] = int((want != 0).sum())
+        rows[f"window_delta_b{B}"] = dict(
+            cmp, shape=[B, P, P], live_cell_evaluations=live,
+            launches_per_mapper_tick=per_tick["window_delta"],
+            launches_per_window_fused_fusion_false=k4_per_window,
+            library_ms=None,
+            ms=cuda_ms(lambda: SK.window_delta(cfg.grid, cfg.scan, ranges,
+                                               poses, origin)),
+            plain_ms=cuda_ms(lambda: SK.window_delta_plain(
+                cfg.grid, cfg.scan, ranges, poses, origin)),
+            **bound(tables + P * P * 4, live * (K1_OPS_PER_CELL + 1)))
+        got_g, want_g = mapped.clone(), mapped.clone()
+        FK.window_apply(cfg.grid, cfg.scan, got_g, ranges, poses, origin)
+        FK.window_apply_plain(cfg.grid, cfg.scan, want_g, ranges, poses,
+                              origin)
+        cmp = compare(got_g, want_g)
+        cmp["changed_cells"] = int((want_g != mapped).sum())
+        scratch = mapped.clone()
+        rows[f"window_apply_b{B}"] = dict(
+            cmp, shape=[B, P, P], live_cell_evaluations=live,
+            launches_per_mapper_tick=per_tick["window_apply"],
+            library_ms=None,
+            ms=cuda_ms(lambda: FK.window_apply(cfg.grid, cfg.scan, scratch,
+                                               ranges, poses, origin)),
+            plain_ms=cuda_ms(lambda: FK.window_apply_plain(
+                cfg.grid, cfg.scan, scratch, ranges, poses, origin)),
+            **bound(tables + 2 * P * P * 4,
+                    live * (K1_OPS_PER_CELL + 1) + 3 * P * P))
+        del got_g, want_g, scratch
+    return rows
+
+
+def phase_slam_parity(torch, seed: int, steps: int = 6):
+    """A tiny single robot near a room corner, alternating 4-scan windows
+    and single scans: from each CPU state one step on the card and one on
+    the CPU with the same scans and wheel speeds. Tolerances as the fleet
+    parity phase."""
+    from jax_mapping_torch import interop
+    from jax_mapping_torch.config import tiny_config
+    from jax_mapping_torch.models import slam as S
+    from jax_mapping_torch.ops.odometry import rk2_step, twist_to_wheel_units
+    from jax_mapping_torch.sim import lidar
+    from jax_mapping_torch.sim import world as Wd
+    cfg = tiny_config()
+    res = cfg.grid.resolution_m
+    w = torch.as_tensor(Wd.rooms_world(cfg.grid.size_cells, res))
+    gen = torch.Generator().manual_seed(seed)
+    st = S.init_state(cfg, torch.tensor([1.4, 1.0, math.pi / 2]), "cpu")
+    truth = st.pose
+    wl, wr = twist_to_wheel_units(cfg.robot, 0.3, 0.75)
+    worst = {"pose_m": 0.0, "yaw_rad": 0.0, "cells": 0}
+    keys = 0
+    dt = torch.tensor(0.1)
+    for t in range(steps):
+        n = 4 if t % 2 == 0 else 1
+        tp = []
+        for _ in range(n):
+            truth = rk2_step(cfg.robot, truth, torch.tensor(wl),
+                             torch.tensor(wr), dt)
+            tp.append(truth)
+        scans = lidar.simulate_scans(cfg.scan, w, res, 120, torch.stack(tp))
+        wheels = torch.tensor([wl, wr]) * (
+            1.0 + 0.02 * torch.randn((n, 2), generator=gen))
+        on_card = interop.slam_state_from_numpy(
+            interop.slam_state_to_numpy(st), DEV)
+        if n > 1:
+            g, gd = S.slam_step_window(cfg, on_card, scans.to(DEV),
+                                       wheels.to(DEV), 0.1)
+            st, cd = S.slam_step_window(cfg, st, scans, wheels, 0.1)
+        else:
+            g, gd = S.slam_step(cfg, on_card, scans[0].to(DEV), wheels[0, 0],
+                                wheels[0, 1], 0.1)
+            st, cd = S.slam_step(cfg, st, scans[0], wheels[0, 0],
+                                 wheels[0, 1], 0.1)
+        check(bool(gd.key_added) == bool(cd.key_added), "slam parity: key")
+        check(bool(gd.loop_closed) == bool(cd.loop_closed),
+              "slam parity: loop closure")
+        keys += int(cd.key_added)
+        dp = (g.pose.cpu() - st.pose).abs()
+        worst["pose_m"] = max(worst["pose_m"], float(dp[:2].max()))
+        worst["yaw_rad"] = max(worst["yaw_rad"], float(dp[2]))
+        worst["cells"] = max(worst["cells"],
+                             int((g.grid.cpu() != st.grid).sum()))
+    n_cells = cfg.grid.size_cells ** 2
+    emit({"phase": "slam_parity", "config": "tiny_config()", "steps": steps,
+          "key_steps": keys, "worst": worst, "cells_total": n_cells})
+    check(keys > 0, "slam parity: no key step")
+    check(worst["pose_m"] <= 1e-2 and worst["yaw_rad"] <= 1e-2,
+          f"slam parity: poses differ by {worst}")
+    check(worst["cells"] <= 1e-3 * n_cells,
+          f"slam parity: {worst['cells']} grid cells differ")
+
+
 KERNEL_ROWS = (
     ("sensor_model_delta", "jax_mapping_torch/csrc/sensor_model.cu",
      "jax_mapping/ops/sensor_kernel.py:376"),
@@ -665,7 +1170,16 @@ KERNEL_ROWS = (
      "jax_mapping/ops/frontier.py:198"),
     ("costfield_relax", "jax_mapping_torch/csrc/costfield_relax.cu",
      "jax_mapping/ops/costfield.py:115"),
+    ("window_delta", "jax_mapping_torch/csrc/window_fuse.cu",
+     "jax_mapping/ops/sensor_kernel.py:309"),
+    ("window_apply", "jax_mapping_torch/csrc/window_fuse.cu",
+     "jax_mapping/ops/fuse_kernel.py:222"),
 )
+
+#: The kernel-check row each kernel's line reports: K4/K5 at the mapper's
+#: window of W - 1 = 15 scans.
+_LINE_ROW = {"window_delta": "window_delta_b15",
+             "window_apply": "window_apply_b15"}
 
 
 def main(argv=None) -> int:
@@ -695,20 +1209,30 @@ def main(argv=None) -> int:
         phase_stages(torch, cfg, st, world)
         phase_profile(torch, cfg, st, world, args.seed)
         mapped = phase_refuse(torch, cfg, world, args.seed)
-        rows = phase_kernels(torch, cfg, world, mapped, args.seed)
+        mapper = phase_mapper(torch, cfg, args.seed)
+        phase_window(torch, cfg)
+        rows = phase_kernels(torch, cfg, world, mapped, args.seed, mapper)
+        del mapped, world, st
         phase_parity(torch, args.seed)
+        phase_slam_parity(torch, args.seed)
         check("jax" not in sys.modules and "jax_mapping" not in sys.modules,
               "JAX was imported")
     except Failed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
 
+    # Launches come from each kernel's main-path run: the fleet ticks for
+    # K1-K3, the mapper ticks for K5, the fused_fusion=False windows for K4.
+    launches = {**fleet["launches"],
+                "window_apply": mapper["launches"]["window_apply"],
+                "window_delta": mapper[
+                    "launches_fused_fusion_false_3_windows"]["window_delta"]}
     kernels = []
     for name, src, replaces in KERNEL_ROWS:
-        r = rows[name]
+        r = rows[_LINE_ROW.get(name, name)]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": fleet["launches"][name],
+            "replaces": replaces, "launches": launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -16,6 +18,19 @@ def resolve_device(device=None) -> torch.device:
             "jax_mapping_torch: no CUDA device; pass device='cpu' to run "
             "the plain PyTorch path on the CPU")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def _const(values: tuple, dtype: torch.dtype, device: str) -> torch.Tensor:
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
+def const(values: tuple, device, dtype=torch.float32) -> torch.Tensor:
+    """A constant tensor of `values` on `device`, made once and cached.
+    Building a tensor from Python values on the card copies it from the
+    host, and that copy waits for the stream: a host sync on every call.
+    The cached tensor is shared, so callers must not modify it."""
+    return _const(tuple(values), dtype, str(torch.device(device)))
 
 
 def full_f32() -> None:

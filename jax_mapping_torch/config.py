@@ -1,5 +1,6 @@
 """Configuration for the PyTorch port: the slice of `SlamConfig` that the
-fleet tick reads, with the JAX package's field names and defaults.
+fleet tick and the SLAM step read, with the JAX package's field names and
+defaults.
 
 The dataclasses are frozen, so a config is hashable and can key caches.
 `SlamConfig.from_json` accepts the JSON that the JAX package's
@@ -40,8 +41,10 @@ class GridConfig:
     occ_threshold: float = 0.5
     free_threshold: float = -0.5
     hit_tolerance_cells: float = 1.0
-    # Selects the JAX package's fusion engine. Both give the same grid;
-    # the port always streams (`ops/fuse_kernel.stream_fold`).
+    # Selects the JAX package's fusion engine. The port's scattered folds
+    # always stream (`ops/fuse_kernel.stream_fold`); a shared-patch window
+    # goes through kernel K5 when True and through K4 plus `apply_patch`
+    # when False. Both give the same grid.
     fused_fusion: bool = True
 
     @property

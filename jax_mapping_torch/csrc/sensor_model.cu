@@ -14,51 +14,25 @@
 // (occ needs r <= max range, free needs r < carve - tol <= max range,
 // rasters need r <= max range), so it writes zeros and returns.
 //
-// Numerics follow the plain PyTorch version (ops/grid.py) operation for
-// operation: explicit round-to-nearest intrinsics, IEEE division and
-// square root, fmodf plus sign fix for the [0, 2pi) wrap, rintf (half to
-// even) for the beam index, and no multiply-add contraction (the file is
-// also built with --fmad=false). The kernel and the plain version agree
-// bit for bit.
+// The per-cell model (bearing polynomial, wrap, beam rounding,
+// classification) lives in sensor_cell.cuh, shared with window_fuse.cu; it
+// agrees bit for bit with the plain version.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sensor_cell.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kRowsPerBand = 4;
 
-__device__ __forceinline__ float atan2_poly(float y, float x) {
-  const float ax = fabsf(x);
-  const float ay = fabsf(y);
-  const float mx = fmaxf(ax, ay);
-  const float mn = fminf(ax, ay);
-  const float a = __fdiv_rn(mn, fmaxf(mx, 1e-30f));
-  const float s = __fmul_rn(a, a);
-  float p = 0.002932762f;
-  p = __fadd_rn(__fmul_rn(p, s), -0.01641319f);
-  p = __fadd_rn(__fmul_rn(p, s), 0.043278243f);
-  p = __fadd_rn(__fmul_rn(p, s), -0.075569004f);
-  p = __fadd_rn(__fmul_rn(p, s), 0.10667487f);
-  p = __fadd_rn(__fmul_rn(p, s), -0.14211106f);
-  p = __fadd_rn(__fmul_rn(p, s), 0.19993694f);
-  p = __fadd_rn(__fmul_rn(p, s), -0.33333138f);
-  p = __fadd_rn(__fmul_rn(p, s), 1.0f);
-  float r = __fmul_rn(p, a);
-  if (ay > ax) r = __fsub_rn(1.5707963267948966f, r);
-  if (x < 0.0f) r = __fsub_rn(3.141592653589793f, r);
-  return (y < 0.0f) ? -r : r;
-}
-
 template <bool kRaster>
 __global__ void __launch_bounds__(kThreads) sensor_model_kernel(
     const float* __restrict__ ranges, const float* __restrict__ poses,
     const int* __restrict__ origins, float* __restrict__ out, int P,
-    int nb_pad, int n_beams, float res, float ox, float oy, float inc,
-    float angle_min, int ccw, int full_circle, float invalid_range,
-    float range_min, float range_max, float max_r, float tol, float lo_occ,
-    float lo_free) {
+    int nb_pad, sensor_cell::Params q) {
   extern __shared__ float table[];
   const int b = blockIdx.y;
   const int i0 = blockIdx.x * kRowsPerBand;
@@ -71,68 +45,25 @@ __global__ void __launch_bounds__(kThreads) sensor_model_kernel(
   float* outb = out + (size_t)b * P * P;
   const int ncell = (i1 - i0) * P;
 
-  // Band cull (conservative: two cells of slack on the row gap).
-  const float pose_row = (py - oy) / res - 0.5f - (float)row0;
-  const float gap = fmaxf(fmaxf((float)i0 - pose_row,
-                                pose_row - (float)(i1 - 1)), 0.0f);
-  if (gap * res > max_r + 2.0f * res) {
+  if (sensor_cell::rows_out_of_range(py, row0, i0, i1, q)) {
     for (int t = threadIdx.x; t < ncell; t += blockDim.x)
       outb[(size_t)i0 * P + t] = 0.0f;
     return;
   }
 
-  // Sanitised signed beam table (grid.sanitize_ranges semantics).
   const float* rb = ranges + (size_t)b * nb_pad;
-  for (int j = threadIdx.x; j < nb_pad; j += blockDim.x) {
-    float r = rb[j];
-    const bool in_beam = j < n_beams;
-    const bool is_zero = r <= 0.0f;
-    r = is_zero ? invalid_range : r;
-    const bool hit = !is_zero && r >= range_min && r <= range_max && in_beam;
-    r = in_beam ? r : 0.0f;
-    const float carve = fminf(r > 0.0f ? r : 0.0f, max_r);
-    table[j] = hit ? r : -carve;
-  }
+  for (int j = threadIdx.x; j < nb_pad; j += blockDim.x)
+    table[j] = sensor_cell::beam_entry(rb[j], j, q);
   __syncthreads();
 
-  const float two_pi = 6.283185307179586f;
   for (int t = threadIdx.x; t < ncell; t += blockDim.x) {
     const int i = i0 + t / P;
     const int j = t - (t / P) * P;
-    const float y = __fadd_rn(__fmul_rn(__fadd_rn((float)(row0 + i), 0.5f),
-                                        res), oy);
-    const float x = __fadd_rn(__fmul_rn(__fadd_rn((float)(col0 + j), 0.5f),
-                                        res), ox);
-    const float dx = __fsub_rn(x, px);
-    const float dy = __fsub_rn(y, py);
-    const float r = __fsqrt_rn(__fadd_rn(__fmul_rn(dx, dx),
-                                         __fmul_rn(dy, dy)));
-    float th = __fsub_rn(atan2_poly(dy, dx), yaw);
-    if (!ccw) th = -th;
-    th = __fsub_rn(th, angle_min);
-    th = fmodf(th, two_pi);
-    if (th < 0.0f) th = __fadd_rn(th, two_pi);
-    const int beam_raw = (int)rintf(__fdiv_rn(th, inc));
-    int beam = beam_raw % n_beams;
-    if (beam < 0) beam += n_beams;
-    const bool in_fov = full_circle || beam_raw <= n_beams - 1;
-    const float enc = table[beam];
-    const bool beam_hit = enc > 0.0f && in_fov;
-    float v;
-    if (kRaster) {
-      const bool keep = beam_hit && r <= max_r;
-      const float w = fmaxf(
-          __fsub_rn(1.0f, __fdiv_rn(fabsf(__fsub_rn(r, enc)), res)), 0.0f);
-      v = keep ? w : 0.0f;
-    } else {
-      const float carve = enc > 0.0f ? fminf(enc, max_r) : -enc;
-      const bool is_free = (r < __fsub_rn(carve, tol)) && (r > range_min) &&
-                           in_fov;
-      const bool is_occ = beam_hit && (fabsf(__fsub_rn(r, enc)) <= tol) &&
-                          (r <= max_r);
-      v = is_occ ? lo_occ : (is_free ? lo_free : 0.0f);
-    }
-    outb[(size_t)i * P + j] = v;
+    const sensor_cell::CellRay c =
+        sensor_cell::cell_ray(row0 + i, col0 + j, px, py, yaw, q);
+    const float enc = table[c.beam];
+    outb[(size_t)i * P + j] = kRaster ? sensor_cell::raster_of(c, enc, q)
+                                      : sensor_cell::delta_of(c, enc, q);
   }
 }
 
@@ -145,6 +76,9 @@ extern "C" int sensor_model_launch(
     float invalid_range, float range_min, float range_max, float max_r,
     float tol, float lo_occ, float lo_free, void* stream) {
   if (B <= 0 || P <= 0) return 0;
+  const sensor_cell::Params q{res, ox, oy, inc, angle_min, n_beams, ccw,
+                              full_circle, invalid_range, range_min,
+                              range_max, max_r, tol, lo_occ, lo_free};
   const dim3 grid((P + kRowsPerBand - 1) / kRowsPerBand, B);
   const size_t smem = (size_t)nb_pad * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -153,15 +87,11 @@ extern "C" int sensor_model_launch(
   const int* og = static_cast<const int*>(origins);
   float* o = static_cast<float*>(out);
   if (raster) {
-    sensor_model_kernel<true><<<grid, kThreads, smem, s>>>(
-        rg, ps, og, o, P, nb_pad, n_beams, res, ox, oy, inc, angle_min, ccw,
-        full_circle, invalid_range, range_min, range_max, max_r, tol, lo_occ,
-        lo_free);
+    sensor_model_kernel<true><<<grid, kThreads, smem, s>>>(rg, ps, og, o, P,
+                                                           nb_pad, q);
   } else {
-    sensor_model_kernel<false><<<grid, kThreads, smem, s>>>(
-        rg, ps, og, o, P, nb_pad, n_beams, res, ox, oy, inc, angle_min, ccw,
-        full_circle, invalid_range, range_min, range_max, max_r, tol, lo_occ,
-        lo_free);
+    sensor_model_kernel<false><<<grid, kThreads, smem, s>>>(rg, ps, og, o, P,
+                                                            nb_pad, q);
   }
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,5 @@
-"""Carry fleet state between the JAX package and the port.
+"""Carry fleet and single-robot SLAM state between the JAX package and
+the port.
 
 `fleet_state_from_numpy` reads a JAX-package `FleetState` whose leaves
 are numpy arrays (or any object with the same attribute layout: `sim`
@@ -7,6 +8,8 @@ the top-level arrays) and builds the port's `FleetState` on a device. The
 JAX state's PRNG key is dropped: the port takes its random draws as
 inputs. `fleet_state_to_numpy` goes back to a port `FleetState` of numpy
 arrays, the layout a test compares against the JAX side.
+`slam_state_from_numpy` / `slam_state_to_numpy` do the same for a JAX
+`SlamState` (its `graph` is one unbatched `PoseGraph`, as in the port).
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import numpy as np
 import torch
 
 from jax_mapping_torch.models.fleet import FleetState
+from jax_mapping_torch.models.slam import SlamState
 from jax_mapping_torch.ops.posegraph import PoseGraph
 from jax_mapping_torch.sim.thymio import FleetSimState
 
@@ -26,9 +30,11 @@ _DTYPES = {np.dtype(np.float32): torch.float32,
 
 
 def _t(a, device) -> torch.Tensor:
+    # np.ascontiguousarray would turn a 0-d leaf into shape (1,).
     a = np.asarray(a)
-    return torch.as_tensor(np.ascontiguousarray(a),
-                           dtype=_DTYPES[a.dtype], device=device)
+    if not a.flags.c_contiguous:
+        a = a.copy(order="C")
+    return torch.as_tensor(a, dtype=_DTYPES[a.dtype], device=device)
 
 
 def fleet_state_from_numpy(tree, device) -> FleetState:
@@ -62,3 +68,29 @@ def fleet_state_to_numpy(state: FleetState) -> FleetState:
         graphs=PoseGraph(*(n(x) for x in state.graphs)),
         scan_rings=n(state.scan_rings), n_loops=n(state.n_loops),
         t=n(state.t))
+
+
+def slam_state_from_numpy(tree, device) -> SlamState:
+    """A JAX SlamState with numpy leaves -> the port's SlamState."""
+    g = tree.graph
+    return SlamState(
+        grid=_t(tree.grid, device), pose=_t(tree.pose, device),
+        last_key_pose=_t(tree.last_key_pose, device),
+        graph=PoseGraph(*(_t(getattr(g, f), device)
+                          for f in PoseGraph._fields)),
+        scan_ring=_t(tree.scan_ring, device),
+        n_loops=_t(tree.n_loops, device),
+        n_keyscans=_t(tree.n_keyscans, device))
+
+
+def slam_state_to_numpy(state: SlamState) -> SlamState:
+    """The port's SlamState -> the same structure with numpy leaves."""
+    def n(x):
+        return x.detach().cpu().numpy()
+
+    return SlamState(
+        grid=n(state.grid), pose=n(state.pose),
+        last_key_pose=n(state.last_key_pose),
+        graph=PoseGraph(*(n(x) for x in state.graph)),
+        scan_ring=n(state.scan_ring), n_loops=n(state.n_loops),
+        n_keyscans=n(state.n_keyscans))

@@ -3,7 +3,8 @@
 Each source in `jax_mapping_torch/csrc/` is compiled by `nvcc` into its
 own shared library with a plain C interface and loaded with `ctypes`.
 Libraries land in `jax_mapping_torch/_build/`, named by a hash of their
-source and flags, so a checkout builds each kernel once. Nothing is
+source, the shared headers (`csrc/*.cuh`) and the flags, so a checkout
+builds each kernel once. Nothing is
 built or loaded when this module is imported: the first call that needs
 a kernel builds it (or `build_all()` builds every kernel in parallel).
 
@@ -22,7 +23,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -35,6 +36,7 @@ SOURCES = {
     "sensor_model": "sensor_model.cu",
     "label_prop": "label_prop.cu",
     "costfield_relax": "costfield_relax.cu",
+    "window_fuse": "window_fuse.cu",
 }
 
 #: nvcc flags. --fmad=false: no multiply-add contraction, so every float
@@ -50,6 +52,8 @@ LAUNCHES: Dict[str, int] = {
     "sensor_model_raster": 0,
     "label_prop": 0,
     "costfield_relax": 0,
+    "window_delta": 0,
+    "window_apply": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -60,15 +64,19 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
 
-#: C signatures: name -> (entry point, argtypes).
+_SENSOR_ARGS = [_I, _F, _F, _F, _F, _F, _I, _I,
+                _F, _F, _F, _F, _F, _F, _F]      # sensor_cell::Params
+_WINDOW_ARGS = [_P, _P, _I, _P, _P, _I, _I, _I, *_SENSOR_ARGS]
+
+#: C signatures: library -> {entry point: argtypes}.
 _SIGNATURES = {
-    "sensor_model": ("sensor_model_launch",
-                     [_I, _P, _P, _P, _P, _I, _I, _I, _I,
-                      _F, _F, _F, _F, _F, _I, _I,
-                      _F, _F, _F, _F, _F, _F, _F, _P]),
-    "label_prop": ("label_prop_launch", [_P, _P, _P, _P, _I, _I, _IP, _P]),
-    "costfield_relax": ("costfield_relax_launch",
-                        [_P, _P, _P, _P, _I, _I, _I, _IP, _P]),
+    "sensor_model": {"sensor_model_launch":
+                     [_I, _P, _P, _P, _P, _I, _I, _I, *_SENSOR_ARGS, _P]},
+    "label_prop": {"label_prop_launch": [_P, _P, _P, _P, _I, _I, _IP, _P]},
+    "costfield_relax": {"costfield_relax_launch":
+                        [_P, _P, _P, _P, _I, _I, _I, _IP, _P]},
+    "window_fuse": {"window_delta_launch": [*_WINDOW_ARGS, _P],
+                    "window_apply_launch": [*_WINDOW_ARGS, _F, _F, _P]},
 }
 
 
@@ -94,7 +102,9 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / SOURCES[name]).read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    h = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()
+                       ).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{h}.so"
 
 
@@ -154,18 +164,20 @@ def library(name: str) -> ctypes.CDLL:
         out, proc, tmp = _start_build(name)
         _finish_build(name, out, proc, tmp)
         lib = ctypes.CDLL(str(out))
-        entry, argtypes = _SIGNATURES[name]
-        fn = getattr(lib, entry)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        for entry, argtypes in _SIGNATURES[name].items():
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _libs[name] = lib
         return lib
 
 
-def call(name: str, *args) -> None:
-    """Call library `name`'s launch entry on the current stream; raise if
-    the launch reported a CUDA error (the entry returns cudaGetLastError())."""
-    entry = _SIGNATURES[name][0]
+def call(name: str, *args, entry: Optional[str] = None) -> None:
+    """Call library `name`'s launch entry (`entry`, which a library with
+    one entry may leave out) on the current stream; raise if the launch
+    reported a CUDA error (the entry returns cudaGetLastError())."""
+    if entry is None:
+        (entry,) = _SIGNATURES[name]
     fn = getattr(library(name), entry)
     stream = torch.cuda.current_stream().cuda_stream
     rc = fn(*args, ctypes.c_void_p(stream))

@@ -9,6 +9,13 @@ read-modify-writes, which keeps overlapping patches exact.
 kernel K1 (`csrc/sensor_model.cu`, wrapped by `ops/sensor_kernel.py`).
 They are batched over scans, run the same float operations in the same
 order as the kernel, and are what the CPU path uses.
+
+The fuse entry points return a new grid and leave their input unchanged,
+as the JAX functions do; inside, the fold updates that copy in place.
+A shared-patch window (`fuse_scans_window`) goes through kernel K5 or K4
+(`ops/fuse_kernel.py`, `ops/sensor_kernel.py`). The map-side functions
+(`decay_grid`, `merge_delta`, `to_occupancy`, `to_gray`,
+`downsample_gray`, `tile_hashes`) follow at the end.
 """
 
 from __future__ import annotations
@@ -19,7 +26,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from jax_mapping_torch._util import div
+from jax_mapping_torch._util import const, div
 from jax_mapping_torch.config import GridConfig, ScanConfig
 from jax_mapping_torch.ops import sensor_kernel as SK
 from jax_mapping_torch.ops import trig
@@ -31,9 +38,7 @@ from jax_mapping_torch.ops import trig
 
 def world_to_cell(grid: GridConfig, xy: torch.Tensor) -> torch.Tensor:
     """Continuous world metres (..., 2) -> continuous cell (col, row)."""
-    ox, oy = grid.origin_m
-    origin = torch.tensor([ox, oy], dtype=torch.float32, device=xy.device)
-    return div(xy - origin, grid.resolution_m)
+    return div(xy - const(grid.origin_m, xy.device), grid.resolution_m)
 
 
 def empty_grid(grid: GridConfig, device) -> torch.Tensor:
@@ -178,14 +183,17 @@ def raster_patch(grid: GridConfig, scan_cfg: ScanConfig,
 # ---------------------------------------------------------------------------
 
 def apply_patch(grid_cfg: GridConfig, grid_arr: torch.Tensor,
-                delta: torch.Tensor, row0: int, col0: int) -> None:
+                delta: torch.Tensor, row0: int, col0: int,
+                clamp: bool = True) -> None:
     """grid[row0:row0+P, col0:col0+P] += delta, clamped to the log-odds
-    bounds. Updates `grid_arr` in place (the JAX version returns a new
-    array; in place saves a full-grid copy per scan)."""
+    bounds unless `clamp` is False. Updates `grid_arr` in place (the JAX
+    version returns a new array; in place saves a full-grid copy per
+    scan)."""
     P = grid_cfg.patch_cells
     sl = grid_arr[row0:row0 + P, col0:col0 + P]
     sl.add_(delta)
-    sl.clamp_(grid_cfg.logodds_min, grid_cfg.logodds_max)
+    if clamp:
+        sl.clamp_(grid_cfg.logodds_min, grid_cfg.logodds_max)
 
 
 def _classify_batch(grid_cfg: GridConfig, scan_cfg: ScanConfig,
@@ -198,7 +206,7 @@ def _classify_batch(grid_cfg: GridConfig, scan_cfg: ScanConfig,
 
 def _fold(grid_cfg: GridConfig, grid_arr: torch.Tensor,
           deltas: torch.Tensor, origins: torch.Tensor,
-          mask_b: Optional[torch.Tensor]) -> None:
+          mask_b: Optional[torch.Tensor], clamp: bool = True) -> None:
     """Apply patches in b order, in place (exact under overlap).
 
     The patch origins and the mask come to the host once per call (one
@@ -211,7 +219,7 @@ def _fold(grid_cfg: GridConfig, grid_arr: torch.Tensor,
     host = torch.cat([origins.to(torch.int32), m[:, None]], dim=1).tolist()
     for b, (r0, c0, keep) in enumerate(host):
         if keep:
-            apply_patch(grid_cfg, grid_arr, deltas[b], r0, c0)
+            apply_patch(grid_cfg, grid_arr, deltas[b], r0, c0, clamp)
 
 
 # Scans per fold chunk; the fused engine streams each chunk in
@@ -248,8 +256,8 @@ def _pad_batch_to(bucket: int, ranges_b: torch.Tensor, poses_b: torch.Tensor,
 
 def _classify_fold(grid_cfg: GridConfig, scan_cfg: ScanConfig,
                    grid_arr: torch.Tensor, ranges_b: torch.Tensor,
-                   poses_b: torch.Tensor,
-                   mask_b: Optional[torch.Tensor]) -> None:
+                   poses_b: torch.Tensor, mask_b: Optional[torch.Tensor],
+                   clamp: bool = True) -> None:
     """Chunked classify -> fold over the batch, in place on `grid_arr`.
 
     Chunks of `_FUSE_CHUNK` scans; the remainder is padded to its
@@ -269,7 +277,8 @@ def _classify_fold(grid_cfg: GridConfig, scan_cfg: ScanConfig,
     for k in range(nc):
         sl = slice(k * CB, (k + 1) * CB)
         FK.stream_fold(grid_cfg, scan_cfg, grid_arr, ranges_b[sl],
-                       poses_b[sl], None if mask_b is None else mask_b[sl])
+                       poses_b[sl], None if mask_b is None else mask_b[sl],
+                       clamp)
     if rem:
         bucket = min(_batch_bucket(rem), CB)
         r, p, m = _pad_batch_to(
@@ -277,7 +286,7 @@ def _classify_fold(grid_cfg: GridConfig, scan_cfg: ScanConfig,
             None if mask_b is None else mask_b[B - rem:])
         if bucket == rem and mask_b is None:
             m = None
-        FK.stream_fold(grid_cfg, scan_cfg, grid_arr, r, p, m)
+        FK.stream_fold(grid_cfg, scan_cfg, grid_arr, r, p, m, clamp)
 
 
 def fuse_scans_masked(grid_cfg: GridConfig, scan_cfg: ScanConfig,
@@ -290,6 +299,76 @@ def fuse_scans_masked(grid_cfg: GridConfig, scan_cfg: ScanConfig,
     _classify_fold(grid_cfg, scan_cfg, out, ranges_b, poses_b,
                    mask_b.to(torch.bool))
     return out
+
+
+def fuse_scan(grid_cfg: GridConfig, scan_cfg: ScanConfig,
+              grid_arr: torch.Tensor, ranges: torch.Tensor,
+              pose: torch.Tensor) -> torch.Tensor:
+    """Fuse one scan (beams,) at pose (3,) into a copy of the grid."""
+    out = grid_arr.clone()
+    deltas, origins = _classify_batch(grid_cfg, scan_cfg, ranges[None],
+                                      pose[None])
+    _fold(grid_cfg, out, deltas, origins, None)
+    return out
+
+
+def fuse_scans(grid_cfg: GridConfig, scan_cfg: ScanConfig,
+               grid_arr: torch.Tensor, ranges_b: torch.Tensor,
+               poses_b: torch.Tensor) -> torch.Tensor:
+    """Fuse (B, beams) scans at (B, 3) poses into a copy of the grid, each
+    at its own patch, folded in b order (exact under overlap)."""
+    out = grid_arr.clone()
+    _classify_fold(grid_cfg, scan_cfg, out, ranges_b, poses_b, None)
+    return out
+
+
+def scan_deltas_full(grid_cfg: GridConfig, scan_cfg: ScanConfig,
+                     ranges_b: torch.Tensor,
+                     poses_b: torch.Tensor) -> torch.Tensor:
+    """A batch of scans -> one full-size log-odds delta grid, unclamped
+    (the fleet merge path adds it to the map with `merge_delta`)."""
+    out = empty_grid(grid_cfg, ranges_b.device)
+    _classify_fold(grid_cfg, scan_cfg, out, ranges_b, poses_b, None,
+                   clamp=False)
+    return out
+
+
+def fuse_scans_window(grid_cfg: GridConfig, scan_cfg: ScanConfig,
+                      grid_arr: torch.Tensor, ranges_b: torch.Tensor,
+                      poses_b: torch.Tensor) -> torch.Tensor:
+    """Fuse a temporal scan window (one robot's consecutive scans) into a
+    copy of the grid: all B scans share one patch, snapped from their mean
+    pose, and the grid sees one clamped read-modify-write (the clamp
+    applies once per window, not per scan). Every pose must fit the patch
+    (`SK.window_fits`); `fuse_scans_window_checked` checks it.
+
+    `GridConfig.fused_fusion` True goes to `fuse_kernel.window_fused`
+    (kernel K5, or K4 subtotals above 512 scans); False sums the window
+    with kernel K4 and applies it with `apply_patch`, as the JAX package
+    does on a TPU. The two give the same grid."""
+    from jax_mapping_torch.ops import fuse_kernel as FK
+    origin = patch_origin(grid_cfg, poses_b[:, :2].mean(dim=0))
+    if grid_cfg.fused_fusion:
+        return FK.window_fused(grid_cfg, scan_cfg, grid_arr, ranges_b,
+                               poses_b, origin)
+    delta = SK.window_delta(grid_cfg, scan_cfg, ranges_b, poses_b, origin)
+    out = grid_arr.clone()
+    apply_patch(grid_cfg, out, delta, *FK._patch_start(grid_cfg, origin))
+    return out
+
+
+def fuse_scans_window_checked(grid_cfg: GridConfig, scan_cfg: ScanConfig,
+                              grid_arr: torch.Tensor, ranges_b: torch.Tensor,
+                              poses_b: torch.Tensor) -> torch.Tensor:
+    """`fuse_scans_window` that cannot silently lose evidence: a window
+    whose poses do not fit the shared patch (`SK.window_fits`) takes the
+    exact per-scan fold (`fuse_scans`) instead. The JAX `lax.cond`
+    becomes a Python `if`, which reads the check on the host: one sync."""
+    origin = patch_origin(grid_cfg, poses_b[:, :2].mean(dim=0))
+    if bool(SK.window_fits(grid_cfg, poses_b, origin)):
+        return fuse_scans_window(grid_cfg, scan_cfg, grid_arr, ranges_b,
+                                 poses_b)
+    return fuse_scans(grid_cfg, scan_cfg, grid_arr, ranges_b, poses_b)
 
 
 # ---------------------------------------------------------------------------
@@ -314,3 +393,94 @@ def downsample_max(grid_arr: torch.Tensor, factor: int) -> torch.Tensor:
     n0, n1 = grid_arr.shape
     return grid_arr.reshape(n0 // factor, factor, n1 // factor,
                             factor).amax(dim=(1, 3))
+
+
+# ---------------------------------------------------------------------------
+# Map-side functions: decay, merge, export, serving tiles
+# ---------------------------------------------------------------------------
+
+def decay_grid(grid_arr: torch.Tensor, factor: float,
+               cap: float) -> torch.Tensor:
+    """One map-healing pass: every cell's log-odds times `factor`, clamped
+    to +-`cap`, in float32 arithmetic (as JAX's `jnp.float32(factor)`)."""
+    f, c = (grid_arr.new_full((), v) for v in (factor, cap))
+    return torch.clamp(grid_arr * f, -c, c)
+
+
+def merge_delta(grid_cfg: GridConfig, grid_arr: torch.Tensor,
+                delta_full: torch.Tensor) -> torch.Tensor:
+    """Apply a full-size delta (e.g. the sum of a fleet's deltas)."""
+    return torch.clamp(grid_arr + delta_full, grid_cfg.logodds_min,
+                       grid_cfg.logodds_max)
+
+
+def _select3(a: torch.Tensor, b: torch.Tensor, va: int, vb: int,
+             vc: int, dtype) -> torch.Tensor:
+    """va where a, else vb where b, else vc, as `dtype` (no mask
+    indexing, which would read a count back from the device)."""
+    return torch.where(a, va, torch.where(b, vb, vc)).to(dtype)
+
+
+def to_occupancy(grid_cfg: GridConfig, grid_arr: torch.Tensor
+                 ) -> torch.Tensor:
+    """Log-odds -> int8 {-1 unknown, 0 free, 100 occupied}."""
+    return _select3(grid_arr > grid_cfg.occ_threshold,
+                    grid_arr < grid_cfg.free_threshold, 100, 0, -1,
+                    torch.int8)
+
+
+def to_gray(grid_cfg: GridConfig, grid_arr: torch.Tensor) -> torch.Tensor:
+    """Log-odds -> uint8 gray in grid orientation (row 0 = min-y): 127
+    unknown, 255 free, 0 occupied."""
+    return _select3(grid_arr > grid_cfg.occ_threshold,
+                    grid_arr < grid_cfg.free_threshold, 0, 255, 127,
+                    torch.uint8)
+
+
+def downsample_gray(img: torch.Tensor) -> torch.Tensor:
+    """uint8 gray image -> 2x coarser by block priority: occupied (0) >
+    free (255) > unknown (127)."""
+    rank = _select3(img == 0, img == 255, 0, 1, 2, torch.uint8)
+    n0, n1 = img.shape
+    blk = rank.reshape(n0 // 2, 2, n1 // 2, 2).amin(dim=(1, 3))
+    return _select3(blk == 0, blk == 1, 0, 255, 127, torch.uint8)
+
+
+_MASK32 = 0xFFFFFFFF
+
+
+def _mul32(v: torch.Tensor, w) -> torch.Tensor:
+    """(v * w) mod 2^32 for int64 values (tensor or int) in [0, 2^32),
+    without an int64 overflow: v is split into 16-bit halves, so each
+    partial product stays below 2^48."""
+    lo = (v & 0xFFFF) * w
+    hi = (((v >> 16) * w) & 0xFFFF) << 16
+    return (lo + hi) & _MASK32
+
+
+def tile_hashes(arr: torch.Tensor, tile_cells: int) -> torch.Tensor:
+    """(H, W) array -> (H//t, W//t, 2) per-tile content hashes: the JAX
+    package's two multiplicative-weight uint32 lanes, with wraparound.
+    PyTorch's uint32 arithmetic is partial, so the lanes are computed in
+    int64 with each product reduced mod 2^32 and the tile sums (< 2^48
+    for a 256^2 tile) reduced after; the values are those of the uint32
+    lanes, held in an int64 tensor. Float arrays hash their bit
+    patterns."""
+    h, w = arr.shape
+    if h % tile_cells or w % tile_cells:
+        raise ValueError(f"array shape ({h}, {w}) not divisible by "
+                         f"tile_cells={tile_cells}")
+    th, tw = h // tile_cells, w // tile_cells
+    if arr.is_floating_point():
+        v = arr.to(torch.float32).view(torch.int32).to(torch.int64)
+    else:
+        v = arr.to(torch.int64)
+    v = v & _MASK32
+    idx = torch.arange(tile_cells * tile_cells, dtype=torch.int64,
+                       device=arr.device).reshape(tile_cells, tile_cells)
+    w1 = (_mul32(idx, 2654435761) + 0x9E3779B9) & _MASK32
+    w2 = (_mul32(idx ^ 0x85EBCA6B, 2246822519) + 1) & _MASK32
+    tv = v.reshape(th, tile_cells, tw, tile_cells).permute(0, 2, 1, 3)
+    h1 = _mul32(tv, w1).sum(dim=(2, 3)) & _MASK32
+    h2 = _mul32(tv, w2).sum(dim=(2, 3)) & _MASK32
+    return torch.stack([h1, h2], dim=-1)

@@ -35,6 +35,15 @@ def rk2_step(robot: RobotConfig, pose: torch.Tensor, left_units: torch.Tensor,
     ], dim=-1)
 
 
+def twist_to_wheel_units(robot: RobotConfig, v_lin_mps, v_ang_radps):
+    """Inverse kinematics: (v_lin m/s, v_ang rad/s) -> (left, right) raw
+    wheel speed units."""
+    vr = v_lin_mps + v_ang_radps * robot.wheel_base_m / 2.0
+    vl = v_lin_mps - v_ang_radps * robot.wheel_base_m / 2.0
+    k = robot.speed_coeff_m_per_unit_s
+    return vl / k, vr / k
+
+
 def wrap_angle(theta: torch.Tensor) -> torch.Tensor:
     """Wrap to (-pi, pi]."""
     return torch.atan2(torch.sin(theta), torch.cos(theta))

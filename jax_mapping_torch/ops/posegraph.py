@@ -1,9 +1,16 @@
 """Fixed-capacity pose graphs with a dense Gauss-Newton solve.
 
-Port of the JAX package's `ops/posegraph.py`. A `PoseGraph` here holds a
-batch of graphs: every leaf has a leading robot axis R (the fleet vmaps
-the JAX functions over robots). Functions return new tensors and leave
-their inputs unchanged.
+Port of the JAX package's `ops/posegraph.py`. Functions return new
+tensors and leave their inputs unchanged. Two layouts:
+
+* a batch of graphs, every leaf with a leading robot axis R (the fleet
+  vmaps the JAX functions over robots): `empty_graph`, `add_pose_if`,
+  `add_edge_if`, `thin_keyframes`, `loop_candidate`, `optimize`;
+* one graph in the JAX package's own layout, leaves without the robot
+  axis, as `models/slam.py`'s `SlamState.graph` holds it: `single_graph`,
+  `add_pose`, `add_edge`, `odometry_edge`, `anchor_tip`, `graph_error`.
+  They reach the batched operations through a leading axis of 1
+  (`batch1` / `unbatch1`), so each operation has one implementation.
 """
 
 from __future__ import annotations
@@ -12,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from jax_mapping_torch._util import full_f32
+from jax_mapping_torch._util import const, full_f32
 from jax_mapping_torch.config import LoopClosureConfig
 from jax_mapping_torch.ops.odometry import (pose_between, pose_compose,
                                             wrap_angle)
@@ -42,6 +49,21 @@ def empty_graph(cfg: LoopClosureConfig, n_graphs: int, device) -> PoseGraph:
         edge_valid=torch.zeros((R, E), dtype=torch.bool, **z),
         n_edges=torch.zeros((R,), dtype=torch.int32, **z),
     )
+
+
+def single_graph(cfg: LoopClosureConfig, device) -> PoseGraph:
+    """One empty graph, leaves without the robot axis."""
+    return unbatch1(empty_graph(cfg, 1, device))
+
+
+def batch1(g: PoseGraph) -> PoseGraph:
+    """One graph -> a batch of one (leading axis 1)."""
+    return PoseGraph(*(x[None] for x in g))
+
+
+def unbatch1(g: PoseGraph) -> PoseGraph:
+    """A batch of one -> the graph."""
+    return PoseGraph(*(x[0] for x in g))
 
 
 def select(flag: torch.Tensor, a: PoseGraph, b: PoseGraph) -> PoseGraph:
@@ -93,6 +115,47 @@ def add_edge_if(g: PoseGraph, i: torch.Tensor, j: torch.Tensor,
     valid[rr, ec] = torch.where(e < E, ok | valid[rr, ec], valid[rr, ec])
     return g._replace(edge_valid=valid,
                       n_edges=(e + ok.long()).to(torch.int32), **out)
+
+
+def add_pose(g: PoseGraph, pose: torch.Tensor) -> PoseGraph:
+    """One graph: append `pose` (3,) at the next slot (no-op when full)."""
+    on = torch.ones(1, dtype=torch.bool, device=pose.device)
+    return unbatch1(add_pose_if(batch1(g), pose[None], on))
+
+
+def add_edge(g: PoseGraph, i, j, meas: torch.Tensor,
+             weight: torch.Tensor) -> PoseGraph:
+    """One graph: append the constraint i -> j with measurement (3,) and
+    information diag (3,) (no-op when full)."""
+    dev = meas.device
+    on = torch.ones(1, dtype=torch.bool, device=dev)
+    ij = [x.reshape(1).long() if torch.is_tensor(x)
+          else torch.full((1,), x, dtype=torch.int64, device=dev)
+          for x in (i, j)]
+    return unbatch1(add_edge_if(batch1(g), ij[0], ij[1], meas[None],
+                                weight.reshape(1, 3), on))
+
+
+def odometry_edge(g: PoseGraph, i, j, weight_t: float = 50.0,
+                  weight_th: float = 100.0) -> PoseGraph:
+    """One graph: constrain j to its current pose relative to i."""
+    meas = pose_between(g.poses[i], g.poses[j])
+    w = const((weight_t, weight_t, weight_th), meas.device)
+    return add_edge(g, i, j, meas, w)
+
+
+def anchor_tip(g: PoseGraph, pose, weight_t: float = 200.0,
+               weight_th: float = 400.0) -> PoseGraph:
+    """One graph: re-measure the (tip-1 -> tip) hop against an externally
+    verified `pose` at loop-closure weights, so that `optimize` pulls the
+    tip onto it. Reads n_poses on the host; no-op below 2 poses."""
+    q = int(g.n_poses)
+    if q < 2:
+        return g
+    pose = torch.as_tensor(pose, dtype=torch.float32, device=g.poses.device)
+    meas = pose_between(g.poses[q - 2], pose)
+    w = const((weight_t, weight_t, weight_th), meas.device)
+    return add_edge(g, q - 2, q - 1, meas, w)
 
 
 def thin_keyframes(g: PoseGraph, scan_ring: torch.Tensor,
@@ -268,3 +331,11 @@ def optimize(cfg: LoopClosureConfig, g: PoseGraph) -> PoseGraph:
         poses = poses + delta
         poses = torch.cat([poses[..., :2], wrap_angle(poses[..., 2:3])], -1)
     return g._replace(poses=poses)
+
+
+def graph_error(g: PoseGraph) -> torch.Tensor:
+    """One graph: total weighted squared residual (0-d)."""
+    gb = batch1(g)
+    r, _, _ = _edge_residual_jac(gb.poses, gb.edge_ij, gb.edge_meas)
+    w = gb.edge_weight * gb.edge_valid[..., None]
+    return (w * r * r).sum()

@@ -21,7 +21,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as Fn
 
-from jax_mapping_torch._util import div, full_f32
+from jax_mapping_torch._util import const, div, full_f32
 from jax_mapping_torch.config import GridConfig, MatcherConfig, ScanConfig
 from jax_mapping_torch.ops import grid as G
 from jax_mapping_torch.ops import sensor_kernel as SK
@@ -35,6 +35,20 @@ class MatchResult(NamedTuple):
     cov: torch.Tensor              # (R, 3) [var_x, var_y, var_th]
     n_candidates: torch.Tensor     # (R,) int32 coarse evaluations scored
     prune_ratio: torch.Tensor      # (R,) f32 share of the sweep pruned
+
+
+def scan_points(scan_cfg: ScanConfig, ranges: torch.Tensor):
+    """(..., padded_beams) ranges -> ((..., padded_beams, 2) points in the
+    sensor frame, hit mask); only genuine hits are valid points."""
+    r_m, hit = G.sanitize_ranges(scan_cfg, ranges)
+    idx = torch.arange(scan_cfg.padded_beams, dtype=torch.float32,
+                       device=ranges.device)
+    ang = idx * idx.new_full((), scan_cfg.angle_increment_rad) \
+        + scan_cfg.angle_min_rad
+    if not scan_cfg.counterclockwise:
+        ang = -ang
+    pts = torch.stack([r_m * torch.cos(ang), r_m * torch.sin(ang)], dim=-1)
+    return pts, hit
 
 
 def _rows(R: int, dev) -> torch.Tensor:
@@ -279,8 +293,8 @@ def _bnb_winner(m_cfg: MatcherConfig, levels, resp_top: torch.Tensor,
     for lv in range(n_levels - 1, -1, -1):
         off = 2 ** lv
         ca = a.repeat(1, 4)
-        dy = torch.tensor([0, 0, off, off], device=dev).repeat_interleave(K)
-        dx = torch.tensor([0, off, 0, off], device=dev).repeat_interleave(K)
+        dy = const((0, 0, off, off), dev, torch.int64).repeat_interleave(K)
+        dx = const((0, off, 0, off), dev, torch.int64).repeat_interleave(K)
         ciy = iy.repeat(1, 4) + dy
         cix = ix.repeat(1, 4) + dx
         valid = (ciy < nw) & (cix < nw)

@@ -7,7 +7,9 @@ fixture decides, at run time). On a machine with a card:
 
 The kernels must equal their plain versions exactly: K1 evaluates the
 plain version's float operations one rounding each in the same order, K2
-is integer max, and every K3 candidate is one add under an exact min.
+is integer max, and every K3 candidate is one add under an exact min. K4
+and K5 classify a cell with K1's device code and add the deltas in b
+order, as their plain versions do.
 """
 
 import dataclasses
@@ -21,7 +23,9 @@ from jax_mapping_torch.config import SlamConfig, micro_config, tiny_config
 from jax_mapping_torch.models import fleet as FL
 from jax_mapping_torch.ops import _cuda
 from jax_mapping_torch.ops import costfield as CF
+from jax_mapping_torch.models import slam as S
 from jax_mapping_torch.ops import frontier as F
+from jax_mapping_torch.ops import fuse_kernel as FK
 from jax_mapping_torch.ops import grid as G
 from jax_mapping_torch.ops import sensor_kernel as SK
 from jax_mapping_torch.sim import world as W
@@ -154,4 +158,114 @@ def test_fleet_step_on_card_equals_cpu(dev):
         # of the cells.
         torch.testing.assert_close(gs.est_poses.cpu(), st.est_poses,
                                    rtol=0, atol=1e-3)
+        assert (gs.grid.cpu() != st.grid).float().mean() <= 1e-3
+
+
+def _window_batch(cfg, B, seed):
+    """B scans on a small loop around a random centre: one shared patch."""
+    g = torch.Generator().manual_seed(seed)
+    s = cfg.scan
+    half = cfg.grid.size_cells * cfg.grid.resolution_m / 4
+    c = (torch.rand(2, generator=g) * 2 - 1) * half
+    t = torch.linspace(0, 2 * math.pi, B + 1)[:B]
+    rad = min(0.4, cfg.grid.resolution_m * 2)
+    poses = torch.stack([c[0] + rad * torch.cos(t), c[1] + rad * torch.sin(t),
+                         t + math.pi / 2], 1)
+    ranges = 0.05 + torch.rand((B, s.padded_beams), generator=g) \
+        * s.range_max_m
+    ranges[torch.rand((B, s.padded_beams), generator=g) < 0.05] = 0.0
+    ranges[:, s.n_beams:] = 0.0
+    origin = G.patch_origin(cfg.grid, poses[:, :2].mean(dim=0))
+    return ranges, poses, origin
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+@pytest.mark.parametrize("B", [1, 16, 37])
+def test_window_delta_equals_plain(dev, name, B):
+    cfg = CONFIGS[name]()
+    r, p, o = (x.to(dev).contiguous() for x in _window_batch(cfg, B, B))
+    before = _cuda.LAUNCHES["window_delta"]
+    got = SK.window_delta(cfg.grid, cfg.scan, r, p, o)
+    assert _cuda.LAUNCHES["window_delta"] == before + 1
+    want = SK.window_delta_plain(cfg.grid, cfg.scan, r, p, o)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), int((got != want).sum())
+    assert bool((want != 0).any())
+
+
+@pytest.mark.parametrize("name", list(CONFIGS))
+@pytest.mark.parametrize("B", [0, 5, 40])
+def test_window_apply_equals_plain(dev, name, B):
+    cfg = CONFIGS[name]()
+    r, p, o = (x.to(dev).contiguous() for x in _window_batch(cfg, B, B + 7))
+    n = cfg.grid.size_cells
+    g = torch.Generator().manual_seed(B)
+    base = ((torch.rand((n, n), generator=g) * 8 - 4)
+            * (torch.rand((n, n), generator=g) < 0.5)).to(dev)
+    got, want = base.clone(), base.clone()
+    before = _cuda.LAUNCHES["window_apply"]
+    FK.window_apply(cfg.grid, cfg.scan, got, r, p, o)
+    assert _cuda.LAUNCHES["window_apply"] == before + 1
+    FK.window_apply_plain(cfg.grid, cfg.scan, want, r, p, o)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+def test_window_delta_subtotals_equal_plain(dev, monkeypatch):
+    """Above the subtotal size, the kernel's subtotals add in order like
+    the plain version's."""
+    cfg = tiny_config(2)
+    monkeypatch.setattr(SK, "_MAX_B_PER_CALL", 8)
+    r, p, o = (x.to(dev).contiguous() for x in _window_batch(cfg, 21, 3))
+    before = _cuda.LAUNCHES["window_delta"]
+    got = SK.window_delta(cfg.grid, cfg.scan, r, p, o)
+    assert _cuda.LAUNCHES["window_delta"] == before + 3
+    want = SK.window_delta(cfg.grid, cfg.scan, r.cpu(), p.cpu(), o.cpu())
+    assert torch.equal(got.cpu(), want)
+
+
+def test_window_wrappers_check_their_inputs(dev):
+    cfg = tiny_config(2)
+    r, p, o = (x.to(dev) for x in _window_batch(cfg, 3, 0))
+    with pytest.raises(ValueError):
+        SK.window_delta(cfg.grid, cfg.scan, r, p, o.long())
+    n = cfg.grid.size_cells
+    with pytest.raises(ValueError):
+        FK.window_apply(cfg.grid, cfg.scan, torch.zeros((n, n + 1),
+                                                        device=dev), r, p, o)
+
+
+def test_slam_steps_on_card_equal_cpu(dev):
+    """Window and single steps of a tiny robot on the card and on the CPU
+    from the same state and scans agree (the card runs K1, K4/K5, the CPU
+    the plain versions); 1e-3 m / rad and at most 1e-3 of the cells, as
+    the fleet check (the matcher's convolution rounds differently)."""
+    cfg = tiny_config(2)
+    res = cfg.grid.resolution_m
+    w = torch.as_tensor(W.rooms_world(256, res))
+    st = S.init_state(cfg, torch.tensor([1.4, 1.0, math.pi / 2]), "cpu")
+    from jax_mapping_torch.ops.odometry import rk2_step, twist_to_wheel_units
+    from jax_mapping_torch.sim import lidar
+    wl, wr = twist_to_wheel_units(cfg.robot, 0.3, 0.75)
+    truth = st.pose
+    for t in range(6):
+        n = 4 if t % 2 == 0 else 1
+        tp = []
+        for _ in range(n):
+            truth = rk2_step(cfg.robot, truth, torch.tensor(wl),
+                             torch.tensor(wr), torch.tensor(0.1))
+            tp.append(truth)
+        scans = lidar.simulate_scans(cfg.scan, w, res, 120, torch.stack(tp))
+        wheels = torch.tensor([[wl, wr]] * n, dtype=torch.float32)
+        on_card = interop.slam_state_from_numpy(
+            interop.slam_state_to_numpy(st), dev)
+        if n > 1:
+            gs, gd = S.slam_step_window(cfg, on_card, scans.to(dev),
+                                        wheels.to(dev), 0.1)
+            st, cd = S.slam_step_window(cfg, st, scans, wheels, 0.1)
+        else:
+            gs, gd = S.slam_step(cfg, on_card, scans[0].to(dev), wl, wr, 0.1)
+            st, cd = S.slam_step(cfg, st, scans[0], wl, wr, 0.1)
+        assert bool(gd.key_added) == bool(cd.key_added)
+        torch.testing.assert_close(gs.pose.cpu(), st.pose, rtol=0, atol=1e-3)
         assert (gs.grid.cpu() != st.grid).float().mean() <= 1e-3
