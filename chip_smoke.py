@@ -2,11 +2,17 @@
 """Smoke run of the PyTorch/CUDA port (`jax_mapping_torch`) on one GPU.
 
     python3 chip_smoke.py [--ticks N] [--seed S]
+    python3 chip_smoke.py --ab PARENT_TREE
+
+The second form only times kernels K1, K4 and K5 of an unpacked parent
+checkout against this tree's, in turns (parent, change, change, parent),
+each turn a process of its own, and prints one "ab" line.
 
 Phases, each printed as one JSON line:
 
   device   the card (nvidia-smi name and power limit), the TF32 flags
-  build    nvcc builds of every kernel in jax_mapping_torch/csrc/
+  build    nvcc builds of every kernel in jax_mapping_torch/csrc/, with
+           ptxas's registers and the SASS instruction count of K1, K4, K5
   fleet    slice 1's main path: `fleet_step` of the default SlamConfig
            (4096^2 grid at 0.05 m, 8 robots, 360-beam scans padded to
            512, 640^2 patches, 1024-pose rings) on plank_course(4096,
@@ -35,7 +41,13 @@ Phases, each printed as one JSON line:
            scans (K4 subtotals of 512, then one apply)
   kernels  each kernel against its plain PyTorch version on the same
            inputs at the main paths' shapes (K6/K7 on the voxel phases'
-           inputs); exact equality is required
+           inputs); exact equality is required. K1 at every batch the
+           fleet and mapper launch it with (deltas 64, 8 and 1; rasters
+           168, 392, 21, 49), K4/K5 at 15, 16, 17 and 256 scans, each with the
+           share of (tile, scan) pairs in each tile class (from the plain
+           mirror) and bound / time; edge rows (a pose off its patch, on
+           a tile corner, yaws beyond +-pi, +-2pi and +-4pi, all-zero
+           scans, hits at max range) for K1, K4 and K5, not timed
   parity   a tiny mission, each tick run on the card and on the CPU from
            the same state with the same wheel noise
   slam_parity  a tiny single robot, window and single steps, each run on
@@ -86,10 +98,12 @@ DEV = "cuda"
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
-# Float operations K1 spends on one cell it does not cull: cell centre
-# (6), offsets and range with its square root (5), the atan2 polynomial
-# with its octant reduction (30), the [0, 2pi) wrap and beam rounding
-# (7), classification (7).
+# Float operations of the sensor model on one cell within max range of a
+# scan (the function's work there, whatever a kernel culls; the cells are
+# counted by `sensor_kernel.model_cells`): cell centre (6), offsets and
+# range with its square root (5), the atan2 polynomial with its octant
+# reduction (30), the [0, 2pi) wrap and beam rounding (7), classification
+# (7).
 K1_OPS_PER_CELL = 55
 
 # Float operations (arithmetic and comparisons) the voxel model needs, per
@@ -136,6 +150,24 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, kernel: str, reps: int = 10) -> float:
+    """Median duration in ms of the device kernels whose name holds
+    `kernel`, from torch.profiler over `reps` calls of fn() after one: the
+    kernel alone, without the host's time to launch it that cuda_ms
+    includes when the kernel is short."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    durs = [float(e["dur"]) / 1e3 for e in _device_events(prof)
+            if kernel in e.get("name", "")]
+    return statistics.median(durs) if durs else None
 
 
 def compare(got, want) -> dict:
@@ -196,7 +228,62 @@ def phase_build():
                  if "registers" in ln or "Compiling entry" in ln]
         ptxas[name] = lines[:8]
     emit({"phase": "build", "seconds": total, "per_library_s": secs,
-          "ptxas": ptxas})
+          "ptxas": ptxas,
+          "sass_instructions": {n: sass_counts(_cuda._target(n))
+                                for n in ("sensor_model", "window_fuse")}})
+
+
+def sass_counts(lib) -> dict:
+    """SASS instructions of each kernel in a built library, by its mangled
+    name (cuobjdump -sass beside nvcc; {} where it is missing)."""
+    import re
+    from jax_mapping_torch.ops import _cuda
+    tool = os.path.join(os.path.dirname(_cuda.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=120).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn and re.search(r"/\*[0-9a-f]{4,}\*/\s+\S", line):
+            counts[fn] += 1
+    return counts
+
+
+#: One cell of the sensor model (cell_ray, then the delta and the raster
+#: weight), compiled alone to count its SASS instructions.
+_CELL_PROBE = r"""
+#include "sensor_cell.cuh"
+extern "C" __global__ void cell_probe(const float* table, float px,
+                                      float py, float yaw,
+                                      sensor_cell::Params q, float* out) {
+  const int i = threadIdx.x, j = blockIdx.x;
+  const sensor_cell::CellRay c = sensor_cell::cell_ray(i, j, px, py, yaw, q);
+  out[2 * (i * 1024 + j)] = sensor_cell::delta_of(c, table[c.beam], q);
+  out[2 * (i * 1024 + j) + 1] = sensor_cell::raster_of(c, table[c.beam], q);
+}
+"""
+
+
+def cell_sass(csrc: str) -> dict:
+    """SASS instructions of one cell of the model with the header in
+    `csrc` (the _CELL_PROBE kernel, built with the kernels' flags)."""
+    from jax_mapping_torch.ops import _cuda
+    with tempfile.TemporaryDirectory() as d:
+        src = os.path.join(d, "cell_probe.cu")
+        with open(src, "w") as f:
+            f.write(_CELL_PROBE)
+        out = os.path.join(d, "cell_probe.cubin")
+        flags = [f for f in _cuda.NVCC_FLAGS
+                 if f not in ("-shared", "-Xcompiler", "-fPIC")]
+        subprocess.run([_cuda.nvcc_path(), *flags, "-cubin", "-I", csrc,
+                        "-o", out, src], check=True, capture_output=True,
+                       timeout=300)
+        return sass_counts(out)
 
 
 def _world(cfg, dev, torch):
@@ -249,6 +336,40 @@ class VerifyCount:
         self.fl._verify_loop = self.orig
 
 
+class BatchCount:
+    """Counts K1's launches by mode and scan count B while the context is
+    open, from the calls of its wrappers on CUDA tensors (each such call
+    with B > 0 launches the kernel once)."""
+
+    NAMES = {"scan_deltas": "sensor_model_delta",
+             "scan_rasters": "sensor_model_raster"}
+
+    def __enter__(self):
+        from jax_mapping_torch.ops import sensor_kernel as SK
+        self.sk, self.orig = SK, {f: getattr(SK, f) for f in self.NAMES}
+        self.n = {k: {} for k in self.NAMES.values()}
+        for f, name in self.NAMES.items():
+            setattr(SK, f, self._counted(self.orig[f], self.n[name]))
+        return self
+
+    @staticmethod
+    def _counted(fn, counts):
+        def counted(grid_cfg, scan_cfg, ranges_b, *args):
+            B = ranges_b.shape[0]
+            if ranges_b.device.type == "cuda" and B > 0:
+                counts[B] = counts.get(B, 0) + 1
+            return fn(grid_cfg, scan_cfg, ranges_b, *args)
+        return counted
+
+    def __exit__(self, *exc):
+        for f, fn in self.orig.items():
+            setattr(self.sk, f, fn)
+
+    def per_tick(self, ticks: int) -> dict:
+        return {name: {str(b): c / ticks for b, c in sorted(n.items())}
+                for name, n in self.n.items()}
+
+
 def _split_ms(tick_ms, verifies) -> dict:
     """Median tick time of the ticks with and without loop verification."""
     with_v = [t for t, v in zip(tick_ms, verifies) if v]
@@ -275,7 +396,7 @@ def phase_fleet(torch, cfg, world, ticks: int, seed: int):
     torch.cuda.synchronize()
     _cuda.reset_launches()
     tick_ms, verifies, keys, closed, syncs = [], [], 0, 0, []
-    with VerifyCount() as vc:
+    with VerifyCount() as vc, BatchCount() as bc:
         for i in range(ticks):
             n0 = vc.n
             t0 = time.perf_counter()
@@ -315,6 +436,7 @@ def phase_fleet(torch, cfg, world, ticks: int, seed: int):
            "ticks_with_key_robots": keys, "loops_closed": closed,
            "launches": launches,
            "launches_per_tick": {k: v / ticks for k, v in launches.items()},
+           "k1_launches_per_tick_by_batch": bc.per_tick(ticks),
            "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
            "tf32_cudnn": torch.backends.cudnn.allow_tf32}
     emit(out)
@@ -495,8 +617,8 @@ def phase_profile(torch, cfg, st, world, seed: int, ticks: int = 3):
           "top": top})
 
 
-def phase_kernels(torch, cfg, world, mapped, seed: int, mapper: dict,
-                  voxel: tuple):
+def phase_kernels(torch, cfg, world, mapped, seed: int, fleet: dict,
+                  mapper: dict, voxel: tuple):
     """Each kernel against its plain version at the main path's shapes.
     The scans are taken near walls and the frontier comes from `mapped`,
     the re-fused map, so that every kernel sees non-trivial input; the
@@ -504,59 +626,35 @@ def phase_kernels(torch, cfg, world, mapped, seed: int, mapper: dict,
     from jax_mapping_torch.ops import costfield as CF
     from jax_mapping_torch.ops import frontier as F
     from jax_mapping_torch.ops import grid as G
-    from jax_mapping_torch.ops import scan_match as M
-    from jax_mapping_torch.ops import sensor_kernel as SK
     from jax_mapping_torch.sim import lidar
     dev = world.device
     res = cfg.grid.resolution_m
-    P = cfg.grid.patch_cells
-    nb = cfg.scan.padded_beams
     n_samples = int(cfg.scan.range_max_m / (res * 0.5))
     gen = torch.Generator().manual_seed(seed + 1)
     rows = {}
 
-    # K1 delta: one stream sub-batch of 64 scans at scattered poses.
-    B = 64
-    poses = _poses_near_walls(torch, cfg, world, B, gen)
-    ranges = lidar.simulate_scans(cfg.scan, world, res, n_samples, poses)
-    origins = G.patch_origin(cfg.grid, poses[:, :2]).contiguous()
-    got = SK.scan_deltas(cfg.grid, cfg.scan, ranges, poses, origins)
-    want = SK.scan_deltas_plain(cfg.grid, cfg.scan, ranges, poses, origins)
-    cmp = compare(got, want)
-    cmp["nonzero_cells"] = int((want != 0).sum())
-    rows["sensor_model_delta"] = dict(
-        cmp, shape=[B, P, P],
-        ms=cuda_ms(lambda: SK.scan_deltas(cfg.grid, cfg.scan, ranges, poses,
-                                          origins)),
-        plain_ms=cuda_ms(lambda: SK.scan_deltas_plain(
-            cfg.grid, cfg.scan, ranges, poses, origins)),
-        **bound(B * (nb * 4 + 12 + 8 + P * P * 4),
-                _k1_live_cells(cfg, poses, origins) * K1_OPS_PER_CELL))
-
-    # K1 raster: the coarse-angle candidates of one match_batch call
-    # (every robot's scan at its 21 angles, one launch).
+    # K1 at every batch the main paths launch it with: deltas of one
+    # stream sub-batch (64 scans: the closure re-fuse), of the fleet tick's
+    # 8 robots and of `fuse_scan` (1 scan); the
+    # matcher's rasters of the fleet's 8 robots (coarse and fine angles,
+    # 168 each; 7 x 7 sub-cell offsets, 392) and of one robot's match in
+    # the mapper (21, 21, 49).
     guess = _poses_near_walls(torch, cfg, world, cfg.fleet.n_robots, gen)
     scans = lidar.simulate_scans(cfg.scan, world, res, n_samples, guess)
-    dth = M._angle_grid(cfg.matcher.coarse_angle_half_rad,
-                        cfg.matcher.coarse_angle_step_rad, dev)
-    cand = M._coarse_poses(guess, dth)                      # (R, A, 3)
-    R, A = cand.shape[0], cand.shape[1]
-    r_b = scans[:, None, :].expand(R, A, nb).reshape(R * A, nb).contiguous()
-    p_b = cand.reshape(R * A, 3).contiguous()
-    o_b = G.patch_origin(cfg.grid, guess[:, :2])[:, None, :].expand(
-        R, A, 2).reshape(R * A, 2).contiguous()
-    got = SK.scan_rasters(cfg.grid, cfg.scan, r_b, p_b, o_b)
-    want = SK.scan_rasters_plain(cfg.grid, cfg.scan, r_b, p_b, o_b)
-    cmp = compare(got, want)
-    cmp["nonzero_cells"] = int((want != 0).sum())
-    rows["sensor_model_raster"] = dict(
-        cmp, shape=[R * A, P, P],
-        ms=cuda_ms(lambda: SK.scan_rasters(cfg.grid, cfg.scan, r_b, p_b,
-                                           o_b)),
-        plain_ms=cuda_ms(lambda: SK.scan_rasters_plain(
-            cfg.grid, cfg.scan, r_b, p_b, o_b)),
-        **bound(R * A * (nb * 4 + 12 + 8 + P * P * 4),
-                _k1_live_cells(cfg, p_b, o_b) * K1_OPS_PER_CELL))
+    for B in (64, 8, 1):
+        poses = _poses_near_walls(torch, cfg, world, B, gen)
+        ranges = lidar.simulate_scans(cfg.scan, world, res, n_samples, poses)
+        origins = G.patch_origin(cfg.grid, poses[:, :2]).contiguous()
+        rows["sensor_model_delta" + ("" if B == 64 else f"_b{B}")] = \
+            _k1_row(torch, cfg, False, ranges, poses, origins, fleet, mapper)
+    n_r = cfg.fleet.n_robots
+    for name, R, stage in (("sensor_model_raster", n_r, "coarse"),
+                           ("sensor_model_raster_b392", n_r, "subcell"),
+                           ("sensor_model_raster_b21", 1, "coarse"),
+                           ("sensor_model_raster_b49", 1, "subcell")):
+        r_b, p_b, o_b = _raster_inputs(torch, cfg, scans[:R], guess[:R],
+                                       stage)
+        rows[name] = _k1_row(torch, cfg, True, r_b, p_b, o_b, fleet, mapper)
 
     # K2: the 256^2 clustering mask of the fused map's frontier.
     fcfg = cfg.frontier
@@ -581,6 +679,7 @@ def phase_kernels(torch, cfg, world, mapped, seed: int, mapper: dict,
         **bound(n * n * (1 + 4 + 4), sweeps * n * n * 9))
 
     # K3: the obstacle-aware cost fields of every robot, three levels.
+    R = guess.shape[0]
     passable, bfs_res = F.bfs_passability(fcfg, cfg.grid, free, unknown,
                                           mask)
     blocked = ~passable
@@ -623,6 +722,7 @@ def phase_kernels(torch, cfg, world, mapped, seed: int, mapper: dict,
         **bound(n_bytes, n_ops))
 
     rows.update(window_kernel_rows(torch, cfg, world, mapped, seed, mapper))
+    rows.update(edge_rows(torch, cfg, world, mapped, gen))
     rows.update(voxel_kernel_rows(torch, cfg, *voxel))
     emit({"phase": "kernels", "rows": rows})
     for name, r in rows.items():
@@ -632,26 +732,82 @@ def phase_kernels(torch, cfg, world, mapped, seed: int, mapper: dict,
     return rows
 
 
-def _rows_kept(cfg, poses, row0, i0, i1):
-    """(scans, ranges) bool: which patch-row ranges [i0, i1] (inclusive)
-    of a patch whose first row is row0 the kernels' range cull keeps for
-    each scan's pose (their own test, csrc/sensor_cell.cuh)."""
-    import torch
-    res = cfg.grid.resolution_m
-    pr = ((poses[:, 1] - cfg.grid.origin_m[1]) / res - 0.5
-          - row0.float())[:, None]
-    gap = torch.clamp_min(torch.maximum(i0 - pr, pr - i1), 0.0)
-    return gap * res <= cfg.grid.max_range_m + 2 * res
+def _raster_inputs(torch, cfg, scans, guess, stage):
+    """One match's raster batch for R robots (scans (R, beams) at guess
+    (R, 3)), each at its robot's patch origin: the coarse candidates (R x
+    21 angles around the guess), or the sub-cell stage (R x 7 x 7 offsets
+    of fine_step_m at a fine angle off the guess, scan_match.py's last
+    stage)."""
+    from jax_mapping_torch.ops import grid as G
+    from jax_mapping_torch.ops import scan_match as M
+    m = cfg.matcher
+    dev = guess.device
+    if stage == "coarse":
+        dth = M._angle_grid(m.coarse_angle_half_rad, m.coarse_angle_step_rad,
+                            dev)
+        cand = M._coarse_poses(guess, dth)                     # (R, A, 3)
+    else:
+        k = max(1, int(round(0.5 * cfg.grid.resolution_m / m.fine_step_m))
+                + 1)
+        d1 = torch.arange(-k, k + 1, dtype=torch.float32,
+                          device=dev) * m.fine_step_m
+        ddy, ddx = torch.meshgrid(d1, d1, indexing="ij")
+        off = torch.stack([ddx.reshape(-1), ddy.reshape(-1)], -1)
+        yaw = guess[:, 2:3] + 3 * m.fine_angle_step_rad
+        cand = torch.cat([guess[:, None, :2] + off[None],
+                          yaw[:, None, :].expand(-1, off.shape[0], 1)], -1)
+    R, A = cand.shape[0], cand.shape[1]
+    nb = scans.shape[1]
+    r_b = scans[:, None, :].expand(R, A, nb).reshape(R * A, nb).contiguous()
+    p_b = cand.reshape(R * A, 3).contiguous()
+    o_b = G.patch_origin(cfg.grid, guess[:, :2])[:, None, :].expand(
+        R, A, 2).reshape(R * A, 2).contiguous()
+    return r_b, p_b, o_b
 
 
-def _k1_live_cells(cfg, poses, origins) -> int:
-    """Cells K1 evaluates: those in the 4-row bands its cull keeps."""
-    import torch
+def _class_shares(cfg, ranges, poses, origins, raster: bool) -> dict:
+    """Share of (16 x 16 tile, scan) pairs in each class of the kernels'
+    tile class, from its plain mirror on the same inputs."""
+    from jax_mapping_torch.ops import sensor_kernel as SK
+    return SK.tile_class_shares(SK.tile_classes_plain(
+        cfg.grid, cfg.scan, ranges, poses, origins, raster=raster))
+
+
+def _k1_row(torch, cfg, raster: bool, ranges, poses, origins, fleet: dict,
+            mapper: dict) -> dict:
+    """K1 against its plain version on one batch: exact comparison, times,
+    the bound from the function (output bytes; 55 operations per cell
+    within max range), the tile-class shares, launches per tick of this
+    batch on the fleet and mapper paths."""
+    from jax_mapping_torch.ops import sensor_kernel as SK
+    kernel = SK.scan_rasters if raster else SK.scan_deltas
+    plain = SK.scan_rasters_plain if raster else SK.scan_deltas_plain
+    B, nb = ranges.shape
     P = cfg.grid.patch_cells
-    i0 = torch.arange(0, P, 4, device=poses.device, dtype=torch.float32)
-    i1 = torch.clamp_max(i0 + 4, P) - 1
-    keep = _rows_kept(cfg, poses, origins[:, 0], i0, i1)
-    return int(((i1 - i0 + 1) * keep).sum().item()) * P
+    got = kernel(cfg.grid, cfg.scan, ranges, poses, origins)
+    want = plain(cfg.grid, cfg.scan, ranges, poses, origins)
+    row = compare(got, want)
+    row["nonzero_cells"] = int((want != 0).sum())
+    del got, want
+    name = "sensor_model_raster" if raster else "sensor_model_delta"
+    cells = SK.model_cells(cfg.grid, poses, origins)
+    row.update(
+        shape=[B, P, P], cells_within_range=cells,
+        class_shares=_class_shares(cfg, ranges, poses, origins, raster),
+        launches_per_fleet_tick=fleet["k1_launches_per_tick_by_batch"][
+            name].get(str(B), 0.0),
+        launches_per_mapper_tick=mapper["k1_launches_per_tick_by_batch"][
+            name].get(str(B), 0.0),
+        library_ms=None,
+        ms=cuda_ms(lambda: kernel(cfg.grid, cfg.scan, ranges, poses,
+                                  origins)),
+        device_ms=device_ms(lambda: kernel(cfg.grid, cfg.scan, ranges, poses,
+                                           origins), "sensor_model_kernel"),
+        plain_ms=cuda_ms(lambda: plain(cfg.grid, cfg.scan, ranges, poses,
+                                       origins)),
+        **bound(B * (nb * 4 + 12 + 8 + P * P * 4), cells * K1_OPS_PER_CELL))
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    return row
 
 
 def phase_refuse(torch, cfg, world, seed: int):
@@ -853,16 +1009,17 @@ def phase_mapper(torch, cfg, seed: int, ticks: int = 10):
     torch.cuda.synchronize()
     _cuda.reset_launches()
     tick_ms, times, diags = [], {"window": [], "single": []}, []
-    for _ in range(ticks):
-        scans, wheels = drive.next(W + 2)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for r in range(R):
-            states[r] = robot_tick(r, scans, wheels, times=times,
-                                   diags=diags)
-            shared = states[r].grid
-        torch.cuda.synchronize()
-        tick_ms.append((time.perf_counter() - t0) * 1e3)
+    with BatchCount() as bc:
+        for _ in range(ticks):
+            scans, wheels = drive.next(W + 2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for r in range(R):
+                states[r] = robot_tick(r, scans, wheels, times=times,
+                                       diags=diags)
+                shared = states[r].grid
+            torch.cuda.synchronize()
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
     launches = dict(_cuda.LAUNCHES)
     truth = drive.truth.clone()
 
@@ -913,6 +1070,7 @@ def phase_mapper(torch, cfg, seed: int, ticks: int = 10):
                           "single_step_was_key": bool(d1.key_added)},
            "launches": launches,
            "launches_per_tick": {k: v / ticks for k, v in launches.items()},
+           "k1_launches_per_tick_by_batch": bc.per_tick(ticks),
            "launches_fused_fusion_false_3_windows": launches_k4,
            "window_step_stages_ms": stages, "profiled_tick": busy,
            "pose_err_m": [float(torch.dist(s.pose[:2], truth[r, :2]))
@@ -1048,20 +1206,6 @@ def phase_window(torch, cfg):
     return out
 
 
-def _window_live_cells(cfg, poses, origin) -> int:
-    """Cell evaluations of K4/K5 summed over scans: the cells of every
-    block of 1024 flattened patch cells that the block's range cull keeps
-    for that scan (the cull is the kernels' own test)."""
-    import torch
-    P = cfg.grid.patch_cells
-    per_block = 1024
-    base = torch.arange(0, P * P, per_block, device=poses.device)
-    last = torch.clamp_max(base + per_block, P * P) - 1
-    keep = _rows_kept(cfg, poses, origin[0], (base // P).float(),
-                      (last // P).float())
-    return int(((last - base + 1).float() * keep).sum().item())
-
-
 def _window_inputs(torch, cfg, world, B: int, gen):
     """B scans on a 0.4 m loop around a pose near walls whose loop fits
     one shared patch (a pose near the border may not): scans that see
@@ -1087,10 +1231,13 @@ def _window_inputs(torch, cfg, world, B: int, gen):
 def window_kernel_rows(torch, cfg, world, mapped, seed: int,
                        mapper: dict) -> dict:
     """K4 and K5 against their plain versions at B = 15 (the mapper's
-    W - 1), 16 and 256, on scans near walls; K5 on a copy of a mapped
-    grid. No single PyTorch call computes either function (library_ms
-    none). Launches per mapper tick: K5 at the default fused_fusion=True,
-    K4 per window with fused_fusion=False."""
+    W - 1), 16, 17 (more than one 16-scan chunk) and 256, on scans near
+    walls; K5 on a copy of a mapped grid. No single PyTorch call computes
+    either function (library_ms none). Launches per mapper tick: K5 at
+    the default fused_fusion=True, K4 per window with fused_fusion=False.
+    The bound counts the function's work: 56 operations (the model and
+    the add) per scan and cell within its max range, 3 per cell for the
+    apply."""
     per_tick = mapper["launches_per_tick"]
     k4_per_window = (mapper["launches_fused_fusion_false_3_windows"]
                      ["window_delta"] / 3)
@@ -1100,11 +1247,13 @@ def window_kernel_rows(torch, cfg, world, mapped, seed: int,
     P = cfg.grid.patch_cells
     nb = cfg.scan.padded_beams
     rows = {}
-    for B in (15, 16, 256):
+    for B in (15, 16, 17, 256):
         ranges, poses, origin = _window_inputs(torch, cfg, world, B, gen)
         check(bool(SK.window_fits(cfg.grid, poses, origin)),
               "kernel-check window does not fit its patch")
-        live = _window_live_cells(cfg, poses, origin)
+        origins = origin.reshape(1, 2).expand(B, 2)
+        cells = SK.model_cells(cfg.grid, poses, origins)
+        shares = _class_shares(cfg, ranges, poses, origins, False)
         tables = B * (nb * 4 + 12) + 8
         got = SK.window_delta(cfg.grid, cfg.scan, ranges, poses, origin)
         want = SK.window_delta_plain(cfg.grid, cfg.scan, ranges, poses,
@@ -1112,15 +1261,18 @@ def window_kernel_rows(torch, cfg, world, mapped, seed: int,
         cmp = compare(got, want)
         cmp["nonzero_cells"] = int((want != 0).sum())
         rows[f"window_delta_b{B}"] = dict(
-            cmp, shape=[B, P, P], live_cell_evaluations=live,
+            cmp, shape=[B, P, P], cells_within_range=cells,
+            class_shares=shares,
             launches_per_mapper_tick=per_tick["window_delta"],
             launches_per_window_fused_fusion_false=k4_per_window,
             library_ms=None,
             ms=cuda_ms(lambda: SK.window_delta(cfg.grid, cfg.scan, ranges,
                                                poses, origin)),
+            device_ms=device_ms(lambda: SK.window_delta(
+                cfg.grid, cfg.scan, ranges, poses, origin), "window_kernel"),
             plain_ms=cuda_ms(lambda: SK.window_delta_plain(
                 cfg.grid, cfg.scan, ranges, poses, origin)),
-            **bound(tables + P * P * 4, live * (K1_OPS_PER_CELL + 1)))
+            **bound(tables + P * P * 4, cells * (K1_OPS_PER_CELL + 1)))
         got_g, want_g = mapped.clone(), mapped.clone()
         FK.window_apply(cfg.grid, cfg.scan, got_g, ranges, poses, origin)
         FK.window_apply_plain(cfg.grid, cfg.scan, want_g, ranges, poses,
@@ -1129,16 +1281,98 @@ def window_kernel_rows(torch, cfg, world, mapped, seed: int,
         cmp["changed_cells"] = int((want_g != mapped).sum())
         scratch = mapped.clone()
         rows[f"window_apply_b{B}"] = dict(
-            cmp, shape=[B, P, P], live_cell_evaluations=live,
+            cmp, shape=[B, P, P], cells_within_range=cells,
+            class_shares=shares,
             launches_per_mapper_tick=per_tick["window_apply"],
             library_ms=None,
             ms=cuda_ms(lambda: FK.window_apply(cfg.grid, cfg.scan, scratch,
                                                ranges, poses, origin)),
+            device_ms=device_ms(lambda: FK.window_apply(
+                cfg.grid, cfg.scan, scratch, ranges, poses, origin),
+                "window_kernel"),
             plain_ms=cuda_ms(lambda: FK.window_apply_plain(
                 cfg.grid, cfg.scan, scratch, ranges, poses, origin)),
             **bound(tables + 2 * P * P * 4,
-                    live * (K1_OPS_PER_CELL + 1) + 3 * P * P))
+                    cells * (K1_OPS_PER_CELL + 1) + 3 * P * P))
+        for k in ("window_delta", "window_apply"):
+            r = rows[f"{k}_b{B}"]
+            r["bound_share"] = r["bound_ms"] / r["ms"]
         del got_g, want_g, scratch
+    return rows
+
+
+#: Edge cases of the kernels' tile class, each checked for K1 (both
+#: modes), K4 and K5 against the plain versions.
+EDGE_CASES = ("pose_outside_patch", "pose_on_tile_corner",
+              "yaw_beyond_pi_and_2pi", "yaw_beyond_4pi", "all_zero_ranges",
+              "hits_at_max_range")
+
+
+def _edge_inputs(torch, cfg, world, case: str, gen):
+    """17 scans near walls (more than one 16-scan chunk for K4/K5), with
+    the poses or ranges of `case`; origins at the undisturbed poses."""
+    from jax_mapping_torch.ops import grid as G
+    from jax_mapping_torch.sim import lidar
+    g, s = cfg.grid, cfg.scan
+    res = g.resolution_m
+    B = 17
+    poses = _poses_near_walls(torch, cfg, world, B, gen)
+    ranges = lidar.simulate_scans(s, world, res,
+                                  int(s.range_max_m / (res * 0.5)), poses)
+    origins = G.patch_origin(g, poses[:, :2]).contiguous()
+    poses = poses.clone()
+    k = torch.arange(B, device=poses.device)
+    if case == "pose_outside_patch":
+        poses[:, 0] += 0.75 * g.patch_cells * res
+        poses[:, 1] -= 0.6 * g.patch_cells * res
+    elif case == "pose_on_tile_corner":
+        ox, oy = g.origin_m
+        t = 16 * (1 + k % (g.patch_cells // 16 - 1))
+        poses[:, 0] = (origins[:, 1] + t).to(torch.float32) * res + ox
+        poses[:, 1] = (origins[:, 0] + t.flip(0)).to(torch.float32) * res + oy
+    elif case == "yaw_beyond_pi_and_2pi":
+        vals = torch.tensor([3.5, -3.5, 2 * math.pi, -2 * math.pi, 5.0, -6.0],
+                            device=poses.device)
+        poses[:, 2] = vals[k % len(vals)]
+    elif case == "yaw_beyond_4pi":
+        vals = torch.tensor([4 * math.pi, -4 * math.pi, 13.0, -40.0, 63.0],
+                            device=poses.device)
+        poses[:, 2] = vals[k % len(vals)]
+    elif case == "all_zero_ranges":
+        ranges = torch.zeros_like(ranges)
+    elif case == "hits_at_max_range":
+        ranges = torch.full_like(ranges, g.max_range_m)
+        ranges[:, s.n_beams:] = 0.0
+    return ranges.contiguous(), poses.contiguous(), origins
+
+
+def edge_rows(torch, cfg, world, mapped, gen) -> dict:
+    """Each edge case through K1 (delta and raster, own origins) and K4/K5
+    (all 17 scans on the patch at the first scan's origin), compared
+    exactly with the plain versions; not timed."""
+    from jax_mapping_torch.ops import fuse_kernel as FK
+    from jax_mapping_torch.ops import sensor_kernel as SK
+    rows = {}
+    for case in EDGE_CASES:
+        r, p, o = _edge_inputs(torch, cfg, world, case, gen)
+        for raster in (False, True):
+            kernel = SK.scan_rasters if raster else SK.scan_deltas
+            plain = SK.scan_rasters_plain if raster else SK.scan_deltas_plain
+            want = plain(cfg.grid, cfg.scan, r, p, o)
+            rows[f"edge_{'raster' if raster else 'delta'}_{case}"] = dict(
+                compare(kernel(cfg.grid, cfg.scan, r, p, o), want),
+                nonzero_cells=int((want != 0).sum()),
+                class_shares=_class_shares(cfg, r, p, o, raster))
+        origin = o[0].contiguous()
+        want = SK.window_delta_plain(cfg.grid, cfg.scan, r, p, origin)
+        rows[f"edge_window_delta_{case}"] = dict(
+            compare(SK.window_delta(cfg.grid, cfg.scan, r, p, origin), want),
+            nonzero_cells=int((want != 0).sum()))
+        got_g, want_g = mapped.clone(), mapped.clone()
+        FK.window_apply(cfg.grid, cfg.scan, got_g, r, p, origin)
+        FK.window_apply_plain(cfg.grid, cfg.scan, want_g, r, p, origin)
+        rows[f"edge_window_apply_{case}"] = compare(got_g, want_g)
+        del got_g, want_g
     return rows
 
 
@@ -1605,6 +1839,100 @@ def phase_voxel_parity(torch, seed: int, ticks: int = 6):
           "voxel parity: the tiny drive mapped nothing")
 
 
+def kernel_times(torch, seed: int) -> dict:
+    """Device times of K1, K4 and K5 at the main paths' batches on fixed
+    inputs (seeded), through the wrappers of whichever `jax_mapping_torch`
+    comes first on sys.path, and the SASS instruction counts of its
+    builds. The --ab comparison runs this for two trees in turns."""
+    import jax_mapping_torch
+    from jax_mapping_torch.config import SlamConfig
+    from jax_mapping_torch.ops import _cuda
+    from jax_mapping_torch.ops import fuse_kernel as FK
+    from jax_mapping_torch.ops import grid as G
+    from jax_mapping_torch.ops import sensor_kernel as SK
+    from jax_mapping_torch.sim import lidar
+    cfg = SlamConfig()
+    dev = torch.device("cuda")
+    world = _world(cfg, dev, torch)
+    res = cfg.grid.resolution_m
+    n_samples = int(cfg.scan.range_max_m / (res * 0.5))
+    gen = torch.Generator().manual_seed(seed + 1)
+    libs = {n: _cuda._target(n) for n in ("sensor_model", "window_fuse")}
+    for n in libs:
+        _cuda.library(n)
+    ms, dev_ms = {}, {}
+
+    def timed(name, fn, kernel):
+        ms[name] = cuda_ms(fn)
+        dev_ms[name] = device_ms(fn, kernel)
+
+    guess = _poses_near_walls(torch, cfg, world, cfg.fleet.n_robots, gen)
+    scans = lidar.simulate_scans(cfg.scan, world, res, n_samples, guess)
+    for B in (64, 8, 1):
+        poses = _poses_near_walls(torch, cfg, world, B, gen)
+        ranges = lidar.simulate_scans(cfg.scan, world, res, n_samples, poses)
+        origins = G.patch_origin(cfg.grid, poses[:, :2]).contiguous()
+        timed(f"sensor_model_delta_b{B}", lambda: SK.scan_deltas(
+            cfg.grid, cfg.scan, ranges, poses, origins), "sensor_model")
+    n_r = cfg.fleet.n_robots
+    for R, stage in ((n_r, "coarse"), (n_r, "subcell"), (1, "coarse"),
+                     (1, "subcell")):
+        r_b, p_b, o_b = _raster_inputs(torch, cfg, scans[:R], guess[:R],
+                                       stage)
+        timed(f"sensor_model_raster_b{r_b.shape[0]}",
+              lambda: SK.scan_rasters(cfg.grid, cfg.scan, r_b, p_b, o_b),
+              "sensor_model")
+        del r_b, p_b, o_b
+    grid = G.empty_grid(cfg.grid, dev)
+    wgen = torch.Generator().manual_seed(seed + 4)
+    for B in (15, 16, 17, 256):
+        ranges, poses, origin = _window_inputs(torch, cfg, world, B, wgen)
+        timed(f"window_delta_b{B}", lambda: SK.window_delta(
+            cfg.grid, cfg.scan, ranges, poses, origin), "window_kernel")
+        timed(f"window_apply_b{B}", lambda: FK.window_apply(
+            cfg.grid, cfg.scan, grid, ranges, poses, origin), "window_kernel")
+    return {"package": os.path.dirname(jax_mapping_torch.__file__),
+            "ms": ms, "device_ms": dev_ms,
+            "sass_instructions": {
+                **{n: sass_counts(p) for n, p in libs.items()},
+                "one_cell": cell_sass(os.path.join(os.path.dirname(
+                    jax_mapping_torch.__file__), "csrc"))}}
+
+
+def phase_ab(parent: str, seed: int) -> dict:
+    """K1, K4 and K5 of the tree `parent` and of this one, timed in turns
+    (parent, change, change, parent) on this card, each run in a process
+    of its own that imports that tree's package."""
+    runs = []
+    for label, tree in (("parent", parent), ("change", HERE),
+                        ("change", HERE), ("parent", parent)):
+        out = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--kernel-times",
+             os.path.abspath(tree), "--seed", str(seed)],
+            capture_output=True, text=True, timeout=600)
+        if out.returncode != 0:
+            raise Failed(f"kernel times of {tree} failed: "
+                         f"{out.stderr[-2000:]}")
+        runs.append(dict(json.loads(out.stdout.strip().splitlines()[-1]),
+                         label=label))
+    summary = {}
+    for row in runs[0]["ms"]:
+        by = {lab: [r["ms"][row] for r in runs if r["label"] == lab]
+              for lab in ("parent", "change")}
+        summary[row] = {f"{lab}_ms": statistics.median(v)
+                        for lab, v in by.items()}
+        summary[row]["runs_ms"] = [r["ms"][row] for r in runs]
+        summary[row]["runs_device_ms"] = [r["device_ms"][row] for r in runs]
+        summary[row]["speedup"] = (summary[row]["parent_ms"]
+                                   / summary[row]["change_ms"])
+    out = {"phase": "ab", "order": [r["label"] for r in runs],
+           "packages": [r["package"] for r in runs], "rows": summary,
+           "sass_instructions": {r["label"]: r["sass_instructions"]
+                                 for r in runs}}
+    emit(out)
+    return out
+
+
 KERNEL_ROWS = (
     ("sensor_model_delta", "jax_mapping_torch/csrc/sensor_model.cu",
      "jax_mapping/ops/sensor_kernel.py:376"),
@@ -1637,17 +1965,33 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ticks", type=int, default=30)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ab", metavar="PARENT_TREE",
+                    help="only time K1, K4 and K5 of PARENT_TREE (an "
+                    "unpacked checkout) against this tree, in turns")
+    ap.add_argument("--kernel-times", metavar="TREE",
+                    help=argparse.SUPPRESS)    # one turn of --ab
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(HERE, "jax_mapping_torch", "csrc")):
         print("chip_smoke: jax_mapping_torch/ is not beside this script",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, HERE)
+    sys.path.insert(0, args.kernel_times or HERE)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.kernel_times:
+        emit(kernel_times(torch, args.seed))
+        return 0
+    if args.ab:
+        try:
+            phase_device(torch)
+            phase_ab(args.ab, args.seed)
+        except Failed as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        return 0
 
     from jax_mapping_torch.config import SlamConfig
     t_start = time.perf_counter()
@@ -1665,8 +2009,8 @@ def main(argv=None) -> int:
         vstate = phase_voxel(torch, cfg)
         bench = phase_voxel_bench(torch, cfg)
         phase_voxel_region(torch, cfg, vstate)
-        rows = phase_kernels(torch, cfg, world, mapped, args.seed, mapper,
-                             (vstate, bench, vstate["out"]))
+        rows = phase_kernels(torch, cfg, world, mapped, args.seed, fleet,
+                             mapper, (vstate, bench, vstate["out"]))
         voxel_launches = vstate["out"]["launches"]
         voxel_summed_launches = bench["launches"]["voxel_summed"]
         del mapped, world, st, vstate, bench

@@ -11,18 +11,24 @@
 // patch + acc addition. The patch is never copied out and back.
 //
 // Bound on an H100: the classification, ~55 float operations per (cell,
-// scan) for every cell within range of a scan, against reading B beam
+// scan) for every cell within max range of a scan, against reading B beam
 // tables and writing one patch (K5: reading and writing it), so the work
-// is bound by operations for any B of interest. Design: one thread owns
-// kCellsPerThread cells of the flattened patch and keeps their sums in
-// registers; it loops over the scans in b order, which keeps the
-// reference kernel's b-order sum bit for bit. The scans' sanitised signed
-// beam tables and poses are staged in shared memory a chunk of scans at a
-// time (16 x 512 floats = 32 KB at the default config), with a block
-// barrier between chunks. A scan whose pose is out of range of every row
-// the block owns is skipped for the whole block (block-uniform, exact: it
-// would add zeros). The origin is read on the device, clamped like
-// jax.lax.dynamic_slice clamps its start, so no host sync is needed.
+// is bound by operations for any B of interest. Most (cell, scan) pairs
+// add a constant: 0 beyond the scan's range or behind its walls, exactly
+// lo_free in the open space it carves. So the design classifies each
+// (16 x 16 tile, scan) pair once per block (sensor_cell.cuh::tile_class,
+// 8 lanes per scan, so that a window of 16 scans takes one round, the beam
+// table read through the cache) into shared memory with the poses; warp 0
+// lists the scans that add anything, in b order, and each thread walks
+// that list for its two cells: a kZero or kNoHit scan is left out (exact:
+// an accumulator is never -0, so adding +0 changes nothing), a kFree scan
+// adds lo_free with one rounding, as the per-cell delta would, and only a
+// kPerCell scan runs the per-cell model. The b-order sum in registers and
+// the single patch + acc addition keep the reference's sums bit for bit;
+// 1600 blocks of 128 threads at the default config keep several blocks on
+// every SM. The origin is read on the device, clamped like
+// jax.lax.dynamic_slice clamps its start, so no host sync is needed. There
+// is no product, so tensor cores have no part.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -31,83 +37,104 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kCellsPerThread = 4;
-constexpr int kCellsPerBlock = kThreads * kCellsPerThread;
-constexpr int kSmemBudget = 48 * 1024;   // no opt-in above the default
-constexpr int kMaxChunk = 16;
+constexpr int kTile = 16;
+constexpr int kThreads = 128;             // two cells of the tile each
+constexpr int kMaxB = 512;                // the wrappers' _MAX_B_PER_CALL
+constexpr int kGroup = 8;                 // lanes that classify one scan
 
 template <bool kApply>
 __global__ void __launch_bounds__(kThreads) window_kernel(
     const float* __restrict__ ranges, const float* __restrict__ poses, int B,
     const int* __restrict__ origin, float* __restrict__ out, int n_grid,
-    int P, int nb_pad, int chunk, float lo, float hi, sensor_cell::Params q) {
-  extern __shared__ float smem[];
-  float* table = smem;                               // chunk x nb_pad
-  float* spose = smem + (size_t)chunk * nb_pad;      // chunk x 3
-  int* slive = reinterpret_cast<int*>(spose + 3 * chunk);
+    int P, int nb_pad, float lo, float hi, sensor_cell::Params q) {
+  __shared__ unsigned char scls[kMaxB];
+  __shared__ float spose[3 * kMaxB];
+  __shared__ short slist[kMaxB];          // scans that add, in b order
+  __shared__ int n_live;
 
   const int hi_start = n_grid - P;
   const int row0 = min(max(origin[0], 0), hi_start);
   const int col0 = min(max(origin[1], 0), hi_start);
-  const int ncells = P * P;
-  const int base = blockIdx.x * kCellsPerBlock;
-  const int last = min(base + kCellsPerBlock, ncells) - 1;
-  const int i0 = base / P;
-  const int i1 = last / P + 1;                       // rows [i0, i1)
+  const int ntc = (P + kTile - 1) / kTile;
+  const int i0 = (blockIdx.x / ntc) * kTile;
+  const int j0 = (blockIdx.x % ntc) * kTile;
+  const int i1 = min(i0 + kTile, P) - 1;
+  const int j1 = min(j0 + kTile, P) - 1;
 
-  float acc[kCellsPerThread];
-  int ci[kCellsPerThread];
-  int cj[kCellsPerThread];
+  // Each group of kGroup lanes classifies the tile for one scan at a time
+  // (16 scans a round); then warp 0 lists the scans that add anything, in
+  // b order.
+  const int lane = threadIdx.x & 31;
+  for (int s = threadIdx.x / kGroup; s < B; s += kThreads / kGroup) {
+    const float* rb = ranges + (size_t)s * nb_pad;
+    const float px = poses[3 * s + 0];
+    const float py = poses[3 * s + 1];
+    const float yaw = poses[3 * s + 2];
+    const int cls = sensor_cell::tile_class<kGroup, false>(
+        row0 + i0, row0 + i1, col0 + j0, col0 + j1, px, py, yaw, q,
+        [&](int m) { return sensor_cell::beam_entry(__ldg(rb + m), m, q); },
+        lane);
+    if ((lane & (kGroup - 1)) == 0) {
+      scls[s] = (unsigned char)cls;
+      spose[3 * s + 0] = px;
+      spose[3 * s + 1] = py;
+      spose[3 * s + 2] = yaw;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    int n = 0;
+    for (int s0 = 0; s0 < B; s0 += 32) {
+      const int s = s0 + lane;
+      const bool live = s < B && scls[s] >= sensor_cell::kFree;
+      const unsigned ballot = __ballot_sync(0xffffffffu, live);
+      if (live) slist[n + __popc(ballot & ((1u << lane) - 1u))] = s;
+      n += __popc(ballot);
+    }
+    if (lane == 0) n_live = n;
+  }
+  __syncthreads();
+
+  const int j = j0 + (threadIdx.x & 15);
+  int ci[2];
+  bool live[2];
+  float acc[2];
 #pragma unroll
-  for (int k = 0; k < kCellsPerThread; ++k) {
-    const int cell = base + k * kThreads + threadIdx.x;
+  for (int k = 0; k < 2; ++k) {
+    ci[k] = i0 + (threadIdx.x >> 4) + 8 * k;
+    live[k] = ci[k] <= i1 && j <= j1;
     acc[k] = 0.0f;
-    ci[k] = cell / P;
-    cj[k] = cell - ci[k] * P;
   }
-
-  for (int b0 = 0; b0 < B; b0 += chunk) {
-    const int n = min(chunk, B - b0);
-    __syncthreads();                 // the previous chunk is consumed
-    for (int t = threadIdx.x; t < n; t += kThreads) {
-      const float* p = poses + 3 * (size_t)(b0 + t);
-      spose[3 * t + 0] = p[0];
-      spose[3 * t + 1] = p[1];
-      spose[3 * t + 2] = p[2];
-      slive[t] = !sensor_cell::rows_out_of_range(p[1], row0, i0, i1, q);
-    }
-    for (int t = threadIdx.x; t < n * nb_pad; t += kThreads) {
-      const int s = t / nb_pad;
-      const int j = t - s * nb_pad;
-      table[t] = sensor_cell::beam_entry(
-          ranges[(size_t)(b0 + s) * nb_pad + j], j, q);
-    }
-    __syncthreads();
-    for (int s = 0; s < n; ++s) {
-      if (!slive[s]) continue;       // uniform over the block
-      const float px = spose[3 * s + 0];
-      const float py = spose[3 * s + 1];
-      const float yaw = spose[3 * s + 2];
-      const float* tb = table + (size_t)s * nb_pad;
+  for (int t = 0; t < n_live; ++t) {
+    const int s = slist[t];               // uniform over the block
+    if (scls[s] == sensor_cell::kFree) {
 #pragma unroll
-      for (int k = 0; k < kCellsPerThread; ++k) {
-        if (base + k * kThreads + (int)threadIdx.x >= ncells) continue;
-        const sensor_cell::CellRay c = sensor_cell::cell_ray(
-            row0 + ci[k], col0 + cj[k], px, py, yaw, q);
-        acc[k] = __fadd_rn(acc[k], sensor_cell::delta_of(c, tb[c.beam], q));
-      }
+      for (int k = 0; k < 2; ++k) acc[k] = __fadd_rn(acc[k], q.lo_free);
+      continue;
+    }
+    const float px = spose[3 * s + 0];
+    const float py = spose[3 * s + 1];
+    const float yaw = spose[3 * s + 2];
+    const float* rb = ranges + (size_t)s * nb_pad;
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      if (!live[k]) continue;
+      const sensor_cell::CellRay c =
+          sensor_cell::cell_ray(row0 + ci[k], col0 + j, px, py, yaw, q);
+      const float enc = sensor_cell::beam_entry(__ldg(rb + c.beam), c.beam,
+                                                q);
+      acc[k] = __fadd_rn(acc[k], sensor_cell::delta_of(c, enc, q));
     }
   }
 
 #pragma unroll
-  for (int k = 0; k < kCellsPerThread; ++k) {
-    if (base + k * kThreads + (int)threadIdx.x >= ncells) continue;
+  for (int k = 0; k < 2; ++k) {
+    if (!live[k]) continue;
     if (kApply) {
-      float* g = out + (size_t)(row0 + ci[k]) * n_grid + (col0 + cj[k]);
+      float* g = out + (size_t)(row0 + ci[k]) * n_grid + (col0 + j);
       *g = fminf(fmaxf(__fadd_rn(*g, acc[k]), lo), hi);
     } else {
-      out[(size_t)ci[k] * P + cj[k]] = acc[k];
+      out[(size_t)ci[k] * P + j] = acc[k];
     }
   }
 }
@@ -116,16 +143,14 @@ template <bool kApply>
 int launch(const void* ranges, const void* poses, int B, const void* origin,
            void* out, int n_grid, int P, int nb_pad, float lo, float hi,
            const sensor_cell::Params& q, void* stream) {
-  if (P <= 0 || B < 0 || nb_pad <= 0) return (int)cudaErrorInvalidValue;
-  const int per_scan = (nb_pad + 4) * (int)sizeof(float);
-  const int chunk = max(1, min(kMaxChunk, kSmemBudget / per_scan));
-  const size_t smem = (size_t)chunk * per_scan;
-  const int blocks = (P * P + kCellsPerBlock - 1) / kCellsPerBlock;
-  window_kernel<kApply><<<blocks, kThreads, smem,
+  if (P <= 0 || B < 0 || B > kMaxB || nb_pad <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int ntc = (P + kTile - 1) / kTile;
+  window_kernel<kApply><<<ntc * ntc, kThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(ranges), static_cast<const float*>(poses), B,
       static_cast<const int*>(origin), static_cast<float*>(out), n_grid, P,
-      nb_pad, chunk, lo, hi, q);
+      nb_pad, lo, hi, q);
   return (int)cudaGetLastError();
 }
 
@@ -139,7 +164,8 @@ extern "C" int window_delta_launch(
     float tol, float lo_occ, float lo_free, void* stream) {
   const sensor_cell::Params q{res, ox, oy, inc, angle_min, n_beams, ccw,
                               full_circle, invalid_range, range_min,
-                              range_max, max_r, tol, lo_occ, lo_free};
+                              range_max, max_r, tol, lo_occ, lo_free,
+                              1.0f / inc};
   return launch<false>(ranges, poses, B, origin, out, n_grid, P, nb_pad,
                        0.0f, 0.0f, q, stream);
 }
@@ -153,7 +179,8 @@ extern "C" int window_apply_launch(
     void* stream) {
   const sensor_cell::Params q{res, ox, oy, inc, angle_min, n_beams, ccw,
                               full_circle, invalid_range, range_min,
-                              range_max, max_r, tol, lo_occ, lo_free};
+                              range_max, max_r, tol, lo_occ, lo_free,
+                              1.0f / inc};
   return launch<true>(ranges, poses, B, origin, grid, n_grid, P, nb_pad, lo,
                       hi, q, stream);
 }

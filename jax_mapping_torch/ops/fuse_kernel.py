@@ -17,8 +17,11 @@ Port of the JAX package's `ops/fuse_kernel.py`.
   clip(patch + sum_b delta_b) in one pass, in place on the grid, with the
   sum in b order and one `patch + acc` addition. K5 is bound by the
   classification (~55 float operations per cell and scan within range)
-  against one read and one write of the patch; each thread keeps its
-  cells' sums in registers and loops over the scans (see the source).
+  against one read and one write of the patch; each block classifies
+  its 16 x 16 tile for every scan once (constant or per-cell, the class
+  of `SK.tile_classes_plain`), then each thread keeps its cells' sums in
+  registers and loops over the scans, running the per-cell model only
+  where the class asks for it (see the source).
   Larger windows are summed by kernel K4 as 512-scan subtotals and
   applied once.
 * `touched_tile_box`, `patch_span_tiles` and `fuse_scans_window_touched`:

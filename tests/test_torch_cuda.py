@@ -9,7 +9,9 @@ The kernels must equal their plain versions exactly: K1 evaluates the
 plain version's float operations one rounding each in the same order, K2
 is integer max, and every K3 candidate is one add under an exact min. K4
 and K5 classify a cell with K1's device code and add the deltas in b
-order, as their plain versions do. K6 and K7 evaluate the voxel model's
+order, as their plain versions do. K1, K4 and K5 decide per tile and scan
+whether the model is a constant there; the tests near walls and at the
+edges reach every class of that decision. K6 and K7 evaluate the voxel model's
 float operations in the plain version's order and K7 adds in b order.
 """
 
@@ -33,6 +35,8 @@ from jax_mapping_torch.ops import voxel as V
 from jax_mapping_torch.ops import voxel_kernel as VK
 from jax_mapping_torch.sim import depthcam as D
 from jax_mapping_torch.sim import world as W
+
+import test_torch_sensor_tiles as ST    # its inputs (a sibling test file)
 
 pytestmark = pytest.mark.cuda
 
@@ -83,6 +87,77 @@ def test_sensor_model_equals_plain(dev, name, mode):
     torch.cuda.synchronize()
     assert torch.equal(got, want), int((got != want).sum())
     assert bool((want != 0).any())
+
+
+TILE_CONFIGS = ("micro", "tiny", "fov", "default")
+
+
+@pytest.mark.parametrize("mode", ["delta", "raster"])
+@pytest.mark.parametrize("name", TILE_CONFIGS)
+def test_sensor_model_near_walls_equals_plain(dev, name, mode):
+    """Scans of rooms_world near its walls, where the tiles take every
+    class (zero, no hit, uniform free, per cell); micro's P = 24 leaves
+    ragged 8-cell tiles, fov has no full circle."""
+    cfg = ST.CONFIGS[name]()
+    r, p, o = (x.to(dev).contiguous() for x in ST._inputs(cfg, 4, n=9))
+    kernel, plain = ((SK.scan_deltas, SK.scan_deltas_plain) if mode == "delta"
+                     else (SK.scan_rasters, SK.scan_rasters_plain))
+    got = kernel(cfg.grid, cfg.scan, r, p, o)
+    want = plain(cfg.grid, cfg.scan, r, p, o)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), int((got != want).sum())
+    assert bool((want != 0).any())
+
+
+@pytest.mark.parametrize("mode", ["delta", "raster"])
+@pytest.mark.parametrize("case", ST.EDGES)
+@pytest.mark.parametrize("name", ["micro", "tiny", "default"])
+def test_sensor_model_edges_equal_plain(dev, name, case, mode):
+    """Poses off their patch, on a tile corner, yaws beyond +-pi, +-2pi and
+    +-4pi, all-zero scans and hits exactly at max range."""
+    cfg = CONFIGS[name]()
+    r, p, o = (x.to(dev).contiguous() for x in ST._edge_inputs(cfg, case))
+    kernel, plain = ((SK.scan_deltas, SK.scan_deltas_plain) if mode == "delta"
+                     else (SK.scan_rasters, SK.scan_rasters_plain))
+    got = kernel(cfg.grid, cfg.scan, r, p, o)
+    want = plain(cfg.grid, cfg.scan, r, p, o)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+def _shared_origin_inputs(cfg, case, B):
+    """B scans near walls (or an edge case's four, repeated) sharing the
+    patch at their mean pose."""
+    if case == "near_walls":
+        r, p, _ = ST._inputs(cfg, 5, n=B)
+    else:
+        r, p, _ = ST._edge_inputs(cfg, case)
+        reps = -(-B // r.shape[0])
+        r, p = r.repeat(reps, 1)[:B], p.repeat(reps, 1)[:B]
+    return r, p, G.patch_origin(cfg.grid, p[:, :2].mean(dim=0))
+
+
+@pytest.mark.parametrize("case", ["near_walls", *ST.EDGES])
+@pytest.mark.parametrize("B", [16, 17])
+@pytest.mark.parametrize("name", TILE_CONFIGS)
+def test_window_kernels_near_walls_equal_plain(dev, name, B, case):
+    """K4 and K5 on scans whose tiles take every class, one and more than
+    one 16-scan chunk, and at the edges."""
+    cfg = ST.CONFIGS[name]()
+    r, p, o = (x.to(dev).contiguous()
+               for x in _shared_origin_inputs(cfg, case, B))
+    got = SK.window_delta(cfg.grid, cfg.scan, r, p, o)
+    want = SK.window_delta_plain(cfg.grid, cfg.scan, r, p, o)
+    assert torch.equal(got, want), int((got != want).sum())
+    n = cfg.grid.size_cells
+    g = torch.Generator().manual_seed(B)
+    base = ((torch.rand((n, n), generator=g) * 8 - 4)
+            * (torch.rand((n, n), generator=g) < 0.5)).to(dev)
+    got, want = base.clone(), base.clone()
+    FK.window_apply(cfg.grid, cfg.scan, got, r, p, o)
+    FK.window_apply_plain(cfg.grid, cfg.scan, want, r, p, o)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), int((got != want).sum())
 
 
 @pytest.mark.parametrize("n,iters", [(40, 9), (256, 24)])
