@@ -4,9 +4,11 @@
     python3 chip_smoke.py [--ticks N] [--seed S]
     python3 chip_smoke.py --ab PARENT_TREE
 
-The second form only times kernels K1, K4 and K5 of an unpacked parent
-checkout against this tree's, in turns (parent, change, change, parent),
-each turn a process of its own, and prints one "ab" line.
+The second form only times kernels K1-K5 of an unpacked parent checkout
+against this tree's, in turns (parent, change, change, parent), each turn
+a process of its own, and prints one "ab" line: K1, K4 and K5 at the main
+paths' batches, K2 at the fleet's 256^2 x 49 sweeps and K3 at each of the
+fleet's three levels, on fixed seeded inputs.
 
 Phases, each printed as one JSON line:
 
@@ -18,8 +20,10 @@ Phases, each printed as one JSON line:
            512, 640^2 patches, 1024-pose rings) on plank_course(4096,
            0.05, n_planks=40, seed=0). Launch counts are zeroed just
            before the ticks and read just after; every kernel of the
-           fleet path (K1-K3) must have launched.
-  stages   the same stages called one at a time on the final state
+           fleet path (K1-K3) must have launched, K2 once a tick and K3
+           three times (a launch a level), both on the cluster route.
+  stages   the same stages called one at a time on the final state, and
+           within compute_frontiers the cost fields and K3's launches
   profile  the next ticks, timed alone and then under torch.profiler:
            device busy share, device work per stream, launches per tick,
            the kernels that take the device's time; loop verifications
@@ -47,7 +51,12 @@ Phases, each printed as one JSON line:
            share of (tile, scan) pairs in each tile class (from the plain
            mirror) and bound / time; edge rows (a pose off its patch, on
            a tile corner, yaws beyond +-pi, +-2pi and +-4pi, all-zero
-           scans, hits at max range) for K1, K4 and K5, not timed
+           scans, hits at max range) for K1, K4 and K5, not timed. K2
+           and K3 with their route, cluster size and time per sweep;
+           their edge rows: a serpentine mask and a corridor maze whose
+           paths cross every slab boundary, seeds off the mask, fields
+           with values at blocked cells, zero sweeps, and the global
+           route at 1024^2 (timed)
   parity   a tiny mission, each tick run on the card and on the CPU from
            the same state with the same wheel noise
   slam_parity  a tiny single robot, window and single steps, each run on
@@ -152,22 +161,32 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, kernel: str, reps: int = 10) -> float:
+def device_ms(fn, kernel: str, reps: int = 10,
+              per_call: bool = False) -> float:
     """Median duration in ms of the device kernels whose name holds
-    `kernel`, from torch.profiler over `reps` calls of fn() after one: the
-    kernel alone, without the host's time to launch it that cuda_ms
-    includes when the kernel is short."""
+    `kernel` (in any case), from torch.profiler over `reps` calls of fn()
+    after one: the kernel alone, without the host's time to launch it that
+    cuda_ms includes when the kernel is short. With `per_call`, their
+    time per call, for a call that launches several: the mean duration
+    times the kernels a call launched. The profiler now and then loses a
+    few records late in a long run, which neither reading depends on; a
+    session that records none is repeated, twice at most, then None."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    durs = [float(e["dur"]) / 1e3 for e in _device_events(prof)
-            if kernel in e.get("name", "")]
-    return statistics.median(durs) if durs else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        durs = [float(e["dur"]) / 1e3 for e in _device_events(prof)
+                if kernel.lower() in e.get("name", "").lower()]
+        if durs and not per_call:
+            return statistics.median(durs)
+        if durs:
+            return statistics.fmean(durs) * max(1, round(len(durs) / reps))
+    return None
 
 
 def compare(got, want) -> dict:
@@ -385,6 +404,9 @@ def _split_ms(tick_ms, verifies) -> dict:
 FLEET_KERNELS = ("sensor_model_delta", "sensor_model_raster", "label_prop",
                  "costfield_relax")
 
+#: Launches a fleet tick makes of K2 (one call) and K3 (one a level).
+FLEET_SWEEP_LAUNCHES = {"label_prop": 1, "costfield_relax": 3}
+
 
 def phase_fleet(torch, cfg, world, ticks: int, seed: int):
     from jax_mapping_torch.models import fleet as FL
@@ -414,6 +436,7 @@ def phase_fleet(torch, cfg, world, ticks: int, seed: int):
             keys += int(diag.is_key.any())
             closed += int(diag.loop_closed.sum())
     launches = dict(_cuda.LAUNCHES)
+    routes = {k: dict(v) for k, v in _cuda.ROUTES.items()}
 
     grid = st.grid
     occ = int((grid > cfg.grid.occ_threshold).sum())
@@ -436,6 +459,7 @@ def phase_fleet(torch, cfg, world, ticks: int, seed: int):
            "ticks_with_key_robots": keys, "loops_closed": closed,
            "launches": launches,
            "launches_per_tick": {k: v / ticks for k, v in launches.items()},
+           "routes": routes,
            "k1_launches_per_tick_by_batch": bc.per_tick(ticks),
            "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
            "tf32_cudnn": torch.backends.cudnn.allow_tf32}
@@ -450,12 +474,22 @@ def phase_fleet(torch, cfg, world, ticks: int, seed: int):
     for name in FLEET_KERNELS:
         check(launches[name] > 0,
               f"kernel {name} never launched on the fleet path")
+    # K2 once a tick, K3 once a level (three a tick), all cluster launches.
+    for name, per_tick in FLEET_SWEEP_LAUNCHES.items():
+        check(launches[name] == per_tick * ticks,
+              f"{name} launched {launches[name]} times in {ticks} ticks, "
+              f"not {per_tick} a tick")
+        check(all(r.startswith("cluster") for r in routes[name]),
+              f"{name} left the cluster route: {routes[name]}")
     return st, out
 
 
 def phase_stages(torch, cfg, st, world):
-    """Device time of each stage of a tick, called alone on `st`."""
+    """Device time of each stage of a tick, called alone on `st`; within
+    `compute_frontiers`, `cost_fields` and K3's share of it."""
+    from jax_mapping_torch._util import div
     from jax_mapping_torch.models import slam as S
+    from jax_mapping_torch.ops import costfield as CF
     from jax_mapping_torch.ops import frontier as F
     from jax_mapping_torch.ops import grid as G
     from jax_mapping_torch.ops import posegraph as PG
@@ -483,6 +517,30 @@ def phase_stages(torch, cfg, st, world):
             cfg.grid, cfg.scan, st.grid, scans, st.est_poses, key),
     }
     ms = {k: cuda_ms(f, reps=5, warmup=1) for k, f in stages.items()}
+
+    # Inside compute_frontiers: the cost fields and K3's three launches in
+    # them, on the state's own blocked map and robot cells.
+    fcfg = cfg.frontier
+    free, _occ, unknown = F.coarsen(fcfg, cfg.grid, st.grid)
+    fmask = F.frontier_mask(free, unknown)
+    passable, bfs_res = F.bfs_passability(fcfg, cfg.grid, free, unknown,
+                                          fmask)
+    ox, oy = cfg.grid.origin_m
+    rc = torch.stack([div(st.est_poses[:, 1] - oy, bfs_res).to(torch.int32),
+                      div(st.est_poses[:, 0] - ox, bfs_res).to(torch.int32)],
+                     dim=1)
+    levels = []
+
+    def recorded(blk, init, iters):
+        levels.append((blk, init, iters))
+        return CF.relax_level(blk, init, iters)
+    CF.cost_fields(~passable, rc, fcfg.mg_levels, fcfg.mg_refine_iters,
+                   relax=recorded)
+    ms["cost_fields"] = cuda_ms(lambda: CF.cost_fields(
+        ~passable, rc, fcfg.mg_levels, fcfg.mg_refine_iters), reps=5,
+        warmup=1)
+    k3_ms = [cuda_ms(lambda b=b, i=i, it=it: CF.relax_level(b, i, it),
+                     reps=5, warmup=1) for b, i, it in levels]
 
     # The matcher's own stages (the branch-and-bound path of match_batch).
     m = cfg.matcher
@@ -514,6 +572,8 @@ def phase_stages(torch, cfg, st, world):
             zeros[:, 0], zeros),
     }
     emit({"phase": "stages", "ms": ms,
+          "cost_fields_ms": ms["cost_fields"], "k3_ms": sum(k3_ms),
+          "k3_ms_by_level": k3_ms,
           "match_batch_ms": {k: cuda_ms(f, reps=5, warmup=1)
                              for k, f in matcher.items()}})
 
@@ -665,17 +725,16 @@ def phase_kernels(torch, cfg, world, mapped, seed: int, fleet: dict,
     iters = max(1, -(-fcfg.label_prop_iters // fcfg.cluster_downsample))
     lin = torch.arange(n * n, dtype=torch.int32, device=dev).reshape(n, n)
     seed_lab = torch.where(mask2, lin, -1).to(torch.int32)
-    got = F.label_prop(mask2, seed_lab, iters)
-    want = F._label_prop_plain(mask2, seed_lab, iters)
-    cmp = compare(got, want)
     sweeps = 2 * iters + 1
+    got, ran = F.label_sweeps(mask2, seed_lab, sweeps)
+    want = F._label_prop_plain(mask2, seed_lab, iters)
     rows["label_prop"] = dict(
-        cmp, shape=[n, n], sweeps=sweeps,
+        compare(got, want), shape=[n, n], sweeps=sweeps, **ran,
         mask_cells=int(mask2.sum()),
         components=int(torch.unique(want[want >= 0]).numel()),
-        ms=cuda_ms(lambda: F.label_prop(mask2, seed_lab, iters)),
-        plain_ms=cuda_ms(lambda: F._label_prop_plain(mask2, seed_lab,
-                                                     iters)),
+        **_sweep_times(lambda: F.label_prop(mask2, seed_lab, iters),
+                       lambda: F._label_prop_plain(mask2, seed_lab, iters),
+                       "label", sweeps),
         **bound(n * n * (1 + 4 + 4), sweeps * n * n * 9))
 
     # K3: the obstacle-aware cost fields of every robot, three levels.
@@ -698,12 +757,14 @@ def phase_kernels(torch, cfg, world, mapped, seed: int, fleet: dict,
     want = CF.cost_fields(blocked, rc, fcfg.mg_levels, fcfg.mg_refine_iters,
                           relax=CF._relax_level_xla)
     cmp = compare(got, want)
-    levels = [{"n": init.shape[-1], "sweeps": 2 * iters,
-               "ms": cuda_ms(lambda: CF.relax_level(blk, init, iters)),
-               "plain_ms": cuda_ms(lambda: CF._relax_level_xla(blk, init,
-                                                               iters))}
+    levels = [dict(n=init.shape[-1], sweeps=2 * iters,
+                   **CF.relax_sweeps(blk, init, 2 * iters)[1],
+                   **_sweep_times(
+                       lambda: CF.relax_level(blk, init, iters),
+                       lambda: CF._relax_level_xla(blk, init, iters),
+                       "relax", 2 * iters))
               for blk, init, iters in calls]
-    # The kernel's own work: each level reads its mask and initial fields
+    # The function's own work: each level reads its mask and initial fields
     # once and writes its fields once; each sweep does 8 adds, 8 mins and
     # a select per cell of every field.
     n_bytes = sum(v["n"] ** 2 * (1 + 2 * 4 * R) for v in levels)
@@ -712,14 +773,16 @@ def phase_kernels(torch, cfg, world, mapped, seed: int, fleet: dict,
     rows["costfield_relax"] = dict(
         cmp, shape=[R, nb_, nb_], blocked_cells=int(blocked.sum()),
         reachable_cells=int((want < CF._BIG).sum()), levels=levels,
-        ms=sum(v["ms"] for v in levels),
-        plain_ms=sum(v["plain_ms"] for v in levels),
+        **{k: (None if None in [v[k] for v in levels]
+               else sum(v[k] for v in levels))
+           for k in ("ms", "device_ms", "plain_ms")},
         cost_fields_ms=cuda_ms(lambda: CF.cost_fields(
             blocked, rc, fcfg.mg_levels, fcfg.mg_refine_iters)),
         cost_fields_plain_ms=cuda_ms(lambda: CF.cost_fields(
             blocked, rc, fcfg.mg_levels, fcfg.mg_refine_iters,
             relax=CF._relax_level_xla)),
         **bound(n_bytes, n_ops))
+    rows.update(sweep_edge_rows(torch, dev, R))
 
     rows.update(window_kernel_rows(torch, cfg, world, mapped, seed, mapper))
     rows.update(edge_rows(torch, cfg, world, mapped, gen))
@@ -729,6 +792,72 @@ def phase_kernels(torch, cfg, world, mapped, seed: int, fleet: dict,
         check(r["mismatches"] == 0,
               f"kernel {name} differs from its plain version in "
               f"{r['mismatches']} elements (max abs {r['max_abs_err']})")
+    return rows
+
+
+def _sweep_times(kernel, plain, name: str, sweeps: int) -> dict:
+    """K2's or K3's times: the wrapper's call on CUDA events (`ms`, what a
+    caller pays), the kernel alone from the profiler (`device_ms`), the
+    latter per sweep, and the plain version's time."""
+    dev_ms = device_ms(kernel, name, per_call=True)
+    return {"ms": cuda_ms(kernel), "device_ms": dev_ms,
+            "us_per_sweep": (None if dev_ms is None
+                             else dev_ms * 1e3 / max(1, sweeps)),
+            "plain_ms": cuda_ms(plain)}
+
+
+def sweep_edge_rows(torch, dev, R: int) -> dict:
+    """K2 and K3 on paths that cross every slab boundary and outrun the
+    sweeps (the serpentine mask and the corridor maze of
+    tests/test_torch_frontier_sweeps.py), a K2 seed with labels off the
+    mask, K3 fields that hold values at blocked cells, zero sweeps, and
+    the global route at 1024^2 (timed); exact against the plain versions."""
+    from jax_mapping_torch.ops import costfield as CF
+    from jax_mapping_torch.ops import frontier as F
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import test_torch_frontier_sweeps as FS
+    rows = {}
+    for n in (256, 40, 1024):
+        m = FS.serpentine_mask(n, seed=n)
+        mask = torch.as_tensor(m).to(dev)
+        for off in (False, True):
+            seed = torch.as_tensor(FS.label_seed(m, off, seed=n)).to(dev)
+            got, ran = F.label_sweeps(mask, seed, 49)
+            want = F._label_prop_plain(mask, seed, 24)
+            row = dict(compare(got, want), shape=[n, n], sweeps=49, **ran)
+            if n == 1024 and not off:
+                row.update(_sweep_times(
+                    lambda: F.label_prop(mask, seed, 24),
+                    lambda: F._label_prop_plain(mask, seed, 24), "label",
+                    49))
+            rows[f"edge_label_prop_serpentine_n{n}"
+                 + ("_seed_off_mask" if off else "")] = row
+    for n, iters in ((64, 32), (256, 8), (48, 8), (1024, 8)):
+        blocked = FS.corridor_maze(n, seed=n)
+        blk = torch.as_tensor(blocked).to(dev)
+        for dense in (False, True):
+            init = torch.as_tensor(FS.maze_init(blocked, R, seed=n,
+                                                dense=dense)).to(dev)
+            got, ran = CF.relax_sweeps(blk, init, 2 * iters)
+            want = CF._relax_level_xla(blk, init, iters)
+            row = dict(compare(got, want), shape=[R, n, n],
+                       sweeps=2 * iters, **ran)
+            if n == 1024 and not dense:
+                row.update(_sweep_times(
+                    lambda: CF.relax_level(blk, init, iters),
+                    lambda: CF._relax_level_xla(blk, init, iters), "relax",
+                    2 * iters))
+            rows[f"edge_costfield_relax_maze_n{n}"
+                 + ("_dense" if dense else "")] = row
+    m = torch.as_tensor(FS.serpentine_mask(256)).to(dev)
+    seed = torch.as_tensor(FS.label_seed(FS.serpentine_mask(256), True)
+                           ).to(dev)
+    got, ran = F.label_sweeps(m, seed, 0)
+    rows["edge_label_prop_zero_sweeps"] = dict(compare(got, seed), **ran)
+    init = torch.as_tensor(FS.maze_init(~FS.serpentine_mask(256), R, dense=True)
+                           ).to(dev)
+    got, ran = CF.relax_sweeps(~m, init, 0)
+    rows["edge_costfield_relax_zero_sweeps"] = dict(compare(got, init), **ran)
     return rows
 
 
@@ -1839,14 +1968,52 @@ def phase_voxel_parity(torch, seed: int, ticks: int = 6):
           "voxel parity: the tiny drive mapped nothing")
 
 
+def frontier_inputs(torch, seed: int) -> dict:
+    """K2's and K3's inputs at the fleet's shapes (default SlamConfig), made
+    from `seed` on the card: the 256^2 clustering mask at the fleet's ~4%
+    density with `label_components`' seed labels and sweep count, and each
+    level's (blocked, init, iters) of 8 robots' cost fields (64^2, 128^2,
+    256^2) on a map with 10% of its cells blocked, every init being the
+    plain relaxation of the level below it."""
+    from jax_mapping_torch.config import SlamConfig
+    from jax_mapping_torch.ops import costfield as CF
+    cfg = SlamConfig()
+    fcfg = cfg.frontier
+    n = cfg.grid.size_cells // fcfg.downsample // fcfg.cluster_downsample
+    dev = torch.device(DEV)
+    g = torch.Generator().manual_seed(seed + 7)
+    mask = torch.rand((n, n), generator=g) < 0.04
+    lin = torch.arange(n * n, dtype=torch.int32).reshape(n, n)
+    blocked = torch.rand((n, n), generator=g) < 0.1
+    rc = torch.randint(0, n, (cfg.fleet.n_robots, 2), generator=g)
+    blocked[rc[:, 0], rc[:, 1]] = False
+    levels = []
+
+    def recorded(blk, init, iters):
+        levels.append((blk, init, iters))
+        return CF._relax_level_xla(blk, init, iters)
+    CF.cost_fields(blocked.to(dev), rc.to(dev), fcfg.mg_levels,
+                   fcfg.mg_refine_iters, relax=recorded)
+    return {"mask": mask.to(dev),
+            "seed": torch.where(mask, lin, -1).to(torch.int32).to(dev),
+            "iters": max(1, -(-fcfg.label_prop_iters
+                              // fcfg.cluster_downsample)),
+            "levels": levels}
+
+
 def kernel_times(torch, seed: int) -> dict:
-    """Device times of K1, K4 and K5 at the main paths' batches on fixed
-    inputs (seeded), through the wrappers of whichever `jax_mapping_torch`
-    comes first on sys.path, and the SASS instruction counts of its
-    builds. The --ab comparison runs this for two trees in turns."""
+    """Device times of K1, K4 and K5 at the main paths' batches, of K2 at
+    the fleet's 256^2 x 49 sweeps and of K3 at each of its three levels,
+    on fixed inputs (seeded), through the wrappers of whichever
+    `jax_mapping_torch` comes first on sys.path, and the SASS instruction
+    counts of its builds. The --ab comparison runs this for two trees in
+    turns. K2's and K3's device times are per call (a parent's call
+    launched one grid a sweep)."""
     import jax_mapping_torch
     from jax_mapping_torch.config import SlamConfig
     from jax_mapping_torch.ops import _cuda
+    from jax_mapping_torch.ops import costfield as CF
+    from jax_mapping_torch.ops import frontier as F
     from jax_mapping_torch.ops import fuse_kernel as FK
     from jax_mapping_torch.ops import grid as G
     from jax_mapping_torch.ops import sensor_kernel as SK
@@ -1857,14 +2024,28 @@ def kernel_times(torch, seed: int) -> dict:
     res = cfg.grid.resolution_m
     n_samples = int(cfg.scan.range_max_m / (res * 0.5))
     gen = torch.Generator().manual_seed(seed + 1)
-    libs = {n: _cuda._target(n) for n in ("sensor_model", "window_fuse")}
+    libs = {n: _cuda._target(n) for n in ("sensor_model", "window_fuse",
+                                          "label_prop", "costfield_relax")}
     for n in libs:
         _cuda.library(n)
     ms, dev_ms = {}, {}
 
-    def timed(name, fn, kernel):
+    def timed(name, fn, kernel, per_call=False):
         ms[name] = cuda_ms(fn)
-        dev_ms[name] = device_ms(fn, kernel)
+        dev_ms[name] = device_ms(fn, kernel, per_call=per_call)
+
+    fr = frontier_inputs(torch, seed)
+    timed("label_prop_256_s49", lambda: F.label_prop(
+        fr["mask"], fr["seed"], fr["iters"]), "label", per_call=True)
+    for blk, init, it in fr["levels"]:
+        timed(f"costfield_relax_{init.shape[-1]}_s{2 * it}",
+              lambda blk=blk, init=init, it=it: CF.relax_level(blk, init, it),
+              "relax", per_call=True)
+    k3 = [k for k in ms if k.startswith("costfield_relax_")]
+    for d in (ms, dev_ms):
+        vals = [d[k] for k in k3]
+        d["costfield_relax_levels"] = None if None in vals else sum(vals)
+    del fr
 
     guess = _poses_near_walls(torch, cfg, world, cfg.fleet.n_robots, gen)
     scans = lidar.simulate_scans(cfg.scan, world, res, n_samples, guess)
@@ -1900,9 +2081,9 @@ def kernel_times(torch, seed: int) -> dict:
 
 
 def phase_ab(parent: str, seed: int) -> dict:
-    """K1, K4 and K5 of the tree `parent` and of this one, timed in turns
-    (parent, change, change, parent) on this card, each run in a process
-    of its own that imports that tree's package."""
+    """K1-K5 of the tree `parent` and of this one, timed in turns (parent,
+    change, change, parent) on this card, each run in a process of its own
+    that imports that tree's package."""
     runs = []
     for label, tree in (("parent", parent), ("change", HERE),
                         ("change", HERE), ("parent", parent)):
@@ -1921,6 +2102,10 @@ def phase_ab(parent: str, seed: int) -> dict:
               for lab in ("parent", "change")}
         summary[row] = {f"{lab}_ms": statistics.median(v)
                         for lab, v in by.items()}
+        for lab in ("parent", "change"):
+            d = [r["device_ms"][row] for r in runs if r["label"] == lab]
+            summary[row][f"{lab}_device_ms"] = (
+                None if None in d else statistics.median(d))
         summary[row]["runs_ms"] = [r["ms"][row] for r in runs]
         summary[row]["runs_device_ms"] = [r["device_ms"][row] for r in runs]
         summary[row]["speedup"] = (summary[row]["parent_ms"]

@@ -10,7 +10,9 @@ a kernel builds it (or `build_all()` builds every kernel in parallel).
 
 Every wrapper adds to its entry in `LAUNCHES` the number of kernel grids
 it launched, and nowhere else, so a caller can reset the counts, drive a
-path and read which kernels ran and how often.
+path and read which kernels ran and how often. A kernel with more than
+one route (K2 and K3: a cluster launch, or one launch a sweep on large
+grids) also adds them to `ROUTES`, by route.
 """
 
 from __future__ import annotations
@@ -59,6 +61,16 @@ LAUNCHES: Dict[str, int] = {
     "voxel_summed": 0,
 }
 
+#: Kernel name -> route ("cluster<C>" or "global") -> launches since the
+#: last reset_launches().
+ROUTES: Dict[str, Dict[str, int]] = {"label_prop": {},
+                                     "costfield_relax": {}}
+
+#: Errors the port's launchers return beside cudaError_t codes
+#: (csrc/cluster_sweep.cuh).
+OWN_ERRORS = {-2: "no cluster of this size fits on the card "
+                  "(cudaOccupancyMaxActiveClusters is 0)"}
+
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
@@ -87,13 +99,18 @@ _SIGNATURES = {
 }
 
 
-def count_launch(name: str, n: int = 1) -> None:
+def count_launch(name: str, n: int = 1, route: Optional[str] = None
+                 ) -> None:
     LAUNCHES[name] += n
+    if route is not None:
+        ROUTES[name][route] = ROUTES[name].get(route, 0) + n
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for r in ROUTES.values():
+        r.clear()
 
 
 def nvcc_path() -> str:
@@ -188,6 +205,8 @@ def call(name: str, *args, entry: Optional[str] = None) -> None:
     fn = getattr(library(name), entry)
     stream = torch.cuda.current_stream().cuda_stream
     rc = fn(*args, ctypes.c_void_p(stream))
+    if rc in OWN_ERRORS:
+        raise RuntimeError(f"{entry} failed: {OWN_ERRORS[rc]}")
     if rc != 0:
         raise RuntimeError(f"{entry} failed: CUDA error {rc}")
 
@@ -207,3 +226,23 @@ def check_cuda(t: torch.Tensor, name: str, dtype, shape=None) -> None:
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def mask_bytes(m: torch.Tensor) -> torch.Tensor:
+    """A bool mask as contiguous uint8: a view where it can be (bool and
+    uint8 share their bytes), a conversion otherwise."""
+    m = m.view(torch.uint8) if m.dtype == torch.bool else m.to(torch.uint8)
+    return m.contiguous()
+
+
+def sweep_call(name: str, *args) -> dict:
+    """Launch a cluster-sweep kernel (K2 or K3) with `args` before its
+    info array; count its launches by route and return how it ran:
+    launches, route ("cluster<C>" or "global"), threads a CTA and the
+    clusters the card holds at once."""
+    info = (ctypes.c_int * 4)()
+    call(name, *args, info)
+    route = f"cluster{info[1]}" if info[1] else "global"
+    count_launch(name, info[0], route)
+    return {"launches": info[0], "route": route, "threads": info[2],
+            "clusters_at_once": info[3]}

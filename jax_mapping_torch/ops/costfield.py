@@ -15,8 +15,6 @@ counterpart here. `_relax_level_xla` is the plain PyTorch version.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from jax_mapping_torch._util import shift2d
@@ -52,26 +50,34 @@ def relax_level(blocked: torch.Tensor, init: torch.Tensor,
     """`iters` doubled sweeps of (R, n, n) fields: the plain version on a
     CPU tensor, kernel K3 on a CUDA tensor.
 
-    K3 replaces `jax_mapping/ops/costfield.py::_relax_level_pallas`. The
-    sweeps are dependent passes over little data, so launches and passes
-    bound it, not bytes or arithmetic. Fields up to 128^2 stay in one
-    block's shared memory for every sweep of the level (one launch);
-    larger fields ping-pong two global buffers, one launch per sweep."""
+    K3 replaces `jax_mapping/ops/costfield.py::_relax_level_pallas`. A
+    level is a chain of 2 * iters dependent sweeps over little data, so
+    the hand-over between sweeps bounds it, not bytes or arithmetic. Each
+    robot's field is one thread-block cluster whose CTAs keep row slabs in
+    shared memory and send their edge rows into the neighbours' shared
+    memory (distributed shared memory): one launch a level. Fields too
+    large for 16 CTAs' shared memory (n above about 600) ping-pong two
+    global buffers, one launch a sweep."""
     if init.device.type == "cpu":
         return _relax_level_xla(blocked, init, iters)
+    return relax_sweeps(blocked, init, 2 * iters)[0]
+
+
+def relax_sweeps(blocked: torch.Tensor, init: torch.Tensor, n_sweeps: int):
+    """Kernel K3 on CUDA tensors: `n_sweeps` sweeps -> (fields, how it
+    ran). The launcher chooses the route and cluster size by size; the
+    route and counts are `_cuda.sweep_call`'s."""
     R, n, _ = init.shape
-    blk = blocked.to(torch.uint8).contiguous()
+    blk = _cuda.mask_bytes(blocked)
     init = init.contiguous()
     _cuda.check_cuda(blk, "blocked", torch.uint8, (n, n))
     _cuda.check_cuda(init, "init", torch.float32, (R, n, n))
-    out = torch.empty_like(init)
-    scratch = torch.empty_like(init)
-    launched = ctypes.c_int(0)
-    _cuda.call("costfield_relax", _cuda.ptr(blk), _cuda.ptr(init),
-               _cuda.ptr(out), _cuda.ptr(scratch), R, n, 2 * iters,
-               ctypes.byref(launched))
-    _cuda.count_launch("costfield_relax", launched.value)
-    return out
+    out, scratch = torch.empty((2, R, n, n), dtype=torch.float32,
+                               device=init.device)              # one alloc
+    ran = _cuda.sweep_call("costfield_relax", _cuda.ptr(blk), _cuda.ptr(init),
+                           _cuda.ptr(out), _cuda.ptr(scratch), R, n,
+                           n_sweeps)
+    return out, ran
 
 
 def _pool_blocked(blocked: torch.Tensor) -> torch.Tensor:

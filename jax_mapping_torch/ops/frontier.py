@@ -13,7 +13,6 @@ Pallas kernel `_label_prop_pallas`; `_label_prop_plain` (sweeps of
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 from typing import NamedTuple
 
@@ -104,24 +103,33 @@ def label_prop(mask: torch.Tensor, seed: torch.Tensor,
     a CPU tensor, kernel K2 on a CUDA tensor.
 
     K2 replaces `jax_mapping/ops/frontier.py::_label_prop_pallas`. Every
-    sweep reads the whole previous one, and at 256^2 the int32 labels
-    (256 KB) exceed a block's shared memory, so the kernel ping-pongs two
-    global buffers that stay in L2, one launch per sweep: launch latency,
-    not bytes or operations, bounds it."""
+    sweep reads the whole previous one, so the chain of sweeps and the
+    hand-over between them bound it, not bytes or operations. The labels
+    are one thread-block cluster whose CTAs keep row slabs in shared
+    memory (at 256^2 the int32 labels, 256 KB, exceed one block's) and
+    send their edge rows into the neighbours' shared memory (distributed
+    shared memory): one launch a call.
+    Grids too large for 16 CTAs' shared memory (n above about 600)
+    ping-pong two global buffers that stay in L2, one launch a sweep."""
     if mask.device.type == "cpu":
         return _label_prop_plain(mask, seed, iters)
+    return label_sweeps(mask, seed, 2 * iters + 1)[0]
+
+
+def label_sweeps(mask: torch.Tensor, seed: torch.Tensor, n_sweeps: int):
+    """Kernel K2 on CUDA tensors: `n_sweeps` sweeps -> (labels, how it
+    ran). The launcher chooses the route and cluster size by size; the
+    route and counts are `_cuda.sweep_call`'s."""
     n = mask.shape[0]
-    m = mask.to(torch.uint8).contiguous()
+    m = _cuda.mask_bytes(mask)
     seed = seed.to(torch.int32).contiguous()
     _cuda.check_cuda(m, "mask", torch.uint8, (n, n))
     _cuda.check_cuda(seed, "seed", torch.int32, (n, n))
-    out = torch.empty_like(seed)
-    scratch = torch.empty_like(seed)
-    launched = ctypes.c_int(0)
-    _cuda.call("label_prop", _cuda.ptr(m), _cuda.ptr(seed), _cuda.ptr(out),
-               _cuda.ptr(scratch), n, 2 * iters + 1, ctypes.byref(launched))
-    _cuda.count_launch("label_prop", launched.value)
-    return out
+    out, scratch = torch.empty((2, n, n), dtype=torch.int32,
+                               device=seed.device)              # one alloc
+    ran = _cuda.sweep_call("label_prop", _cuda.ptr(m), _cuda.ptr(seed),
+                           _cuda.ptr(out), _cuda.ptr(scratch), n, n_sweeps)
+    return out, ran
 
 
 def label_components(cfg: FrontierConfig, mask: torch.Tensor) -> torch.Tensor:

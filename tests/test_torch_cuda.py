@@ -12,7 +12,12 @@ and K5 classify a cell with K1's device code and add the deltas in b
 order, as their plain versions do. K1, K4 and K5 decide per tile and scan
 whether the model is a constant there; the tests near walls and at the
 edges reach every class of that decision. K6 and K7 evaluate the voxel model's
-float operations in the plain version's order and K7 adds in b order.
+float operations in the plain version's order and K7 adds in b order. K2
+and K3 run each field as one thread-block cluster of row slabs up to
+512^2 and one launch a sweep above; their cases reach cluster sizes 16, 8
+and 4 (through the number of fields) and both routes, on paths through
+every slab boundary. Other slab splits are held on the CPU by the plain
+mirror in tests/test_torch_frontier_sweeps.py.
 """
 
 import dataclasses
@@ -36,7 +41,8 @@ from jax_mapping_torch.ops import voxel_kernel as VK
 from jax_mapping_torch.sim import depthcam as D
 from jax_mapping_torch.sim import world as W
 
-import test_torch_sensor_tiles as ST    # its inputs (a sibling test file)
+import test_torch_frontier_sweeps as FS  # sibling test files' inputs
+import test_torch_sensor_tiles as ST
 
 pytestmark = pytest.mark.cuda
 
@@ -160,25 +166,79 @@ def test_window_kernels_near_walls_equal_plain(dev, name, B, case):
     assert torch.equal(got, want), int((got != want).sum())
 
 
-@pytest.mark.parametrize("n,iters", [(40, 9), (256, 24)])
+def _check_launches(name, n_sweeps, n):
+    """The launches of one K2 or K3 call since reset_launches(): one
+    cluster launch up to n = 512 (the slabs fit 16 CTAs' shared memory),
+    one launch a sweep on the global route above."""
+    want, route = (1, "cluster") if n <= 512 else (n_sweeps, "global")
+    assert _cuda.LAUNCHES[name] == want
+    assert any(r.startswith(route) for r in _cuda.ROUTES[name])
+
+
+@pytest.mark.parametrize("n,iters", [(40, 9), (256, 24), (48, 9), (64, 16),
+                                     (128, 24), (512, 24), (1024, 8)])
 def test_label_prop_equals_plain(dev, n, iters):
+    """One cluster launch a call up to 512^2, one launch a sweep above."""
     g = torch.Generator().manual_seed(n)
     mask = (torch.rand((n, n), generator=g) < 0.4).to(dev)
     lin = torch.arange(n * n, dtype=torch.int32, device=dev).reshape(n, n)
     seed = torch.where(mask, lin, -1).to(torch.int32)
-    before = _cuda.LAUNCHES["label_prop"]
+    _cuda.reset_launches()
     got = F.label_prop(mask, seed, iters)
-    assert _cuda.LAUNCHES["label_prop"] == before + 2 * iters + 1
+    _check_launches("label_prop", 2 * iters + 1, n)
     want = F._label_prop_plain(mask, seed, iters)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert torch.unique(want).numel() > 5
 
 
-@pytest.mark.parametrize("n,R,grids", [(48, 3, 1), (128, 8, 1), (256, 5, 14)])
+SWEEP_NS = [40, 48, 64, 128, 256, 512, 1024]
+
+
+@pytest.mark.parametrize("off_mask", [False, True])
+@pytest.mark.parametrize("n", SWEEP_NS)
+def test_label_prop_serpentine_equals_plain(dev, n, off_mask):
+    """A path through every slab boundary, longer than the 49 sweeps; with
+    labels off the mask in the seed, which the first sweep reads."""
+    m = FS.serpentine_mask(n, seed=n)
+    mask = torch.as_tensor(m).to(dev)
+    seed = torch.as_tensor(FS.label_seed(m, off_mask, seed=n)).to(dev)
+    got = F.label_prop(mask, seed, 24)
+    want = F._label_prop_plain(mask, seed, 24)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+@pytest.mark.parametrize("n_sweeps", [0, 1, 2, 49])
+@pytest.mark.parametrize("n", [40, 42, 48, 256, 1024])
+def test_label_sweeps_sweep_counts(dev, n, n_sweeps):
+    """Odd and even sweep counts and zero sweeps (the seed as given), at
+    widths 16 CTAs do not divide (CTAs without rows), at a width that is
+    not a multiple of 4 (4-byte staging and pushes), and on the global
+    route."""
+    m = FS.serpentine_mask(n, seed=1)
+    mask = torch.as_tensor(m).to(dev)
+    seed = torch.as_tensor(FS.label_seed(m, True, seed=2)).to(dev)
+    got, ran = F.label_sweeps(mask, seed, n_sweeps)
+    want = seed
+    for _ in range(n_sweeps):
+        want = F._neighbor_max_sweep(want, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), int((got != want).sum())
+    if n <= 512:
+        assert ran["route"] == "cluster16" and ran["launches"] == 1
+        assert ran["clusters_at_once"] > 0
+    else:
+        assert ran["route"] == "global" and ran["launches"] == n_sweeps
+
+
+@pytest.mark.parametrize("n,R,grids", [(48, 3, 1), (128, 8, 1), (256, 5, 1),
+                                       (40, 1, 1), (64, 8, 1), (256, 8, 1),
+                                       (512, 3, 1), (1024, 1, 14)])
 def test_relax_level_equals_plain(dev, n, R, grids):
-    """64^2 and 128^2 fields run every sweep in one block's shared memory
-    (one grid); 256^2 ping-pongs global buffers, one grid per sweep."""
+    """Fields up to 512^2 run every sweep of a level in one cluster launch
+    a robot (one grid); 1024^2 ping-pongs global buffers, one grid a
+    sweep."""
     g = torch.Generator().manual_seed(n)
     blocked = torch.rand((n, n), generator=g) < 0.2
     init = torch.full((R, n, n), CF._BIG)
@@ -194,6 +254,47 @@ def test_relax_level_equals_plain(dev, n, R, grids):
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     assert bool((want < CF._BIG).sum() > R)
+
+
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("R", [1, 3, 8])
+@pytest.mark.parametrize("n", SWEEP_NS)
+def test_relax_level_maze_equals_plain(dev, n, R, dense):
+    """A corridor through every slab boundary, longer than the sweeps;
+    dense initial fields hold values at blocked cells, which the first
+    sweep reads."""
+    blocked = FS.corridor_maze(n, seed=n)
+    init = torch.as_tensor(FS.maze_init(blocked, R, seed=R, dense=dense))
+    blocked = torch.as_tensor(blocked).to(dev)
+    init = init.to(dev)
+    _cuda.reset_launches()
+    got = CF.relax_level(blocked, init, 8)
+    _check_launches("costfield_relax", 16, n)
+    want = CF._relax_level_xla(blocked, init, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), int((got != want).sum())
+
+
+@pytest.mark.parametrize("n_sweeps", [0, 1, 16, 64])
+@pytest.mark.parametrize("R,cluster", [(8, 16), (16, 8), (32, 4)])
+@pytest.mark.parametrize("n", [40, 42, 48, 64, 128, 256, 512])
+def test_relax_sweeps_cluster_sizes(dev, n, R, cluster, n_sweeps):
+    """The launcher gives R fields about 128 CTAs: 16 a field up to 8
+    fields, 8 at 16 and 4 at 32, doubled until a slab fits (at 512^2 only
+    16 CTAs hold a field). Widths those sizes do not divide, a width that
+    is not a multiple of 4, odd sweep counts and zero sweeps (the input)."""
+    blocked = FS.corridor_maze(n, seed=3)
+    init = torch.as_tensor(FS.maze_init(blocked, R, seed=4)).to(dev)
+    blocked = torch.as_tensor(blocked).to(dev)
+    got, ran = CF.relax_sweeps(blocked, init, n_sweeps)
+    want = init
+    for _ in range(n_sweeps):
+        want = CF._relax_once(want, blocked)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), int((got != want).sum())
+    want_route = f"cluster{16 if n == 512 else cluster}"
+    assert ran["route"] == want_route and ran["launches"] == 1
+    assert ran["clusters_at_once"] > 0
 
 
 def test_cost_fields_equal_plain(dev):
