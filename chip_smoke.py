@@ -4,11 +4,14 @@
     python3 chip_smoke.py [--ticks N] [--seed S]
     python3 chip_smoke.py --ab PARENT_TREE
 
-The second form only times kernels K1-K5 of an unpacked parent checkout
+The second form only times kernels K1-K7 of an unpacked parent checkout
 against this tree's, in turns (parent, change, change, parent), each turn
 a process of its own, and prints one "ab" line: K1, K4 and K5 at the main
-paths' batches, K2 at the fleet's 256^2 x 49 sweeps and K3 at each of the
-fleet's three levels, on fixed seeded inputs.
+paths' batches, K2 at the fleet's 256^2 x 49 sweeps, K3 at each of the
+fleet's three levels, K6 at one voxel tick's 8 images, K7 at the bench's
+32-image window and at the tick's images over the whole voxel grid, and
+the voxel tick's `fuse_depths` and the bench window around them, on fixed
+seeded inputs.
 
 Phases, each printed as one JSON line:
 
@@ -56,7 +59,12 @@ Phases, each printed as one JSON line:
            their edge rows: a serpentine mask and a corridor maze whose
            paths cross every slab boundary, seeds off the mask, fields
            with values at blocked cells, zero sweeps, and the global
-           route at 1024^2 (timed)
+           route at 1024^2 (timed). K6 and K7 with `device_ms`, the
+           share of their byte bound, and their cull's counts from its
+           plain mirror (live (tile, image) pairs, kept columns,
+           evaluated voxels against the model's live voxels); their edge
+           rows (untimed): the poses at the edges of the cull through K6,
+           K7's window and K7 over the whole grid
   parity   a tiny mission, each tick run on the card and on the CPU from
            the same state with the same wheel noise
   slam_parity  a tiny single robot, window and single steps, each run on
@@ -121,10 +129,12 @@ K1_OPS_PER_CELL = 55
 # (4), the u range test (2), the squared distance in the plane (3) and its
 # horizon test (1); a column that is behind the camera, outside the image
 # or beyond the horizon is then all zeros. Per z layer: the layer centre
-# (3), camera y (1), fy * y (1) and its square (1). Per voxel of a live
-# column: v's division, offset and rounding (3), the v range test (2), the
-# squared distance (1) and horizon test (1), the depth tests (2), the
-# carve limit (2), free (2), occupied (4), the selects (2).
+# (3), camera y (1), fy * y (1) and its square (1). Per voxel the model may
+# make non-zero (in front, inside the image in u and v, within the
+# horizon: `voxel_kernel.model_voxel_mask`; every other voxel is 0 by the
+# model's mask): v's division, offset and rounding (3), the v range test
+# (2), the squared distance (1) and horizon test (1), the depth tests (2),
+# the carve limit (2), free (2), occupied (4), the selects (2).
 VOXEL_COLUMN_OPS = 26
 VOXEL_LAYER_OPS = 6
 VOXEL_OPS = 19
@@ -809,19 +819,19 @@ def _sweep_times(kernel, plain, name: str, sweeps: int) -> dict:
 def sweep_edge_rows(torch, dev, R: int) -> dict:
     """K2 and K3 on paths that cross every slab boundary and outrun the
     sweeps (the serpentine mask and the corridor maze of
-    tests/test_torch_frontier_sweeps.py), a K2 seed with labels off the
+    tests/torch_kernel_inputs.py), a K2 seed with labels off the
     mask, K3 fields that hold values at blocked cells, zero sweeps, and
     the global route at 1024^2 (timed); exact against the plain versions."""
     from jax_mapping_torch.ops import costfield as CF
     from jax_mapping_torch.ops import frontier as F
     sys.path.insert(0, os.path.join(HERE, "tests"))
-    import test_torch_frontier_sweeps as FS
+    import torch_kernel_inputs as KI
     rows = {}
     for n in (256, 40, 1024):
-        m = FS.serpentine_mask(n, seed=n)
+        m = KI.serpentine_mask(n, seed=n)
         mask = torch.as_tensor(m).to(dev)
         for off in (False, True):
-            seed = torch.as_tensor(FS.label_seed(m, off, seed=n)).to(dev)
+            seed = torch.as_tensor(KI.label_seed(m, off, seed=n)).to(dev)
             got, ran = F.label_sweeps(mask, seed, 49)
             want = F._label_prop_plain(mask, seed, 24)
             row = dict(compare(got, want), shape=[n, n], sweeps=49, **ran)
@@ -833,10 +843,10 @@ def sweep_edge_rows(torch, dev, R: int) -> dict:
             rows[f"edge_label_prop_serpentine_n{n}"
                  + ("_seed_off_mask" if off else "")] = row
     for n, iters in ((64, 32), (256, 8), (48, 8), (1024, 8)):
-        blocked = FS.corridor_maze(n, seed=n)
+        blocked = KI.corridor_maze(n, seed=n)
         blk = torch.as_tensor(blocked).to(dev)
         for dense in (False, True):
-            init = torch.as_tensor(FS.maze_init(blocked, R, seed=n,
+            init = torch.as_tensor(KI.maze_init(blocked, R, seed=n,
                                                 dense=dense)).to(dev)
             got, ran = CF.relax_sweeps(blk, init, 2 * iters)
             want = CF._relax_level_xla(blk, init, iters)
@@ -849,13 +859,13 @@ def sweep_edge_rows(torch, dev, R: int) -> dict:
                     2 * iters))
             rows[f"edge_costfield_relax_maze_n{n}"
                  + ("_dense" if dense else "")] = row
-    m = torch.as_tensor(FS.serpentine_mask(256)).to(dev)
-    seed = torch.as_tensor(FS.label_seed(FS.serpentine_mask(256), True)
+    m = torch.as_tensor(KI.serpentine_mask(256)).to(dev)
+    seed = torch.as_tensor(KI.label_seed(KI.serpentine_mask(256), True)
                            ).to(dev)
     got, ran = F.label_sweeps(m, seed, 0)
     rows["edge_label_prop_zero_sweeps"] = dict(compare(got, seed), **ran)
-    init = torch.as_tensor(FS.maze_init(~FS.serpentine_mask(256), R, dense=True)
-                           ).to(dev)
+    init = torch.as_tensor(KI.maze_init(~KI.serpentine_mask(256), R,
+                                        dense=True)).to(dev)
     got, ran = CF.relax_sweeps(~m, init, 0)
     rows["edge_costfield_relax_zero_sweeps"] = dict(compare(got, init), **ran)
     return rows
@@ -1705,14 +1715,11 @@ def phase_voxel(torch, cfg, ticks: int = 20):
             "origins": V.patch_origin(vox, poses[-1][:, :2]).contiguous()}
 
 
-def phase_voxel_bench(torch, cfg):
-    """bench.py's voxel workload (renders outside the timed region):
-    32 images of a 3 m circle fused into an empty grid, and the 32-image
-    window on a 0.2 m circle (K7, then `apply_patch`)."""
+def voxel_bench_inputs(torch, cfg) -> tuple:
+    """bench.py's voxel inputs: 32 renders of plank_course(512, 0.05,
+    n_planks=10, seed=7) on a 3 m circle (the fuse's poses), and the
+    window's poses on a 0.2 m circle (the window takes the same images)."""
     import numpy as np
-    from jax_mapping_torch.ops import _cuda
-    from jax_mapping_torch.ops import voxel as V
-    from jax_mapping_torch.ops import voxel_kernel as VK
     from jax_mapping_torch.sim import depthcam as D
     from jax_mapping_torch.sim import world as W
     vox, cam = cfg.voxel, cfg.depthcam
@@ -1724,6 +1731,35 @@ def phase_voxel_bench(torch, cfg):
         [3.0 * np.cos(t), 3.0 * np.sin(t), t + math.pi / 2],
         axis=1).astype(np.float32), device=DEV)
     depths = D.render_depths(cam, world, vox.resolution_m, 200, vposes)
+    wt = np.linspace(0, 0.5, VB).astype(np.float32)
+    wposes = torch.as_tensor(np.stack(
+        [0.2 * np.cos(wt * 2 * np.pi), 0.2 * np.sin(wt * 2 * np.pi), wt],
+        axis=1).astype(np.float32), device=DEV)
+    return depths, vposes, wposes
+
+
+def voxel_tick_inputs(torch, cfg) -> tuple:
+    """One voxel tick's 8 images: the voxel phase's robots at their first
+    poses, rendered on rooms_world(1024, 0.05, seed=1)."""
+    from jax_mapping_torch.sim import depthcam as D
+    vox, cam = cfg.voxel, cfg.depthcam
+    drive = _VoxelDrive(torch, cfg)
+    poses = drive.poses([0.0])
+    return D.render_depths(cam, drive.world, vox.resolution_m,
+                           D.n_samples_for(cam, vox.resolution_m),
+                           poses), poses
+
+
+def phase_voxel_bench(torch, cfg):
+    """bench.py's voxel workload (renders outside the timed region):
+    32 images of a 3 m circle fused into an empty grid, and the 32-image
+    window on a 0.2 m circle (K7, then `apply_patch`)."""
+    from jax_mapping_torch.ops import _cuda
+    from jax_mapping_torch.ops import voxel as V
+    from jax_mapping_torch.ops import voxel_kernel as VK
+    vox, cam = cfg.voxel, cfg.depthcam
+    VB = 32
+    depths, vposes, wposes = voxel_bench_inputs(torch, cfg)
     empty = V.empty_voxel_grid(vox, DEV)
     fused = V.fuse_depths(vox, cam, empty, depths, vposes)
     check(bool(torch.isfinite(fused).all()), "bench fuse non-finite")
@@ -1731,10 +1767,6 @@ def phase_voxel_bench(torch, cfg):
           "the bench fuse mapped no occupied voxel")
     fuse_ms = cuda_ms(lambda: V.fuse_depths(vox, cam, empty, depths, vposes))
 
-    wt = np.linspace(0, 0.5, VB).astype(np.float32)
-    wposes = torch.as_tensor(np.stack(
-        [0.2 * np.cos(wt * 2 * np.pi), 0.2 * np.sin(wt * 2 * np.pi), wt],
-        axis=1).astype(np.float32), device=DEV)
     worigin = V.patch_origin(vox, wposes[:, :2].mean(dim=0))
     check(bool(VK.window_fits(vox, wposes, worigin)),
           "the bench window does not fit its patch")
@@ -1800,63 +1832,37 @@ def phase_voxel_region(torch, cfg, vstate):
     return out
 
 
-def _voxel_kept_columns(vox, poses, origins, ny: int, nx: int) -> int:
-    """Voxel columns the kernels evaluate, summed over images: those in
-    the blocks of 256 flattened columns whose rows the kernels' cull keeps
-    for each image (csrc/voxel_model.cu rows_near)."""
-    import torch
-    res = vox.resolution_m
-    ncol = ny * nx
-    base = torch.arange(0, ncol, 256, device=poses.device)
-    last = torch.clamp_max(base + 256, ncol) - 1
-    r_lo, r_hi = (base // nx).float(), (last // nx).float()
-    pose_row = ((poses[:, 1] - vox.origin_m[1]) / res - 0.5
-                - origins[:, 0].float())[:, None]
-    gap = torch.clamp_min(torch.maximum(r_lo - pose_row, pose_row - r_hi),
-                          0.0)
-    keep = gap * res <= vox.max_range_m + res
-    return int(((last - base + 1).float() * keep).sum().item())
-
-
-def _voxel_live_columns(vox, cam, poses, origins, ny: int, nx: int) -> int:
-    """Voxel columns, summed over images, that may hold a non-zero delta:
-    in front of the camera, with u inside the image, and within the trust
-    horizon in the plane. What the function needs, whatever a kernel
-    culls."""
-    import torch
+def _voxel_cull(vox, cam, poses, origins, ny: int, nx: int,
+                group: int) -> tuple:
+    """The kernels' cull on B images over a (ny, nx) region, from its plain
+    mirrors (`voxel_kernel.cull_counts`): live (tile, image) pairs, kept
+    columns, evaluated voxels (K7 in whole z groups), and the function's
+    live columns and voxels; and the operations the function needs (its
+    live voxels', not the kernels')."""
     from jax_mapping_torch.ops import voxel_kernel as VK
-    res = vox.resolution_m
-    ox, oy, _ = vox.origin_m
-    t = VK.pose_table(poses)
-    live = 0
-    for b in range(int(poses.shape[0])):
-        o = origins[b].to(torch.float32)
-        wy = (o[0] + torch.arange(ny, device=poses.device) + 0.5) * res + oy
-        wx = (o[1] + torch.arange(nx, device=poses.device) + 0.5) * res + ox
-        dx, dy = (wx - t[b, 0])[None, :], (wy - t[b, 1])[:, None]
-        cxc = t[b, 3] * dx - t[b, 2] * dy
-        czc = t[b, 2] * dx + t[b, 3] * dy
-        front = czc > cam.range_min_m
-        ui = torch.round(cam.fx * cxc / torch.where(front, czc, 1.0) + cam.cx)
-        ok = (front & (ui >= 0) & (ui < cam.width_px)
-              & (cxc * cxc + czc * czc <= vox.max_range_m ** 2))
-        live += int(ok.sum().item())
-    return live
-
-
-def _voxel_ops(vox, cam, poses, origins, ny: int, nx: int,
-               per_voxel: int) -> tuple:
-    """(live columns, operations) of B images over a (ny, nx) region."""
+    c = VK.cull_counts(vox, cam, VK.pose_table(poses), origins, ny, nx,
+                       group=group)
     B, Z = int(poses.shape[0]), vox.size_z_cells
-    live = _voxel_live_columns(vox, cam, poses, origins, ny, nx)
-    return live, (B * ny * nx * VOXEL_COLUMN_OPS + B * Z * VOXEL_LAYER_OPS
-                  + live * Z * per_voxel)
+    per_voxel = VOXEL_OPS + (group > 1)      # K7 adds each into its sum
+    return {"live_pairs": c["live_pairs"], "pairs": c["pairs"],
+            "kept_voxel_columns": c["kept_columns"],
+            "live_voxel_columns": c["model_columns"],
+            "evaluated_voxels": c["evaluated_voxels"],
+            "live_voxels": c["model_voxels"],
+            "evaluated_per_live_voxel":
+                c["evaluated_voxels"] / max(c["model_voxels"], 1)}, (
+        B * ny * nx * VOXEL_COLUMN_OPS + B * Z * VOXEL_LAYER_OPS
+        + c["model_voxels"] * per_voxel)
 
 
 def voxel_kernel_rows(torch, cfg, vstate, bench, voxel_out) -> dict:
     """K6 at B = 8 (one voxel tick) and 32 (the bench batch), K7 through
     the bench's 32-image window and through the region at B = 8, each
-    against its plain version. No single PyTorch call computes either
+    against its plain version, with the kernel alone from the profiler
+    (`device_ms`) and the cull's counts from its plain mirror; then the
+    edge rows (untimed): the poses at the edges of the cull
+    (tests/torch_kernel_inputs.py voxel_edge_case) through K6, K7's window
+    and K7's whole-grid region. No single PyTorch call computes either
     function (library_ms none)."""
     from jax_mapping_torch.ops import voxel_kernel as VK
     vox, cam = cfg.voxel, cfg.depthcam
@@ -1876,13 +1882,14 @@ def voxel_kernel_rows(torch, cfg, vstate, bench, voxel_out) -> dict:
         cmp = compare(got, want)
         cmp["nonzero_voxels"] = int((want != 0).sum())
         del got, want
-        live, ops = _voxel_ops(vox, cam, p, o, P, P, VOXEL_OPS)
+        cull, ops = _voxel_cull(vox, cam, p, o, P, P, group=1)
+
+        def kernel(d=d, p=p, o=o):
+            return VK.image_deltas(vox, cam, d, p, o)
         rows[name] = dict(
-            cmp, shape=[B, Z, P, P],
-            kept_voxel_columns=_voxel_kept_columns(vox, p, o, P, P),
-            live_voxel_columns=live,
+            cmp, shape=[B, Z, P, P], **cull,
             launches_per_voxel_tick=per_tick, library_ms=None,
-            ms=cuda_ms(lambda: VK.image_deltas(vox, cam, d, p, o)),
+            ms=cuda_ms(kernel), device_ms=device_ms(kernel, "voxel_image"),
             plain_ms=cuda_ms(lambda: VK.image_deltas_plain(
                 vox, cam, d, VK.pose_table(p), o), reps=5, warmup=1),
             **bound(B * (Z * P * P * 4 + img_bytes), ops))
@@ -1907,15 +1914,51 @@ def voxel_kernel_rows(torch, cfg, vstate, bench, voxel_out) -> dict:
         cmp = compare(got, want)
         cmp["nonzero_voxels"] = int((want != 0).sum())
         del got, want
-        # One more operation per live voxel: its add into the sum.
-        live, ops = _voxel_ops(vox, cam, p, o, ny, nx, VOXEL_OPS + 1)
+        cull, ops = _voxel_cull(vox, cam, p, o, ny, nx, group=VK.Z_CHUNK)
         rows[name] = dict(
-            cmp, shape=[B, Z, ny, nx],
-            kept_voxel_columns=_voxel_kept_columns(vox, p, o, ny, nx),
-            live_voxel_columns=live,
-            library_ms=None, ms=cuda_ms(kernel),
+            cmp, shape=[B, Z, ny, nx], **cull, library_ms=None,
+            ms=cuda_ms(kernel), device_ms=device_ms(kernel, "voxel_summed"),
             plain_ms=cuda_ms(plain, reps=5, warmup=1),
             **bound(Z * ny * nx * 4 + B * img_bytes, ops))
+    for r in rows.values():
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        r["device_bound_share"] = (None if r["device_ms"] is None
+                                   else r["bound_ms"] / r["device_ms"])
+    rows.update(voxel_edge_rows(torch, cfg))
+    return rows
+
+
+def voxel_edge_rows(torch, cfg) -> dict:
+    """Each edge case of the voxel cull (6 images) through K6 at the
+    images' own origins, K7's window at the first image's patch and K7
+    over the whole grid, compared exactly with the plain versions."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import torch_kernel_inputs as KI
+    from jax_mapping_torch.ops import voxel_kernel as VK
+    vox, cam = cfg.voxel, cfg.depthcam
+    Y, X = vox.size_y_cells, vox.size_x_cells
+    rows = {}
+    for case in KI.VOXEL_EDGES:
+        d, p, o = (x.to(DEV).contiguous()
+                   for x in KI.voxel_edge_case(cfg, case))
+        table = VK.pose_table(p)
+        want = VK.image_deltas_plain(vox, cam, d, table, o)
+        rows[f"edge_voxel_image_{case}"] = dict(
+            compare(VK.image_deltas(vox, cam, d, p, o), want),
+            nonzero_voxels=int((want != 0).sum()))
+        origin = o[0].contiguous()
+        want = VK.summed_delta_plain(vox, cam, d, table,
+                                     origin.reshape(1, 2).expand(6, 2),
+                                     vox.patch_cells, vox.patch_cells)
+        rows[f"edge_voxel_window_{case}"] = dict(
+            compare(VK.window_delta(vox, cam, d, p, origin), want),
+            nonzero_voxels=int((want != 0).sum()))
+        zero = torch.zeros((6, 2), dtype=torch.int32, device=DEV)
+        want = VK.summed_delta_plain(vox, cam, d, table, zero, Y, X)
+        rows[f"edge_voxel_region_{case}"] = dict(
+            compare(VK.region_delta(vox, cam, d, p, 0, Y, X), want),
+            nonzero_voxels=int((want != 0).sum()))
+        del want
     return rows
 
 
@@ -2003,8 +2046,10 @@ def frontier_inputs(torch, seed: int) -> dict:
 
 def kernel_times(torch, seed: int) -> dict:
     """Device times of K1, K4 and K5 at the main paths' batches, of K2 at
-    the fleet's 256^2 x 49 sweeps and of K3 at each of its three levels,
-    on fixed inputs (seeded), through the wrappers of whichever
+    the fleet's 256^2 x 49 sweeps, of K3 at each of its three levels, of
+    K6 at a voxel tick's 8 images and of K7 at the bench's 32-image window
+    and the tick's images over the whole grid, and the host-clock times of
+    the voxel tick's fuse and the bench window, on fixed inputs (seeded), through the wrappers of whichever
     `jax_mapping_torch` comes first on sys.path, and the SASS instruction
     counts of its builds. The --ab comparison runs this for two trees in
     turns. K2's and K3's device times are per call (a parent's call
@@ -2017,6 +2062,8 @@ def kernel_times(torch, seed: int) -> dict:
     from jax_mapping_torch.ops import fuse_kernel as FK
     from jax_mapping_torch.ops import grid as G
     from jax_mapping_torch.ops import sensor_kernel as SK
+    from jax_mapping_torch.ops import voxel as V
+    from jax_mapping_torch.ops import voxel_kernel as VK
     from jax_mapping_torch.sim import lidar
     cfg = SlamConfig()
     dev = torch.device("cuda")
@@ -2025,7 +2072,8 @@ def kernel_times(torch, seed: int) -> dict:
     n_samples = int(cfg.scan.range_max_m / (res * 0.5))
     gen = torch.Generator().manual_seed(seed + 1)
     libs = {n: _cuda._target(n) for n in ("sensor_model", "window_fuse",
-                                          "label_prop", "costfield_relax")}
+                                          "label_prop", "costfield_relax",
+                                          "voxel_model")}
     for n in libs:
         _cuda.library(n)
     ms, dev_ms = {}, {}
@@ -2072,6 +2120,34 @@ def kernel_times(torch, seed: int) -> dict:
             cfg.grid, cfg.scan, ranges, poses, origin), "window_kernel")
         timed(f"window_apply_b{B}", lambda: FK.window_apply(
             cfg.grid, cfg.scan, grid, ranges, poses, origin), "window_kernel")
+    del grid
+
+    # K6 on one voxel tick's 8 images; K7 on the bench's 32-image window
+    # and on the tick's images over the whole grid (region_delta).
+    vox, cam = cfg.voxel, cfg.depthcam
+    d8, p8 = voxel_tick_inputs(torch, cfg)
+    o8 = V.patch_origin(vox, p8[:, :2]).contiguous()
+    timed("voxel_image_b8", lambda: VK.image_deltas(vox, cam, d8, p8, o8),
+          "voxel_image")
+    d32, _, wposes = voxel_bench_inputs(torch, cfg)
+    worigin = V.patch_origin(vox, wposes[:, :2].mean(dim=0))
+    timed("voxel_summed_window_b32", lambda: VK.window_delta(
+        vox, cam, d32, wposes, worigin), "voxel_summed")
+    timed("voxel_summed_region_b8", lambda: VK.region_delta(
+        vox, cam, d8, p8, 0, vox.size_y_cells, vox.size_x_cells),
+        "voxel_summed")
+    # The paths they belong to (CUDA events around the call, no device
+    # time): the voxel tick's fuse of 8 images onto a grid, and the bench
+    # window (K7, then apply_patch).
+    grid = V.empty_voxel_grid(vox, dev)
+    wo = worigin.tolist()
+    for name, fn in (
+            ("fuse_depths_b8", lambda: V.fuse_depths(vox, cam, grid, d8, p8)),
+            ("bench_window_b32", lambda: V.apply_patch(
+                vox, grid, VK.window_delta(vox, cam, d32, wposes, worigin),
+                wo))):
+        ms[name] = cuda_ms(fn, reps=20)
+        dev_ms[name] = None
     return {"package": os.path.dirname(jax_mapping_torch.__file__),
             "ms": ms, "device_ms": dev_ms,
             "sass_instructions": {
@@ -2081,7 +2157,7 @@ def kernel_times(torch, seed: int) -> dict:
 
 
 def phase_ab(parent: str, seed: int) -> dict:
-    """K1-K5 of the tree `parent` and of this one, timed in turns (parent,
+    """K1-K7 of the tree `parent` and of this one, timed in turns (parent,
     change, change, parent) on this card, each run in a process of its own
     that imports that tree's package."""
     runs = []
@@ -2151,7 +2227,7 @@ def main(argv=None) -> int:
     ap.add_argument("--ticks", type=int, default=30)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ab", metavar="PARENT_TREE",
-                    help="only time K1, K4 and K5 of PARENT_TREE (an "
+                    help="only time K1-K7 of PARENT_TREE (an "
                     "unpacked checkout) against this tree, in turns")
     ap.add_argument("--kernel-times", metavar="TREE",
                     help=argparse.SUPPRESS)    # one turn of --ab

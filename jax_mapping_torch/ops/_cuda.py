@@ -83,7 +83,7 @@ _SENSOR_ARGS = [_I, _F, _F, _F, _F, _F, _I, _I,
                 _F, _F, _F, _F, _F, _F, _F]      # sensor_cell::Params
 _WINDOW_ARGS = [_P, _P, _I, _P, _P, _I, _I, _I, *_SENSOR_ARGS]
 _VOXEL_ARGS = [_P, _P, _P, _P, _I, _I, _I,           # buffers, B, ny, nx
-               _I, _I, _I, *[_F] * 16]               # voxel_model Params
+               _I, _I, _I, *[_F] * 17]               # voxel_model Params
 
 #: C signatures: library -> {entry point: argtypes}.
 _SIGNATURES = {

@@ -37,19 +37,20 @@ so which arithmetic) a config gets.
 
 What bounds the kernels on an H100: K6 writes its (B, Z, P, P) f32 output
 once (37.7 MB per image at the default config), against ~20 float
-operations per voxel of a column inside the frustum and the trust horizon
-(one IEEE division); it is bound by bytes. Its design: a block owns 256
-consecutive voxel columns of one image, one thread per column looping
-over z, so each z-row store is coalesced; a block whose rows all lie
-beyond the trust horizon (plus one cell) writes zeros without computing
-(the Pallas tile cull, at a coarser granularity, so it keeps at least
-what the TPU's keeps). K7 writes one (Z, ny, nx) sum and is bound by
-bytes too, but it classifies every voxel of every image's kept blocks,
-about ten times the columns the function needs; each thread keeps 16 z
-layers' sums in registers and loops over the images inside the thread
-(the b order of every voxel is kept exactly), then moves to the next 16
-layers; an image out of range of a block's rows is skipped for the block,
-which is exact because an accumulator is never -0.
+operations per voxel in front of the camera, inside the image and within
+the trust horizon (one IEEE division): a few per cent of the voxels, so
+it is bound by bytes, and so is K7, which writes one (Z, ny, nx) sum.
+Their design evaluates only those voxels. A block owns a tile of
+`TILE_Y` x `TILE_X` voxel columns with all their layers; an exact,
+conservative test per (tile, image) (`tile_live_plain` mirrors it) drops
+the pairs whose tile lies behind range_min, beyond a side plane of the
+image or beyond the horizon, and each live column evaluates only a z
+interval that holds every layer the model can make non-zero
+(`column_z_range_plain` mirrors it). Everything else is written as +0
+without computing it: exact for K6, and for K7 because an accumulator
+starts at +0 and is never -0. K7 splits z across the block
+(`Z_CHUNK` layers a thread), and each thread adds its voxels' deltas
+over the tile's live images in b order.
 """
 
 from __future__ import annotations
@@ -70,6 +71,12 @@ _MAX_B_PER_CALL = 32
 
 #: Largest image count of one K6 launch (the grid's y dimension).
 _MAX_B_PER_LAUNCH = 65535
+
+#: The kernels' tile of voxel columns (rows, columns) and the layers one
+#: K7 thread sums: `kTileY`, `kTileX` and `kZChunk` in
+#: csrc/voxel_model.cu.
+TILE_Y, TILE_X = 1, 32
+Z_CHUNK = 8
 
 
 def region_supported(vox: VoxelConfig, cam: DepthCamConfig,
@@ -111,15 +118,21 @@ def model_args(vox: VoxelConfig, cam: DepthCamConfig) -> tuple:
     """The model's scalars in the kernels' C argument order (`Params` in
     csrc/voxel_model.cu). Products and sums of config values are formed
     in double and rounded once to f32, as the JAX kernel's Python-float
-    constants are."""
+    constants are. The last two serve only the kernels' z interval: the
+    layers a metre of camera depth spans in half the image height,
+    H / (2 fy res), and the camera's height as a fractional layer index,
+    (camz - oz) / res - 0.5."""
     ox, oy, oz = vox.origin_m
     res = vox.resolution_m
     max_r = float(vox.max_range_m)
+    camz = float(cam.mount_height_m)
     return (vox.size_z_cells, cam.height_px, cam.width_px, res, ox, oy, oz,
-            float(cam.mount_height_m), float(cam.fx), float(cam.fy),
+            camz, float(cam.fx), float(cam.fy),
             float(cam.cx), float(cam.cy), float(cam.range_min_m), max_r,
             max_r * max_r, vox.hit_tolerance_cells * res,
-            float(vox.logodds_occ), float(vox.logodds_free), max_r + res)
+            float(vox.logodds_occ), float(vox.logodds_free),
+            cam.height_px / (2.0 * float(cam.fy) * res),
+            (camz - oz) / res - 0.5)
 
 
 # ---------------------------------------------------------------------------
@@ -134,7 +147,7 @@ def _model(vox: VoxelConfig, cam: DepthCamConfig, depth: torch.Tensor,
     res = vox.resolution_m
     ox, oy, oz = vox.origin_m
     (Z, H, W, _, _, _, _, camz, fx, fy, cx, cy, rmin, max_r, max_r2, tol,
-     lo_occ, lo_free, _) = model_args(vox, cam)
+     lo_occ, lo_free, *_) = model_args(vox, cam)
     px, py, cyaw, syaw = t[0], t[1], t[2], t[3]
     # Per column (y, x).
     rows = (y0 + torch.arange(ny, dtype=torch.int32, device=dev)).float()
@@ -195,6 +208,141 @@ def summed_delta_plain(vox: VoxelConfig, cam: DepthCamConfig,
         acc = acc + _model(vox, cam, depths_b[b], table[b], origins_b[b, 0],
                            origins_b[b, 1], ny, nx)
     return acc
+
+
+# ---------------------------------------------------------------------------
+# Plain mirrors of the kernels' cull (tests and chip_smoke.py; nothing on
+# the main path calls them)
+# ---------------------------------------------------------------------------
+
+def _columns(vox: VoxelConfig, cam: DepthCamConfig, t: torch.Tensor, y0,
+             x0, ny: int, nx: int) -> tuple:
+    """(cxc, czc, in_front and in_u) of each (ny, nx) column of the region
+    at rows y0, cols x0, for pose-table row t: the kernels' column_of."""
+    dev = t.device
+    args = model_args(vox, cam)
+    W, res, ox, oy, fx, cx, rmin = (args[2], args[3], args[4], args[5],
+                                    args[8], args[10], args[12])
+    rows = (y0 + torch.arange(ny, dtype=torch.int32, device=dev)).float()
+    cols = (x0 + torch.arange(nx, dtype=torch.int32, device=dev)).float()
+    dx = (((cols + 0.5) * res + ox) - t[0])[None, :]
+    dy = (((rows + 0.5) * res + oy) - t[1])[:, None]
+    cxc = t[3] * dx - t[2] * dy
+    czc = t[2] * dx + t[3] * dy
+    in_front = czc > rmin
+    ui = torch.round(fx * cxc / torch.where(in_front, czc, 1.0) + cx)
+    return cxc, czc, in_front & (ui >= 0) & (ui < W)
+
+
+def column_z_range_plain(vox: VoxelConfig, cam: DepthCamConfig,
+                         t: torch.Tensor, y0, x0, ny: int, nx: int) -> tuple:
+    """(lo, hi) int64 (ny, nx): the z interval each column of the region
+    evaluates for pose-table row t (csrc/voxel_model.cu column_terms), in
+    its float operations; lo > hi where the column evaluates nothing.
+    Every voxel outside it is 0 by the model's mask."""
+    args = model_args(vox, cam)
+    Z, res, max_r2, kv, zc = args[0], args[3], args[14], args[18], args[19]
+    cxc, czc, ok = _columns(vox, cam, t, y0, x0, ny, nx)
+    s = cxc * cxc + czc * czc
+    ok = ok & (s <= max_r2)
+    hv = kv * czc
+    # sqrt in double, rounded once: the correctly rounded f32 root.
+    hh = torch.sqrt((max_r2 - s).clamp_min(0.0).double()).float() / res
+    h = torch.minimum(hv, hh) + 1.0
+    lo = torch.ceil(zc - h).long().clamp_min(0)
+    hi = torch.floor(zc + h).long().clamp_max(Z - 1)
+    return torch.where(ok, lo, Z), torch.where(ok, hi, -1)
+
+
+def tile_live_plain(vox: VoxelConfig, cam: DepthCamConfig,
+                    table: torch.Tensor, origins: torch.Tensor, ny: int,
+                    nx: int) -> torch.Tensor:
+    """(B, ceil(ny / TILE_Y), ceil(nx / TILE_X)) bool: the kernels'
+    (tile, image) live test (csrc/voxel_model.cu tile_live) over a
+    (ny, nx) region at per-image origins (B, 2), in its float operations.
+    A dead pair's voxels are all 0 by the model's mask."""
+    dev = table.device
+    args = model_args(vox, cam)
+    W, res, ox, oy, fx, cx, rmin, max_r2 = (
+        args[2], args[3], args[4], args[5], args[8], args[10], args[12],
+        args[14])
+    ty0 = torch.arange(0, ny, TILE_Y, dtype=torch.int32, device=dev)
+    tx0 = torch.arange(0, nx, TILE_X, dtype=torch.int32, device=dev)
+    o = origins.to(device=dev, dtype=torch.int32)
+    px, py, cyaw, syaw = (table[:, k:k + 1] for k in range(4))
+
+    def centre(i, org, p):
+        return ((i.float() + 0.5) * res + org) - p
+    dx0 = centre(o[:, 1:2] + tx0, ox, px) - res                  # (B, ntx)
+    dx1 = centre(o[:, 1:2] + (tx0 + TILE_X).clamp_max(nx) - 1, ox, px) + res
+    dy0 = centre(o[:, 0:1] + ty0, oy, py) - res                  # (B, nty)
+    dy1 = centre(o[:, 0:1] + (ty0 + TILE_Y).clamp_max(ny) - 1, oy, py) + res
+    gx = torch.where(dx0 > 0, dx0, torch.where(dx1 < 0, -dx1, 0.0))
+    gy = torch.where(dy0 > 0, dy0, torch.where(dy1 < 0, -dy1, 0.0))
+    near = (gx * gx)[:, None, :] + (gy * gy)[:, :, None] <= max_r2
+    c, s = cyaw[:, :, None], syaw[:, :, None]
+    czc = torch.stack([c * dx[:, None, :] + s * dy[:, :, None]
+                       for dx in (dx0, dx1) for dy in (dy0, dy1)])
+    cxc = torch.stack([s * dx[:, None, :] - c * dy[:, :, None]
+                       for dx in (dx0, dx1) for dy in (dy0, dy1)])
+    zmin, zmax = czc.amin(0), czc.amax(0)
+    xmin, xmax = cxc.amin(0), cxc.amax(0)
+    znear = zmin.clamp_min(rmin)
+    umax = fx * xmax / torch.where(xmax >= 0, znear, zmax) + cx
+    umin = fx * xmin / torch.where(xmin <= 0, znear, zmax) + cx
+    return near & (zmax > rmin) & ~(umax < -0.5) & ~(umin > W - 0.5)
+
+
+def model_voxel_mask(vox: VoxelConfig, cam: DepthCamConfig,
+                     t: torch.Tensor, y0, x0, ny: int, nx: int
+                     ) -> torch.Tensor:
+    """(Z, ny, nx) bool: the voxels the model may make non-zero whatever
+    the depths (in front of the camera, inside the image in u and v,
+    within the horizon), in `_model`'s float operations: the function's
+    work, whatever a kernel culls."""
+    args = model_args(vox, cam)
+    Z, H, res, oz, camz, fy, cy, max_r2 = (args[0], args[1], args[3],
+                                           args[6], args[7], args[9],
+                                           args[11], args[14])
+    cxc, czc, ok = _columns(vox, cam, t, y0, x0, ny, nx)
+    safe_z = torch.where(ok, czc, 1.0)
+    wz = (torch.arange(Z, dtype=torch.float32, device=t.device) + 0.5) \
+        * res + oz
+    cyc = (camz - wz)[:, None, None]
+    vi = torch.round(fy * cyc / safe_z + cy)
+    return (ok & (vi >= 0) & (vi < H)
+            & ((cxc * cxc + cyc * cyc) + czc * czc <= max_r2))
+
+
+def cull_counts(vox: VoxelConfig, cam: DepthCamConfig, table: torch.Tensor,
+                origins: torch.Tensor, ny: int, nx: int,
+                group: int = 1) -> dict:
+    """What the kernels' cull keeps of B images over a (ny, nx) region,
+    from the mirrors, summed over the images: (tile, image) pairs and the
+    live ones, the voxel columns of live pairs (`kept_columns`), the
+    voxels the kernels evaluate (`evaluated_voxels`: in a kept column,
+    every layer of each group of `group` layers that meets its z interval;
+    K6 evaluates the interval, `group` 1, K7 whole groups of `Z_CHUNK`),
+    and the function's own columns and voxels (`model_voxel_mask`)."""
+    Z = vox.size_z_cells
+    live = tile_live_plain(vox, cam, table, origins, ny, nx)
+    out = {"pairs": live.numel(), "live_pairs": int(live.sum()),
+           "kept_columns": 0, "evaluated_voxels": 0, "model_columns": 0,
+           "model_voxels": 0}
+    g0 = torch.arange(0, Z, group, device=table.device)[:, None, None]
+    size = (g0 + group).clamp_max(Z) - g0
+    for b in range(int(table.shape[0])):
+        y0, x0 = origins[b, 0], origins[b, 1]
+        kept = live[b].repeat_interleave(TILE_Y, 0)[:ny].repeat_interleave(
+            TILE_X, 1)[:, :nx]
+        lo, hi = column_z_range_plain(vox, cam, table[b], y0, x0, ny, nx)
+        meets = (lo <= g0 + group - 1) & (hi >= g0) & (lo <= hi) & kept
+        mask = model_voxel_mask(vox, cam, table[b], y0, x0, ny, nx)
+        out["kept_columns"] += int(kept.sum())
+        out["evaluated_voxels"] += int((meets * size).sum())
+        out["model_columns"] += int(mask.any(0).sum())
+        out["model_voxels"] += int(mask.sum())
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,10 @@ and K5 classify a cell with K1's device code and add the deltas in b
 order, as their plain versions do. K1, K4 and K5 decide per tile and scan
 whether the model is a constant there; the tests near walls and at the
 edges reach every class of that decision. K6 and K7 evaluate the voxel model's
-float operations in the plain version's order and K7 adds in b order. K2
+float operations in the plain version's order and K7 adds in b order; both
+skip the (tile, image) pairs and the layers their cull finds empty, and the
+cases at the cull's edges (tests/torch_kernel_inputs.py) hold them to
+the plain versions there too. K2
 and K3 run each field as one thread-block cluster of row slabs up to
 512^2 and one launch a sweep above; their cases reach cluster sizes 16, 8
 and 4 (through the number of fields) and both routes, on paths through
@@ -41,8 +44,8 @@ from jax_mapping_torch.ops import voxel_kernel as VK
 from jax_mapping_torch.sim import depthcam as D
 from jax_mapping_torch.sim import world as W
 
-import test_torch_frontier_sweeps as FS  # sibling test files' inputs
-import test_torch_sensor_tiles as ST
+import test_torch_sensor_tiles as ST  # a sibling test file's inputs
+import torch_kernel_inputs as KI
 
 pytestmark = pytest.mark.cuda
 
@@ -200,9 +203,9 @@ SWEEP_NS = [40, 48, 64, 128, 256, 512, 1024]
 def test_label_prop_serpentine_equals_plain(dev, n, off_mask):
     """A path through every slab boundary, longer than the 49 sweeps; with
     labels off the mask in the seed, which the first sweep reads."""
-    m = FS.serpentine_mask(n, seed=n)
+    m = KI.serpentine_mask(n, seed=n)
     mask = torch.as_tensor(m).to(dev)
-    seed = torch.as_tensor(FS.label_seed(m, off_mask, seed=n)).to(dev)
+    seed = torch.as_tensor(KI.label_seed(m, off_mask, seed=n)).to(dev)
     got = F.label_prop(mask, seed, 24)
     want = F._label_prop_plain(mask, seed, 24)
     torch.cuda.synchronize()
@@ -216,9 +219,9 @@ def test_label_sweeps_sweep_counts(dev, n, n_sweeps):
     widths 16 CTAs do not divide (CTAs without rows), at a width that is
     not a multiple of 4 (4-byte staging and pushes), and on the global
     route."""
-    m = FS.serpentine_mask(n, seed=1)
+    m = KI.serpentine_mask(n, seed=1)
     mask = torch.as_tensor(m).to(dev)
-    seed = torch.as_tensor(FS.label_seed(m, True, seed=2)).to(dev)
+    seed = torch.as_tensor(KI.label_seed(m, True, seed=2)).to(dev)
     got, ran = F.label_sweeps(mask, seed, n_sweeps)
     want = seed
     for _ in range(n_sweeps):
@@ -263,8 +266,8 @@ def test_relax_level_maze_equals_plain(dev, n, R, dense):
     """A corridor through every slab boundary, longer than the sweeps;
     dense initial fields hold values at blocked cells, which the first
     sweep reads."""
-    blocked = FS.corridor_maze(n, seed=n)
-    init = torch.as_tensor(FS.maze_init(blocked, R, seed=R, dense=dense))
+    blocked = KI.corridor_maze(n, seed=n)
+    init = torch.as_tensor(KI.maze_init(blocked, R, seed=R, dense=dense))
     blocked = torch.as_tensor(blocked).to(dev)
     init = init.to(dev)
     _cuda.reset_launches()
@@ -283,8 +286,8 @@ def test_relax_sweeps_cluster_sizes(dev, n, R, cluster, n_sweeps):
     fields, 8 at 16 and 4 at 32, doubled until a slab fits (at 512^2 only
     16 CTAs hold a field). Widths those sizes do not divide, a width that
     is not a multiple of 4, odd sweep counts and zero sweeps (the input)."""
-    blocked = FS.corridor_maze(n, seed=3)
-    init = torch.as_tensor(FS.maze_init(blocked, R, seed=4)).to(dev)
+    blocked = KI.corridor_maze(n, seed=3)
+    init = torch.as_tensor(KI.maze_init(blocked, R, seed=4)).to(dev)
     blocked = torch.as_tensor(blocked).to(dev)
     got, ran = CF.relax_sweeps(blocked, init, n_sweeps)
     want = init
@@ -474,11 +477,26 @@ def _depth_batch(cfg, B, seed, spread):
     return depths, poses, V.patch_origin(vox, poses[:, :2])
 
 
+#: Batches around K7's 32-image launch and K6's per-image grid.
+VOXEL_BATCHES = [1, 8, 31, 32, 33, 64]
+#: "random", or a pose set at an edge of the kernels' (tile, image) cull
+#: and z interval (tests/torch_kernel_inputs.py voxel_edge_case, 6 images).
+VOXEL_CASES = ([f"random_b{B}" for B in VOXEL_BATCHES]
+               + KI.VOXEL_EDGES)
+
+
+def _voxel_case(cfg, case, seed, spread):
+    if case.startswith("random_b"):
+        return _depth_batch(cfg, int(case[len("random_b"):]), seed, spread)
+    return KI.voxel_edge_case(cfg, case)
+
+
 @pytest.mark.parametrize("name", list(VOXEL_CONFIGS))
-@pytest.mark.parametrize("B", [1, 8, 33])
-def test_voxel_image_equals_plain(dev, name, B):
+@pytest.mark.parametrize("case", VOXEL_CASES)
+def test_voxel_image_equals_plain(dev, name, case):
     cfg = VOXEL_CONFIGS[name]()
-    d, p, o = (x.to(dev).contiguous() for x in _depth_batch(cfg, B, B, 2.0))
+    d, p, o = (x.to(dev).contiguous()
+               for x in _voxel_case(cfg, case, len(case), 2.0))
     before = _cuda.LAUNCHES["voxel_image"]
     got = VK.image_deltas(cfg.voxel, cfg.depthcam, d, p, o)
     assert _cuda.LAUNCHES["voxel_image"] == before + 1
@@ -486,17 +504,22 @@ def test_voxel_image_equals_plain(dev, name, B):
                                  o)
     torch.cuda.synchronize()
     assert torch.equal(got, want), int((got != want).sum())
-    assert bool((want != 0).any())
+    if case.startswith("random"):
+        assert bool((want != 0).any())
 
 
 @pytest.mark.parametrize("name", list(VOXEL_CONFIGS))
-@pytest.mark.parametrize("B", [1, 32, 40])
-def test_voxel_window_equals_plain(dev, name, B):
-    """K7 through window_delta; 40 images launch twice (32 + 8) and add
-    the subtotals in order, as the plain path does."""
+@pytest.mark.parametrize("case", VOXEL_CASES)
+def test_voxel_window_equals_plain(dev, name, case):
+    """K7 through window_delta, every image on the first one's patch;
+    more than 32 images launch once per 32 and add the subtotals in
+    order, as the plain path does."""
     cfg = VOXEL_CONFIGS[name]()
-    d, p, _ = (x.to(dev).contiguous() for x in _depth_batch(cfg, B, B, 0.1))
-    o = V.patch_origin(cfg.voxel, p[:, :2].mean(dim=0))
+    d, p, o = (x.to(dev).contiguous()
+               for x in _voxel_case(cfg, case, len(case), 0.1))
+    B = d.shape[0]
+    o = (V.patch_origin(cfg.voxel, p[:, :2].mean(dim=0))
+         if case.startswith("random") else o[0])
     before = _cuda.LAUNCHES["voxel_summed"]
     got = VK.window_delta(cfg.voxel, cfg.depthcam, d, p, o)
     assert _cuda.LAUNCHES["voxel_summed"] == before + -(-B // 32)
@@ -510,27 +533,39 @@ def test_voxel_window_equals_plain(dev, name, B):
             origins[i:i + 32], P, P)
     torch.cuda.synchronize()
     assert torch.equal(got, want), int((got != want).sum())
-    assert bool((want != 0).any())
+    if case.startswith("random"):
+        assert bool((want != 0).any())
 
 
-@pytest.mark.parametrize("name", list(VOXEL_CONFIGS))
-def test_voxel_region_equals_plain(dev, name):
-    """K7 over the whole grid as one Y slab (the 1 x 1 mesh's local step)
-    and over its upper half."""
+@pytest.mark.parametrize("region", KI.VOXEL_REGIONS,
+                         ids=["-".join(map(str, r))
+                              for r in KI.VOXEL_REGIONS])
+@pytest.mark.parametrize("case", ["random", *KI.VOXEL_EDGES])
+def test_voxel_region_equals_plain(dev, region, case):
+    """K7 over a region at rows y0, all images at cols 0 (region_delta's
+    origins), from random poses (across the grid for a region of half the
+    grid or more, else around the region) or the edge cases' poses."""
+    name, y0, ny, nx = region
     cfg = VOXEL_CONFIGS[name]()
     vox = cfg.voxel
-    spread = vox.size_x_cells * vox.resolution_m / 5
-    d, p, _ = (x.to(dev).contiguous() for x in _depth_batch(cfg, 8, 3,
-                                                              spread))
-    for y0, ny in ((0, vox.size_y_cells), (vox.size_y_cells // 2,
-                                           vox.size_y_cells // 2)):
-        got = VK.region_delta(vox, cfg.depthcam, d, p, y0, ny,
-                              vox.size_x_cells)
-        origins = torch.tensor([[y0, 0]] * 8, dtype=torch.int32, device=dev)
-        want = VK.summed_delta_plain(vox, cfg.depthcam, d, VK.pose_table(p),
-                                     origins, ny, vox.size_x_cells)
-        torch.cuda.synchronize()
-        assert torch.equal(got, want), int((got != want).sum())
+    if case == "random" and 2 * ny >= vox.size_y_cells:
+        spread = vox.size_x_cells * vox.resolution_m / 5
+        d, p, _ = _depth_batch(cfg, 8, 3, spread)
+    elif case == "random":
+        d, p = KI.cameras_around_region(cfg, y0, ny, nx, 8, 3)
+    else:
+        d, p, _ = KI.voxel_edge_case(cfg, case)
+    d, p = d.to(dev).contiguous(), p.to(dev).contiguous()
+    before = _cuda.LAUNCHES["voxel_summed"]
+    got = VK.region_delta(vox, cfg.depthcam, d, p, y0, ny, nx)
+    assert _cuda.LAUNCHES["voxel_summed"] == before + 1
+    origins = torch.tensor([[y0, 0]] * d.shape[0], dtype=torch.int32,
+                           device=dev)
+    want = VK.summed_delta_plain(vox, cfg.depthcam, d, VK.pose_table(p),
+                                 origins, ny, nx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), int((got != want).sum())
+    if case == "random":
         assert bool((want != 0).any())
 
 

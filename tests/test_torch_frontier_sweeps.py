@@ -12,8 +12,8 @@ in PyTorch, so its exactness is checked here at cluster sizes and widths
 that do not divide each other; `thread_cells` replays the kernel's
 thread-to-cell map. The inputs are paths longer than the sweep count
 that run across every slab boundary: a missing or extra sweep, or a
-stale halo, changes the output. `tests/test_torch_cuda.py` takes its
-inputs from here.
+stale halo, changes the output; they live in tests/torch_kernel_inputs.py,
+which tests/test_torch_cuda.py and chip_smoke.py share.
 
 The JAX side runs in a clean subprocess (tests/torch_jaxref.py), its
 Pallas kernels in interpret mode.
@@ -26,57 +26,8 @@ import torch
 from jax_mapping_torch.ops import costfield as CF
 from jax_mapping_torch.ops import frontier as F
 
-# ---------------------------------------------------------------------------
-# Inputs
-# ---------------------------------------------------------------------------
-
-
-def serpentine_mask(n: int, seed: int = 0, breaks: int = 5) -> np.ndarray:
-    """A one-cell-wide path down every even column, joined at the bottom
-    and top by turns, in turn: its runs cross every row, and so every slab
-    boundary. Every `breaks`-th run (none for 0) is cut at a random row,
-    which makes several components."""
-    rng = np.random.default_rng(seed)
-    m = np.zeros((n, n), bool)
-    m[:, 0::2] = True
-    for k, c in enumerate(range(0, n - 2, 2)):
-        m[n - 1 if k % 2 == 0 else 0, c + 1] = True
-    for c in range(0, n, 2 * breaks) if breaks else ():
-        m[rng.integers(1, n - 1), c] = False
-    return m
-
-
-def label_seed(mask: np.ndarray, off_mask: bool = False,
-               seed: int = 0) -> np.ndarray:
-    """`label_components`' seed (the linear index on the mask, -1 off it),
-    or with random labels off the mask, which the first sweep reads."""
-    n = mask.shape[0]
-    lin = np.arange(n * n, dtype=np.int32).reshape(n, n)
-    fill = (np.random.default_rng(seed).integers(-1, n * n, (n, n))
-            .astype(np.int32) if off_mask else np.int32(-1))
-    return np.where(mask, lin, fill).astype(np.int32)
-
-
-def corridor_maze(n: int, seed: int = 0) -> np.ndarray:
-    """Blocked cells of a maze whose one corridor is `serpentine_mask`."""
-    return ~serpentine_mask(n, seed, breaks=0)
-
-
-def maze_init(blocked: np.ndarray, R: int, seed: int = 0,
-              dense: bool = False) -> np.ndarray:
-    """(R, n, n) initial fields: 0 at one open cell a robot, 1e9 elsewhere;
-    or, `dense`, random finite values everywhere, blocked cells included,
-    which the first sweep reads."""
-    n = blocked.shape[0]
-    rng = np.random.default_rng(seed)
-    if dense:
-        return rng.uniform(0, 4 * n, (R, n, n)).astype(np.float32)
-    init = np.full((R, n, n), 1e9, np.float32)
-    open_cells = np.argwhere(~blocked)
-    for i, (r, c) in enumerate(open_cells[rng.choice(len(open_cells), R,
-                                                     replace=False)]):
-        init[i, r, c] = 0.0
-    return init
+from torch_kernel_inputs import (corridor_maze, label_seed, maze_init,
+                                 serpentine_mask)
 
 
 def _t(a):
