@@ -43,6 +43,25 @@ Phases, each printed as one JSON line:
            launched. Host syncs of one step of each kind, the stages of a
            window step, one profiled tick; then three windows with
            fused_fusion=False, where the window sum goes through K4.
+  publish  slice 7: the mapper's frontier publish, an
+           IncrementalFrontierPipeline (tile 256) fed after each mapper
+           tick (the tiles whose log-odds changed get the tick's
+           revision) and republished at once (a skip); then the robots
+           moved to their BFS cells' centres (reuse), 1 m east (warm),
+           and the re-fuse phase's map (dense dirt, the full refresh).
+           Per mode: ms, host syncs, K2/K3 launches, crop spans, and the
+           full compute_frontiers ms; every publish must equal the full
+           recompute on the card (sizes, assignment; targets to one ulp)
+  planner  the planner node's calls on the mapper drive's map:
+           plan_to_goal from robot 0's circle to a goal behind the
+           vertical wall (the 1024^2 field, 1025 sweeps of K3 on the
+           global route, then 256 descent steps), goal_field and
+           descend_field alone, host syncs; one replan as the node runs
+           it (a field per distinct assigned target, a descent per robot)
+  fleet_modes  fleet_step with planned_goals, decay_aware (the map
+           decayed x 0.5) and exact_bfs on in turn, 10 ticks each, 8
+           robots where the mapper drive starts them, its map as their
+           map: tick p50/p90, host syncs, K2/K3 launches by route
   window   the bench's window workload: 256 scans on a 0.4 m loop into
            the 4096^2 grid through `fuse_scans_window` (K5), and 1024
            scans (K4 subtotals of 512, then one apply)
@@ -64,9 +83,13 @@ Phases, each printed as one JSON line:
            plain mirror (live (tile, image) pairs, kept columns,
            evaluated voxels against the model's live voxels); their edge
            rows (untimed): the poses at the edges of the cull through K6,
-           K7's window and K7 over the whole grid
+           K7's window and K7 over the whole grid. K2 and K3 at the
+           exploration path's shapes: the planner's field, one exact_bfs
+           field (256^2 x 257 sweeps), every distinct K2/K3 call of the
+           publishes (crop-span levels, warm 8 and 0 sweeps)
   parity   a tiny mission, each tick run on the card and on the CPU from
-           the same state with the same wheel noise
+           the same state with the same wheel noise; then with each
+           frontier option on (the assignment must agree exactly)
   slam_parity  a tiny single robot, window and single steps, each run on
            the card and on the CPU from the same state
   voxel    slice 3's main path, the voxel mapper's device work: 8 robots
@@ -688,7 +711,7 @@ def phase_profile(torch, cfg, st, world, seed: int, ticks: int = 3):
 
 
 def phase_kernels(torch, cfg, world, mapped, seed: int, fleet: dict,
-                  mapper: dict, voxel: tuple):
+                  mapper: dict, voxel: tuple, explore: tuple):
     """Each kernel against its plain version at the main path's shapes.
     The scans are taken near walls and the frontier comes from `mapped`,
     the re-fused map, so that every kernel sees non-trivial input; the
@@ -797,6 +820,7 @@ def phase_kernels(torch, cfg, world, mapped, seed: int, fleet: dict,
     rows.update(window_kernel_rows(torch, cfg, world, mapped, seed, mapper))
     rows.update(edge_rows(torch, cfg, world, mapped, gen))
     rows.update(voxel_kernel_rows(torch, cfg, *voxel))
+    rows.update(exploration_kernel_rows(torch, cfg, *explore))
     emit({"phase": "kernels", "rows": rows})
     for name, r in rows.items():
         check(r["mismatches"] == 0,
@@ -988,25 +1012,45 @@ def phase_refuse(torch, cfg, world, seed: int):
     return out
 
 
-def phase_parity(torch, seed: int, ticks: int = 6):
+def phase_parity(torch, seed: int, ticks: int = 6, option_ticks: int = 4):
     """A tiny mission: from each CPU state, one tick on the card and one on
-    the CPU with the same wheel noise. The CPU path runs the plain
-    versions; the card runs the kernels. Tolerances: sin/cos and the
-    matcher's convolution round differently on the two devices, so a
-    simulated beam may move by one sample step and a matched pose by a
-    fine step; cells may differ on sensor-model boundaries."""
-    from jax_mapping_torch import interop
+    the CPU with the same wheel noise; then the same with each frontier
+    option on. The CPU path runs the plain versions; the card runs the
+    kernels. The frontier assignment, computed from the same state on
+    both, must agree exactly. Tolerances: sin/cos and the matcher's
+    convolution round differently on the two devices, so a simulated beam
+    may move by one sample step and a matched pose by a fine step; cells
+    may differ on sensor-model boundaries."""
+    import dataclasses
     from jax_mapping_torch.config import tiny_config
+    base = tiny_config(2)
+    worst = _parity_mission(torch, base, seed, ticks)
+    options = {}
+    for name, kw in FLEET_OPTIONS.items():
+        cfg = base.replace(frontier=dataclasses.replace(base.frontier, **kw))
+        options[name] = _parity_mission(torch, cfg, seed, option_ticks)
+    n_cells = base.grid.size_cells ** 2
+    emit({"phase": "parity", "config": "tiny_config(2)", "ticks": ticks,
+          "worst": worst, "option_ticks": option_ticks, "options": options,
+          "cells_total": n_cells})
+    for name, w in (("default", worst), *options.items()):
+        check(w["pose_m"] <= 1e-2 and w["yaw_rad"] <= 1e-2,
+              f"parity ({name}): estimates differ by {w}")
+        check(w["cells"] <= 1e-3 * n_cells,
+              f"parity ({name}): {w['cells']} grid cells differ")
+
+
+def _parity_mission(torch, cfg, seed: int, ticks: int) -> dict:
+    from jax_mapping_torch import interop
     from jax_mapping_torch.models import fleet as FL
     from jax_mapping_torch.sim import world as W
-    cfg = tiny_config(2)
     res = cfg.grid.resolution_m
     w = W.plank_course(cfg.grid.size_cells, res, n_planks=8, seed=0)
     w_cpu = torch.as_tensor(w)
     w_gpu = w_cpu.cuda()
     gen = torch.Generator().manual_seed(seed)
     st = FL.init_fleet_state(cfg, device="cpu", generator=gen)
-    worst = {"pose_m": 0.0, "yaw_rad": 0.0, "cells": 0}
+    worst = {"pose_m": 0.0, "yaw_rad": 0.0, "cells": 0, "assigned": 0}
     for _ in range(ticks):
         normals = torch.randn((cfg.fleet.n_robots, 2), generator=gen)
         st_gpu = interop.fleet_state_from_numpy(
@@ -1016,18 +1060,15 @@ def phase_parity(torch, seed: int, ticks: int = 6):
         check(torch.equal(gd.is_key.cpu(), cd.is_key), "parity: key gate")
         check(torch.equal(gd.loop_closed.cpu(), cd.loop_closed),
               "parity: loop closure")
+        check(torch.equal(gd.frontiers.assignment.cpu(),
+                          cd.frontiers.assignment), "parity: assignment")
+        worst["assigned"] += int((cd.frontiers.assignment >= 0).sum())
         dp = (g.est_poses.cpu() - st.est_poses).abs()
         worst["pose_m"] = max(worst["pose_m"], float(dp[:, :2].max()))
         worst["yaw_rad"] = max(worst["yaw_rad"], float(dp[:, 2].max()))
         worst["cells"] = max(worst["cells"],
                              int((g.grid.cpu() != st.grid).sum()))
-    n_cells = cfg.grid.size_cells ** 2
-    emit({"phase": "parity", "config": "tiny_config(2)", "ticks": ticks,
-          "worst": worst, "cells_total": n_cells})
-    check(worst["pose_m"] <= 1e-2 and worst["yaw_rad"] <= 1e-2,
-          f"parity: estimates differ by {worst}")
-    check(worst["cells"] <= 1e-3 * n_cells,
-          f"parity: {worst['cells']} grid cells differ")
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -1113,10 +1154,10 @@ class _Drive:
         return scans, self.cmd * (1.0 + 0.02 * noise)
 
 
-def phase_mapper(torch, cfg, seed: int, ticks: int = 10):
+def phase_mapper(torch, cfg, seed: int, ticks: int = 10, on_tick=None):
     """Slice 2's main path, as `MapperNode` runs it: per robot, its own
     SlamState on the shared grid; the shared grid becomes each step's
-    output grid."""
+    output grid. `on_tick(grid, poses)` runs after each timed tick."""
     import dataclasses
     from jax_mapping_torch.models import slam as S
     from jax_mapping_torch.ops import _cuda
@@ -1159,6 +1200,15 @@ def phase_mapper(torch, cfg, seed: int, ticks: int = 10):
                 shared = states[r].grid
             torch.cuda.synchronize()
             tick_ms.append((time.perf_counter() - t0) * 1e3)
+            if on_tick is not None:
+                # The publish's launches go on its own line.
+                saved = (dict(_cuda.LAUNCHES),
+                         {k: dict(v) for k, v in _cuda.ROUTES.items()})
+                on_tick(shared, torch.stack([s.pose for s in states]))
+                _cuda.LAUNCHES.update(saved[0])
+                for k, v in saved[1].items():
+                    _cuda.ROUTES[k].clear()
+                    _cuda.ROUTES[k].update(v)
     launches = dict(_cuda.LAUNCHES)
     truth = drive.truth.clone()
 
@@ -1574,6 +1624,486 @@ def phase_slam_parity(torch, seed: int, steps: int = 6):
           f"slam parity: poses differ by {worst}")
     check(worst["cells"] <= 1e-3 * n_cells,
           f"slam parity: {worst['cells']} grid cells differ")
+
+
+# ---------------------------------------------------------------------------
+# Slice 7: the exploration-planning path (frontier options, incremental
+# publish, goal planner), on K2 and K3
+# ---------------------------------------------------------------------------
+
+#: The frontier options of the fleet tick, each on in turn.
+FLEET_OPTIONS = {"planned_goals": {"planned_goals": True},
+                 "decay_aware": {"decay_aware": True},
+                 "exact_bfs": {"exact_bfs": True}}
+
+#: K3 launches a tick of 8 robots under each option: the assignment's
+#: three multigrid levels, three more for planned_goals' target-seeded
+#: fields; exact_bfs runs one 256^2 field a robot instead.
+OPTION_K3_PER_TICK = {"planned_goals": 6, "decay_aware": 3, "exact_bfs": 8}
+
+#: JAX's default ServingConfig.tile_cells: the publish's tile.
+PUBLISH_TILE = 256
+
+
+class WaypointCount:
+    """Collects the validity of the planned waypoints `fleet_step` steers
+    at while the context is open (tensors, summed once after)."""
+
+    def __enter__(self):
+        from jax_mapping_torch.ops import frontier as F
+        self.f, self.orig, self.valid = F, F.assigned_waypoints, []
+
+        def counted(*args, **kwargs):
+            wp, ok = self.orig(*args, **kwargs)
+            self.valid.append(ok)
+            return wp, ok
+        F.assigned_waypoints = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.f.assigned_waypoints = self.orig
+
+    def n_valid(self) -> int:
+        return sum(int(v.sum()) for v in self.valid)
+
+
+class SweepRecorder:
+    """Records the inputs of every K2 (`frontier.label_sweeps`) and K3
+    (`costfield.relax_sweeps`) call while the context is open, so the
+    kernels phase can hold those shapes against the plain versions. It
+    keeps references, no copies: no caller writes into those tensors."""
+
+    def __enter__(self):
+        from jax_mapping_torch.ops import costfield as CF
+        from jax_mapping_torch.ops import frontier as F
+        self.mods = ((CF, "relax_sweeps"), (F, "label_sweeps"))
+        self.orig = [getattr(m, n) for m, n in self.mods]
+        self.calls = []
+        for (mod, name), fn in zip(self.mods, self.orig):
+            setattr(mod, name, self._recorded(name, fn))
+        return self
+
+    def _recorded(self, name, fn):
+        def recorded(mask, init, n_sweeps):
+            self.calls.append((name, mask, init, n_sweeps))
+            return fn(mask, init, n_sweeps)
+        return recorded
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in zip(self.mods, self.orig):
+            setattr(mod, name, fn)
+
+
+def _ulps(a, b):
+    """Float32 ulps between a and b, elementwise (same-signed values)."""
+    import numpy as np
+    ia = np.asarray(a, np.float32).view(np.int32).astype(np.int64)
+    ib = np.asarray(b, np.float32).view(np.int32).astype(np.int64)
+    return np.abs(ia - ib)
+
+
+class _Publisher:
+    """The mapper's frontier publish (`IncrementalFrontierPipeline`, tile
+    256) fed after each tick of the mapper drive: the tiles whose
+    log-odds changed that tick get the tick's revision. Every publish is
+    timed, its host syncs and K2/K3 launches counted, its mode read from
+    the pipeline's counters, and its result held against the full
+    `compute_frontiers` of the same inputs on the card."""
+
+    def __init__(self, torch, cfg):
+        import numpy as np
+        from jax_mapping_torch.ops.frontier_incremental import \
+            IncrementalFrontierPipeline
+        self.torch, self.cfg = torch, cfg
+        self.pipe = IncrementalFrontierPipeline(cfg.frontier, cfg.grid,
+                                                PUBLISH_TILE, device=DEV)
+        nt = cfg.grid.size_cells // PUBLISH_TILE
+        self.tile_rev = np.zeros((nt, nt), np.int64)
+        self.rev = 0
+        self.grid = None
+        self.poses = None
+        self.last = None
+        self.rows = []
+        self.recorded = {}
+
+    def tick(self, grid, poses):
+        """After a mapper tick: mark the changed tiles, publish, then
+        publish the same inputs again (the bridge's republish: a skip)."""
+        self.mark(grid)
+        self.poses = poses.cpu().numpy()
+        self.publish("tick")
+        self.publish("republish")
+
+    def mark(self, grid):
+        from jax_mapping_torch.ops import frontier as F
+        if self.grid is None:
+            changed = grid.new_ones(self.tile_rev.shape, dtype=self.torch.bool)
+        else:
+            changed = F._pool_any(grid != self.grid, PUBLISH_TILE)
+        self.rev += 1
+        self.tile_rev[changed.cpu().numpy()] = self.rev
+        self.grid = grid.clone()
+
+    def publish(self, what: str):
+        import numpy as np
+        from jax_mapping_torch.ops import _cuda
+        from jax_mapping_torch.ops import frontier as F
+        torch, cfg, pipe = self.torch, self.cfg, self.pipe
+        before = dict(pipe.status())
+        k_before = {k: _cuda.LAUNCHES[k] for k in ("label_prop",
+                                                    "costfield_relax")}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with SweepRecorder() as rec:
+            pub, n_sync = _count_syncs(torch, lambda: pipe.compute(
+                self.grid, self.poses, self.tile_rev, self.rev))
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = {k: _cuda.LAUNCHES[k] - v for k, v in k_before.items()}
+        after = pipe.status()
+        if not pub.recomputed:
+            mode = "skip"
+        elif after["n_field_reuses"] > before["n_field_reuses"]:
+            mode = "reuse"
+        elif after["n_warm_starts"] > before["n_warm_starts"]:
+            mode = "warm"
+        else:
+            mode = "cold"
+        full_refresh = after["n_full_refreshes"] > before["n_full_refreshes"]
+        for name, mask, init, s in rec.calls:
+            n = init.shape[-1]
+            key = (f"{name}_publish_{mode}_n{n}_s{s}"
+                   + (f"_r{init.shape[0]}" if init.dim() == 3 else ""))
+            self.recorded.setdefault(key, (name, mask, init, s))
+        poses_d = torch.as_tensor(self.poses, device=self.grid.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fr = F.compute_frontiers(cfg.frontier, cfg.grid, self.grid, poses_d)
+        torch.cuda.synchronize()
+        full_ms = (time.perf_counter() - t0) * 1e3
+        want_t = fr.targets.cpu().numpy()
+        ulps = _ulps(pub.targets, want_t)
+        row = {"what": what, "mode": mode, "full_refresh": full_refresh,
+               "ms": ms, "full_compute_frontiers_ms": full_ms,
+               "host_syncs": n_sync, "launches": launches,
+               "crop": list(pub.crop_rc),
+               "dirty_tiles": after["cache_misses"] - before["cache_misses"],
+               "clusters": int((pub.sizes > 0).sum()),
+               "targets_bit_equal": int((ulps == 0).all(axis=1).sum()),
+               "targets_max_ulps": int(ulps.max()),
+               "sizes_equal": bool(np.array_equal(pub.sizes,
+                                                  fr.sizes.cpu().numpy())),
+               "assignment_equal": bool(np.array_equal(
+                   pub.assignment, fr.assignment.cpu().numpy()))}
+        self.rows.append(row)
+        self.last = pub
+        check(row["sizes_equal"] and row["assignment_equal"]
+              and row["targets_max_ulps"] <= 1,
+              f"publish ({what}, {mode}) differs from the full recompute: "
+              f"{row}")
+        return row
+
+
+def phase_publish(torch, cfg, pub, mapped):
+    """After the mapper drive's publishes: a publish with every robot
+    moved to its BFS cell's centre (the carried fields are exact: reuse),
+    one with every robot 1 m east (warm), then one on the re-fuse phase's
+    map, whose tiles all changed (dense dirt: the full refresh)."""
+    import numpy as np
+    from jax_mapping_torch.ops import frontier as F
+    pipe = pub.pipe
+    drive_pub, drive_poses = pub.last, pub.poses.copy()
+    res1 = cfg.grid.resolution_m * cfg.frontier.downsample
+    c = cfg.frontier.cluster_downsample
+    ox, oy = cfg.grid.origin_m
+    bfs = pipe._robot_cells(pub.poses) // c
+    centre = np.stack([(bfs[:, 1] * c + c / 2) * res1 + ox,
+                       (bfs[:, 0] * c + c / 2) * res1 + oy], 1)
+    pub.poses = np.concatenate([centre, pub.poses[:, 2:]], 1).astype(
+        np.float32)
+    pub.publish("poses_to_cell_centres")
+    pub.poses[:, 0] += 1.0
+    pub.publish("poses_1m_east")
+    mapper_grid = pub.grid
+    pub.mark(mapped)
+    pub.publish("refuse_map")
+    rows = pub.rows
+    by_mode = {}
+    for m in ("cold", "warm", "reuse", "skip"):
+        sel = [r for r in rows if r["mode"] == m]
+        if not sel:
+            continue
+        by_mode[m] = {
+            "publishes": len(sel),
+            "ms": _p50_p90([r["ms"] for r in sel]),
+            "host_syncs": sorted({r["host_syncs"] for r in sel}),
+            "launches_label_prop": sorted({r["launches"]["label_prop"]
+                                           for r in sel}),
+            "launches_costfield_relax": sorted(
+                {r["launches"]["costfield_relax"] for r in sel}),
+            "crop_spans": sorted({r["crop"][2] for r in sel}),
+            "full_compute_frontiers_ms": _p50_p90(
+                [r["full_compute_frontiers_ms"] for r in sel])}
+    n_targets = len(rows) * cfg.frontier.max_clusters
+    # The auction alone (robot by robot, as compute_frontiers runs it):
+    # how many of a publish's host syncs are its.
+    fr = pub.pipe.last_device_result
+    _a, auction_syncs = _count_syncs(torch, lambda: F.assign_frontiers(
+        fr.costs))
+    out = {"phase": "publish", "tile_cells": PUBLISH_TILE,
+           "host_syncs_assign_frontiers": auction_syncs,
+           "publishes": len(rows), "by_mode": by_mode,
+           "full_refreshes": sum(r["full_refresh"] for r in rows),
+           "full_refresh_ms": [r["ms"] for r in rows if r["full_refresh"]],
+           "targets_bit_equal": sum(r["targets_bit_equal"] for r in rows),
+           "targets_compared": n_targets,
+           "status": pipe.status(), "rows": rows}
+    emit(out)
+    for m in ("cold", "warm", "reuse", "skip"):
+        check(m in by_mode, f"publish: no {m} publish")
+    check(out["full_refreshes"] >= 2, "publish: no full refresh after the "
+          "first publish")
+    # The planner phase plans on the drive's map, for its robots and
+    # the drive's last publish.
+    pub.grid, pub.poses, pub.last = mapper_grid, drive_poses, drive_pub
+    return out
+
+
+def _planner_k3_inputs(torch, cfg, grid, goal):
+    """(blocked, init, sweeps) of goal_field's K3 call, as goal_field
+    builds them."""
+    import dataclasses
+    from jax_mapping_torch.ops import frontier as F
+    from jax_mapping_torch.ops import planner as P
+    free, _occ, unknown = F.coarsen(cfg.frontier, cfg.grid, grid)
+    passable = free | F.frontier_mask(free, unknown) | unknown
+    res = cfg.grid.resolution_m * cfg.frontier.downsample
+    rc = P._world_to_cell(cfg.grid, res, goal, passable.shape[0])
+    got = []
+    F.cost_to_go(dataclasses.replace(cfg.frontier,
+                                     bfs_iters=cfg.planner.bfs_iters),
+                 passable, rc[None],
+                 torch.ones(1, dtype=torch.bool, device=grid.device),
+                 relax=lambda b, i, s: got.append((b, i, s)) or i)
+    return got[0]
+
+
+#: The planner phase's start (robot 0's circle, east of the vertical wall
+#: of rooms_world(4096, 0.05, seed=1) at x = -34.85 m, whose door is at
+#: y = 2.15 m) and goal (west of that wall; the mapper drive mapped the
+#: wall on both sides from y -47 to -20 m).
+PLAN_START = (-30.85, -31.25)
+PLAN_GOAL = (-38.35, -31.25)
+
+
+def phase_planner(torch, cfg, grid, poses, pub, reps: int = 5):
+    """The planner node's calls on the mapper drive's map: `plan_to_goal`
+    from behind a wall (a 1024^2 field of 1025 sweeps on K3's global
+    route, then 256 descent steps), and one replan as the node runs it:
+    one `goal_field` per distinct assigned frontier target of the last
+    publish, one `descend_field` per robot."""
+    import numpy as np
+    from jax_mapping_torch.ops import _cuda
+    from jax_mapping_torch.ops import planner as P
+    pcfg, fcfg, g = cfg.planner, cfg.frontier, cfg.grid
+    dev = grid.device
+    start = torch.tensor(PLAN_START, device=dev)
+    goal = torch.tensor(PLAN_GOAL, device=dev)
+    plan = P.plan_to_goal(pcfg, fcfg, g, grid, goal, start)    # warm-up
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    plan, n_sync = _count_syncs(torch, lambda: P.plan_to_goal(
+        pcfg, fcfg, g, grid, goal, start))
+    torch.cuda.synchronize()
+    launches = _cuda.LAUNCHES["costfield_relax"]
+    routes = dict(_cuda.ROUTES["costfield_relax"])
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        plan = P.plan_to_goal(pcfg, fcfg, g, grid, goal, start)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    dist = P.goal_field(pcfg, fcfg, g, grid, goal)
+    field_ms = cuda_ms(lambda: P.goal_field(pcfg, fcfg, g, grid, goal),
+                       reps=reps, warmup=1)
+    descend_ms = cuda_ms(lambda: P.descend_field(pcfg, fcfg, g, dist, goal,
+                                                 start), reps=reps, warmup=1)
+    _d, descend_syncs = _count_syncs(torch, lambda: P.descend_field(
+        pcfg, fcfg, g, dist, goal, start))
+    path = plan.path_xy[plan.path_valid].cpu()
+
+    # The planner node's replan: a field per distinct assigned target.
+    targets = pub.targets
+    assignment = pub.assignment
+    poses_d = torch.as_tensor(poses, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fields = {int(k): P.goal_field(pcfg, fcfg, g, grid, torch.as_tensor(
+        targets[k], device=dev)) for k in np.unique(assignment[assignment >= 0])}
+    plans = [P.descend_field(pcfg, fcfg, g, fields[int(a)], torch.as_tensor(
+        targets[a], device=dev), poses_d[r, :2])
+        for r, a in enumerate(assignment) if a >= 0]
+    torch.cuda.synchronize()
+    replan_ms = (time.perf_counter() - t0) * 1e3
+    out = {"phase": "planner", "start": PLAN_START, "goal": PLAN_GOAL,
+           "plan_to_goal_ms": _p50_p90(times), "plan_to_goal_runs_ms": times,
+           "goal_field_ms": field_ms, "descend_field_ms": descend_ms,
+           "reachable": bool(plan.reachable), "arrived": bool(plan.arrived),
+           "n_steps": int(plan.n_steps),
+           "path_end": path[-1].tolist() if len(path) else None,
+           "path_max_y": float(path[:, 1].max()) if len(path) else None,
+           "k3_launches_per_plan": launches, "k3_routes": routes,
+           "host_syncs_plan_to_goal": n_sync,
+           "host_syncs_descend_field": descend_syncs,
+           "replan": {"goal_fields": len(fields), "descents": len(plans),
+                      "reachable": sum(bool(p.reachable) for p in plans),
+                      "ms": replan_ms}}
+    emit(out)
+    sweeps = 2 * pcfg.bfs_iters + 1
+    check(bool(plan.reachable) and int(plan.n_steps) > 0,
+          "planner: the goal behind the wall is unreachable")
+    check(int(plan.n_steps) == pcfg.max_path_len
+          or float(torch.dist(path[-1], goal.cpu())) <= 0.3,
+          f"planner: the path ends at {path[-1].tolist()}, not the goal")
+    check(bool(torch.isfinite(plan.path_xy).all()), "planner: non-finite")
+    check(launches == sweeps and routes == {"global": sweeps},
+          f"planner: K3 ran {routes}, not {sweeps} global launches")
+    check(len(plans) > 0, "planner: no robot had an assigned target")
+    check(descend_syncs == 0,
+          f"planner: the descent made {descend_syncs} host syncs")
+    return out, (dist, goal, start)
+
+
+def phase_fleet_modes(torch, cfg, grid, seed: int, ticks: int = 10):
+    """`fleet_step` with each frontier option on in turn, 8 robots where
+    the mapper drive placed them on rooms_world(4096, 0.05, seed=1), its
+    map as their starting map (decayed x 0.5, cap 1.5, for decay_aware):
+    tick p50/p90, host syncs of ticks 1-3, K2/K3 launches by route."""
+    import dataclasses
+    from jax_mapping_torch.models import fleet as FL
+    from jax_mapping_torch.ops import _cuda
+    from jax_mapping_torch.ops import grid as G
+    drive = _Drive(torch, cfg, seed)
+    world, start = drive.world, drive.truth
+    res = cfg.grid.resolution_m
+    out = {"phase": "fleet_modes", "ticks": ticks,
+           "robots": cfg.fleet.n_robots, "options": {}}
+    for name, kw in FLEET_OPTIONS.items():
+        c = cfg.replace(frontier=dataclasses.replace(cfg.frontier, **kw))
+        gen = torch.Generator().manual_seed(seed)
+        st = FL.init_fleet_state(c, device=DEV, generator=gen)
+        g0 = G.decay_grid(grid, 0.5, 1.5) if name == "decay_aware" else grid
+        st = st._replace(sim=st.sim._replace(poses=start.clone()),
+                         est_poses=start.clone(), grid=g0.clone())
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        tick_ms, syncs, assigned = [], [], 0
+        with WaypointCount() as wc:
+            for i in range(ticks):
+                t0 = time.perf_counter()
+                if 1 <= i <= 3:
+                    (st, diag), n_sync = _count_syncs(
+                        torch, lambda: FL.fleet_step(c, st, res, world,
+                                                     generator=gen))
+                    syncs.append(n_sync)
+                else:
+                    st, diag = FL.fleet_step(c, st, res, world,
+                                             generator=gen)
+                torch.cuda.synchronize()
+                tick_ms.append((time.perf_counter() - t0) * 1e3)
+                assigned += int((diag.frontiers.assignment >= 0).sum())
+        launches = {k: _cuda.LAUNCHES[k] for k in ("label_prop",
+                                                   "costfield_relax")}
+        routes = {k: dict(_cuda.ROUTES[k]) for k in launches}
+        row = {"first_tick_ms": tick_ms[0], "tick_ms": _p50_p90(tick_ms[1:]),
+               "tick_ms_all": tick_ms, "host_syncs_ticks_1_to_3": syncs,
+               "launches": launches,
+               "launches_per_tick": {k: v / ticks for k, v in launches.items()},
+               "routes": routes, "assigned_robot_ticks": assigned,
+               "clusters_last_tick": int((diag.frontiers.sizes > 0).sum()),
+               "valid_waypoints": wc.n_valid()}
+        out["options"][name] = row
+        check(bool(torch.isfinite(st.grid).all())
+              and bool(torch.isfinite(st.est_poses).all()),
+              f"fleet_modes {name}: non-finite state")
+        check(launches["label_prop"] == ticks,
+              f"fleet_modes {name}: K2 launched {launches['label_prop']}")
+        want = OPTION_K3_PER_TICK[name] * ticks
+        check(launches["costfield_relax"] == want,
+              f"fleet_modes {name}: K3 launched "
+              f"{launches['costfield_relax']} times, not {want}")
+        check(all(r.startswith("cluster") for v in routes.values()
+                  for r in v), f"fleet_modes {name}: routes {routes}")
+        check(assigned > 0, f"fleet_modes {name}: no robot was assigned")
+        if name == "planned_goals":
+            check(row["valid_waypoints"] > 0,
+                  "fleet_modes: no planned waypoint was valid")
+    emit(out)
+    return out
+
+
+def exploration_kernel_rows(torch, cfg, grid, publisher, planner) -> dict:
+    """K2 and K3 at the exploration path's shapes against their plain
+    versions: the planner's 1024^2 field (1025 sweeps, global route), one
+    exact_bfs field (256^2, 257 sweeps, the call's own mask), and every
+    distinct K2/K3 call the publishes made (crop-span levels, warm 8 and
+    0 sweeps, K2 at the crop's clustering grid)."""
+    import dataclasses
+    from jax_mapping_torch._util import div
+    from jax_mapping_torch.ops import costfield as CF
+    from jax_mapping_torch.ops import frontier as F
+    dist, goal, start = planner
+    calls = {}
+    blk, init, s = _planner_k3_inputs(torch, cfg, grid, goal)
+    calls[f"costfield_relax_planner_n{init.shape[-1]}_s{s}"] = (
+        "relax_sweeps", blk, init, s)
+    # One exact_bfs field: robot 0's cell on the mapper map's clustering
+    # grid, 2 * ceil(512 / 4) + 1 sweeps.
+    fcfg = cfg.frontier
+    c = fcfg.cluster_downsample
+    free, _occ, unknown = F.coarsen(fcfg, cfg.grid, grid)
+    mask = F.frontier_mask(free, unknown)
+    passable, bfs_res = F.bfs_passability(fcfg, cfg.grid, free, unknown,
+                                          mask)
+    ox, oy = cfg.grid.origin_m
+    rc = torch.stack([div(start[1:2] - oy, bfs_res),
+                      div(start[0:1] - ox, bfs_res)], 1).to(torch.int32)
+    got = []
+    F.cost_to_go(dataclasses.replace(fcfg, bfs_iters=-(-fcfg.bfs_iters // c)),
+                 passable, rc, torch.ones(1, dtype=torch.bool,
+                                          device=grid.device),
+                 relax=lambda b, i, s: got.append((b, i, s)) or i)
+    blk, init, s = got[0]
+    calls[f"costfield_relax_exact_bfs_n{init.shape[-1]}_s{s}"] = (
+        "relax_sweeps", blk, init, s)
+    for key, val in sorted(publisher.recorded.items()):
+        calls[key.replace("relax_sweeps", "costfield_relax").replace(
+            "label_sweeps", "label_prop")] = val
+    rows = {}
+    for key, (name, m, init, s) in calls.items():
+        n = init.shape[-1]
+        if name == "relax_sweeps":
+            R = init.shape[0]
+            got, ran = CF.relax_sweeps(m, init, s)
+            want = CF._relax_sweeps_plain(m, init, s)
+            times = _sweep_times(lambda: CF.relax_sweeps(m, init, s),
+                                 lambda: CF._relax_sweeps_plain(m, init, s),
+                                 "relax", s)
+            b = bound(n * n * (1 + 2 * 4 * R), 17 * R * s * n * n)
+            extra = {"fields": R, "reachable_cells": int(
+                (want < CF._BIG).sum())}
+        else:
+            got, ran = F.label_sweeps(m, init, s)
+            want = init
+            for _ in range(s):
+                want = F._neighbor_max_sweep(want, m)
+            times = _sweep_times(lambda: F.label_sweeps(m, init, s),
+                                 lambda: F._label_prop_plain(
+                                     m, init, (s - 1) // 2), "label", s)
+            b = bound(n * n * (1 + 4 + 4), 9 * s * n * n)
+            extra = {"mask_cells": int(m.sum())}
+        rows[key] = dict(compare(got, want), shape=list(init.shape),
+                         sweeps=s, **ran, **times, **b, **extra)
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -2265,16 +2795,22 @@ def main(argv=None) -> int:
         phase_stages(torch, cfg, st, world)
         phase_profile(torch, cfg, st, world, args.seed)
         mapped = phase_refuse(torch, cfg, world, args.seed)
-        mapper = phase_mapper(torch, cfg, args.seed)
+        publisher = _Publisher(torch, cfg)
+        mapper = phase_mapper(torch, cfg, args.seed, on_tick=publisher.tick)
+        phase_publish(torch, cfg, publisher, mapped)
+        _plan, planned = phase_planner(torch, cfg, publisher.grid,
+                                       publisher.poses, publisher.last)
+        phase_fleet_modes(torch, cfg, publisher.grid, args.seed)
         phase_window(torch, cfg)
         vstate = phase_voxel(torch, cfg)
         bench = phase_voxel_bench(torch, cfg)
         phase_voxel_region(torch, cfg, vstate)
         rows = phase_kernels(torch, cfg, world, mapped, args.seed, fleet,
-                             mapper, (vstate, bench, vstate["out"]))
+                             mapper, (vstate, bench, vstate["out"]),
+                             (publisher.grid, publisher, planned))
         voxel_launches = vstate["out"]["launches"]
         voxel_summed_launches = bench["launches"]["voxel_summed"]
-        del mapped, world, st, vstate, bench
+        del mapped, world, st, vstate, bench, publisher, planned
         phase_parity(torch, args.seed)
         phase_slam_parity(torch, args.seed)
         phase_voxel_parity(torch, args.seed)

@@ -1,6 +1,6 @@
 """Configuration for the PyTorch port: the slice of `SlamConfig` that the
-fleet tick, the SLAM step and the voxel path read, with the JAX package's
-field names and defaults.
+fleet tick, the SLAM step, the planner and the voxel path read, with the
+JAX package's field names and defaults.
 
 The dataclasses are frozen, so a config is hashable and can key caches.
 `SlamConfig.from_json` accepts the JSON that the JAX package's
@@ -178,6 +178,27 @@ class FleetConfig:
 
 
 @_frozen
+class PlannerConfig:
+    """Goal-seeded path planning on the first-level coarse grid
+    (`ops/planner.py`): a cost-to-go field seeded at the goal, greedy
+    descent from the robot, and a lookahead waypoint to steer at."""
+
+    enabled: bool = True
+    period_s: float = 1.0             # replan cadence
+    # Descent bound in first-level coarse cells; also the path's length.
+    max_path_len: int = 256
+    lookahead_cells: int = 4          # waypoint distance along the path
+    waypoint_ttl_s: float = 3.0
+    # Goal-seeded field bound: each unit is one doubled min-plus sweep.
+    bfs_iters: int = 512
+    frontier_waypoints: bool = True
+    use_voxel_obstacles: bool = True
+    # Height band (metres above the floor) whose occupied voxels block.
+    voxel_z_min_m: float = 0.05
+    voxel_z_max_m: float = 0.30
+
+
+@_frozen
 class VoxelConfig:
     """3D log-odds voxel grid, laid out (Z, Y, X); update patches span the
     full Z extent, so patch origins are 2D (y0, x0) like the 2D grid's.
@@ -257,14 +278,15 @@ _SECTIONS = {
     "grid": GridConfig, "scan": ScanConfig, "robot": RobotConfig,
     "matcher": MatcherConfig, "loop": LoopClosureConfig,
     "frontier": FrontierConfig, "fleet": FleetConfig,
-    "voxel": VoxelConfig, "depthcam": DepthCamConfig,
+    "planner": PlannerConfig, "voxel": VoxelConfig,
+    "depthcam": DepthCamConfig,
 }
 
 
 @_frozen
 class SlamConfig:
-    """The sections the fleet tick, the SLAM step and the voxel path read,
-    plus the operating mode."""
+    """The sections the fleet tick, the SLAM step, the planner and the
+    voxel path read, plus the operating mode."""
 
     grid: GridConfig = GridConfig()
     scan: ScanConfig = ScanConfig()
@@ -273,6 +295,7 @@ class SlamConfig:
     loop: LoopClosureConfig = LoopClosureConfig()
     frontier: FrontierConfig = FrontierConfig()
     fleet: FleetConfig = FleetConfig()
+    planner: PlannerConfig = PlannerConfig()
     voxel: VoxelConfig = VoxelConfig()
     depthcam: DepthCamConfig = DepthCamConfig()
     mode: str = "mapping"

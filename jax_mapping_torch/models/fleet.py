@@ -252,9 +252,6 @@ def _tick_move(cfg: SlamConfig, state: FleetState, world_res_m: float,
                world: torch.Tensor, wheel_normals=None,
                generator=None) -> _TickMove:
     """Sense, frontier-driven policy, simulated motion."""
-    if cfg.frontier.planned_goals:
-        raise NotImplementedError("FrontierConfig.planned_goals is not "
-                                  "ported yet")
     dt = 1.0 / cfg.robot.control_rate_hz
     n_samples = int(cfg.scan.range_max_m / (world_res_m * 0.5))
     scans = lidar.simulate_scans(cfg.scan, world, world_res_m, n_samples,
@@ -264,6 +261,13 @@ def _tick_move(cfg: SlamConfig, state: FleetState, world_res_m: float,
                              state.est_poses)
     goals = fr.targets[fr.assignment.long().clamp_min(0)]
     goal_valid = fr.assignment >= 0
+    if cfg.frontier.planned_goals:
+        # A waypoint along the min-plus shortest path to the assigned
+        # target replaces the straight-line goal wherever a plan exists.
+        wps, wvalid = F.assigned_waypoints(cfg.frontier, cfg.grid,
+                                           state.grid, state.est_poses,
+                                           fr.targets, fr.assignment)
+        goals = torch.where(wvalid[:, None], wps, goals)
     pol = frontier_policy(cfg.robot, cfg.scan, state.est_poses, goals,
                           goal_valid, scans, prox, state.exploring)
     # step_fleet's own noise fraction, as in the JAX fleet tick (which

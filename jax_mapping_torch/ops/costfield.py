@@ -35,14 +35,29 @@ def _relax_once(d: torch.Tensor, blocked: torch.Tensor) -> torch.Tensor:
     return torch.where(blocked, _BIG, best)
 
 
+def _relax_sweeps_plain(blocked: torch.Tensor, init: torch.Tensor,
+                        n_sweeps: int) -> torch.Tensor:
+    """Plain version of K3: `n_sweeps` sweeps of (..., n, n) fields."""
+    d = init
+    for _ in range(n_sweeps):
+        d = _relax_once(d, blocked)
+    return d
+
+
 def _relax_level_xla(blocked: torch.Tensor, init: torch.Tensor,
                      iters: int) -> torch.Tensor:
     """Plain version of K3: (R, n, n) init -> fields after `iters`
     doubled sweeps."""
-    d = init
-    for _ in range(2 * iters):
-        d = _relax_once(d, blocked)
-    return d
+    return _relax_sweeps_plain(blocked, init, 2 * iters)
+
+
+def sweeps(blocked: torch.Tensor, init: torch.Tensor,
+           n_sweeps: int) -> torch.Tensor:
+    """`n_sweeps` sweeps of (R, n, n) fields (any count, odd included):
+    the plain version on a CPU tensor, kernel K3 on a CUDA tensor."""
+    if init.device.type == "cpu":
+        return _relax_sweeps_plain(blocked, init, n_sweeps)
+    return relax_sweeps(blocked, init, n_sweeps)[0]
 
 
 def relax_level(blocked: torch.Tensor, init: torch.Tensor,
@@ -58,9 +73,7 @@ def relax_level(blocked: torch.Tensor, init: torch.Tensor,
     memory (distributed shared memory): one launch a level. Fields too
     large for 16 CTAs' shared memory (n above about 600) ping-pong two
     global buffers, one launch a sweep."""
-    if init.device.type == "cpu":
-        return _relax_level_xla(blocked, init, iters)
-    return relax_sweeps(blocked, init, 2 * iters)[0]
+    return sweeps(blocked, init, 2 * iters)
 
 
 def relax_sweeps(blocked: torch.Tensor, init: torch.Tensor, n_sweeps: int):

@@ -1,14 +1,18 @@
-"""Frontier detection, clustering and fleet assignment.
+"""Frontier detection, clustering, cost-to-go and fleet assignment.
 
-Port of the JAX package's `ops/frontier.py` for the branches the fleet
-tick runs by default: hierarchical clustering (`cluster_downsample` > 1)
-or single-level, obstacle-aware multigrid costs (`ops/costfield.py`) or
-Euclidean ones. The `exact_bfs`, `decay_aware` and `planned_goals`
-options raise NotImplementedError until a later slice ports them.
+Port of the JAX package's `ops/frontier.py`: hierarchical clustering
+(`cluster_downsample` > 1) or single-level; obstacle-aware costs from
+multigrid fields (`ops/costfield.py`), from one exact min-plus field per
+robot (`exact_bfs`, `cost_to_go`) or Euclidean ones; the decay-aware
+discount (`decay_aware`, `stale_mask`); the crop and warm-start
+arguments the incremental publish uses (`ops/frontier_incremental.py`);
+and the planned steering waypoints (`assigned_waypoints`).
 
 Kernel K2 (`csrc/label_prop.cu`, wrapped by `label_prop`) replaces the
 Pallas kernel `_label_prop_pallas`; `_label_prop_plain` (sweeps of
-`_neighbor_max_sweep`) is its plain PyTorch version.
+`_neighbor_max_sweep`) is its plain PyTorch version. `cost_to_go` runs
+its sweeps on kernel K3 (`costfield.relax_sweeps`) on a CUDA tensor and
+on `costfield._relax_once` on the CPU.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from typing import NamedTuple
 
 import torch
 
-from jax_mapping_torch._util import div, shift2d
+from jax_mapping_torch._util import const, div, shift2d
 from jax_mapping_torch.config import FrontierConfig, GridConfig
 from jax_mapping_torch.ops import _cuda
 from jax_mapping_torch.ops import costfield as CF
@@ -71,6 +75,24 @@ def frontier_mask(free: torch.Tensor, unknown: torch.Tensor) -> torch.Tensor:
     near = (shift2d(unknown, 1, 0, False) | shift2d(unknown, -1, 0, False)
             | shift2d(unknown, 0, 1, False) | shift2d(unknown, 0, -1, False))
     return free & near
+
+
+#: Evidence floor below which a cell counts as never observed: map decay
+#: shrinks log-odds toward 0 but never reaches it.
+_STALE_EPS = 1e-4
+
+
+def stale_mask(cfg: FrontierConfig, grid_cfg: GridConfig,
+               logodds: torch.Tensor) -> torch.Tensor:
+    """Coarse (n, n) bool mask of healed cells: unknown to `coarsen` yet
+    holding residual non-zero log-odds (what decay leaves behind). Fresh
+    unknown space (exact 0.0) never flags."""
+    d = cfg.downsample
+    _check_pool_divisible(logodds, d)
+    blk = _blocks(logodds, d)
+    unknown = ~(blk.amax(dim=(1, 3)) > grid_cfg.occ_threshold) \
+        & ~(blk.amin(dim=(1, 3)) < grid_cfg.free_threshold)
+    return unknown & (blk.abs().amax(dim=(1, 3)) > _STALE_EPS)
 
 
 # ---------------------------------------------------------------------------
@@ -153,10 +175,26 @@ def _top_k(x: torch.Tensor, k: int):
     return vals[:k], idx[:k]
 
 
+def summarize_clusters(cfg: FrontierConfig, grid_cfg: GridConfig,
+                       labels: torch.Tensor, origin_rc=None):
+    """Top-K clusters of `labels` by size -> (centroids (K, 2), targets
+    (K, 2), sizes (K,), slot_of_cell (n, n)); empty slots have size 0
+    and centroid and target at _BIG. `origin_rc` as in `_summarize`."""
+    return _summarize(cfg, grid_cfg, labels, weights=None, scale=1,
+                      origin_rc=origin_rc)[:4]
+
+
 def _summarize(cfg: FrontierConfig, grid_cfg: GridConfig,
-               labels: torch.Tensor, weights, scale: int):
+               labels: torch.Tensor, weights, scale: int, origin_rc=None):
     """Top-K clusters of `labels` -> (centroids, targets, sizes,
     slot_of_cell, rep_rc).
+
+    `origin_rc`: the (row, col) of `labels`' first-level coarse cell
+    [0, 0] in the full coarse grid (a crop), a multiple of `scale`, as
+    ints or an integer tensor. Cell coordinates become global before the
+    world-metre conversion, so a crop's targets and centroids are the
+    full grid's; slot order, tie-breaks and `rep_rc` stay local (cropping
+    keeps row-major order).
 
     Per-slot sums are segment sums, accumulated in float64: they are sums
     of integers, so they are exact in any order and equal the JAX
@@ -181,6 +219,12 @@ def _summarize(cfg: FrontierConfig, grid_cfg: GridConfig,
 
     rows = torch.div(lin, n, rounding_mode="floor")
     cols = lin - rows * n
+    row_off = col_off = 0
+    if origin_rc is not None:
+        row_off = origin_rc[0] // scale
+        col_off = origin_rc[1] // scale
+    rows_g = rows + row_off
+    cols_g = cols + col_off
     slot_of_label = torch.full((n * n,), -1, dtype=torch.int64, device=dev)
     slot_of_label[top_idx] = torch.where(
         slot_valid, torch.arange(K, device=dev), -1)
@@ -190,8 +234,8 @@ def _summarize(cfg: FrontierConfig, grid_cfg: GridConfig,
     wf = torch.where(sel, w, 0).to(torch.float64)
     sums = torch.zeros((3, K), dtype=torch.float64, device=dev)
     sums[0].index_add_(0, seg, wf)
-    sums[1].index_add_(0, seg, wf * rows.to(torch.float64))
-    sums[2].index_add_(0, seg, wf * cols.to(torch.float64))
+    sums[1].index_add_(0, seg, wf * rows_g.to(torch.float64))
+    sums[2].index_add_(0, seg, wf * cols_g.to(torch.float64))
     cnt, sr, sc = sums.to(torch.float32)
     cnt_safe = torch.clamp_min(cnt, 1.0)
     c_row = sr / cnt_safe
@@ -204,8 +248,8 @@ def _summarize(cfg: FrontierConfig, grid_cfg: GridConfig,
     centroids = torch.where(slot_valid[:, None], torch.stack([cx, cy], -1),
                             _BIG)
 
-    rows_f = rows.to(torch.float32)
-    cols_f = cols.to(torch.float32)
+    rows_f = rows_g.to(torch.float32)
+    cols_f = cols_g.to(torch.float32)
     dr = rows_f - c_row[seg]
     dc = cols_f - c_col[seg]
     d2 = dr * dr + dc * dc
@@ -221,8 +265,8 @@ def _summarize(cfg: FrontierConfig, grid_cfg: GridConfig,
     rep_lin = rep_lin.clamp(0, n * n - 1)
     rep_row = torch.div(rep_lin, n, rounding_mode="floor")
     rep_col = rep_lin - rep_row * n
-    tx = (rep_col.to(torch.float32) + 0.5) * res + ox
-    ty = (rep_row.to(torch.float32) + 0.5) * res + oy
+    tx = ((rep_col + col_off).to(torch.float32) + 0.5) * res + ox
+    ty = ((rep_row + row_off).to(torch.float32) + 0.5) * res + oy
     targets = torch.where((slot_valid & has_rep)[:, None],
                           torch.stack([tx, ty], -1), _BIG)
     rep_rc = torch.stack([rep_row, rep_col], -1)
@@ -245,10 +289,11 @@ def _upsample(x: torch.Tensor, c: int) -> torch.Tensor:
 
 
 def _cluster_hierarchical(cfg: FrontierConfig, grid_cfg: GridConfig,
-                          mask: torch.Tensor):
+                          mask: torch.Tensor, origin_rc=None):
     """Components and slots at `cluster_downsample`x coarser resolution,
     weighted by fine frontier-cell counts; each slot's target refined to
-    a real fine frontier cell inside its representative block."""
+    a real fine frontier cell inside its representative block.
+    `origin_rc` as in `_summarize`."""
     c = cfg.cluster_downsample
     mask2 = _pool_any(mask, c)
     w2 = _pool_sum(mask, c)
@@ -256,7 +301,7 @@ def _cluster_hierarchical(cfg: FrontierConfig, grid_cfg: GridConfig,
         cfg, label_prop_iters=max(1, -(-cfg.label_prop_iters // c)))
     labels2 = label_components(cfg_c, mask2)
     centroids, targets2, sizes, slots2, rep_rc = _summarize(
-        cfg, grid_cfg, labels2, weights=w2, scale=c)
+        cfg, grid_cfg, labels2, weights=w2, scale=c, origin_rc=origin_rc)
 
     res1 = grid_cfg.resolution_m * cfg.downsample
     ox, oy = grid_cfg.origin_m
@@ -268,6 +313,9 @@ def _cluster_hierarchical(cfg: FrontierConfig, grid_cfg: GridConfig,
     any_fine = win.any(dim=1)
     fr = rep_rc[:, 0] * c + torch.div(idx, c, rounding_mode="floor")
     fc = rep_rc[:, 1] * c + idx % c
+    if origin_rc is not None:
+        fr = fr + origin_rc[0]
+        fc = fc + origin_rc[1]
     fine = torch.stack([(fc.to(torch.float32) + 0.5) * res1 + ox,
                         (fr.to(torch.float32) + 0.5) * res1 + oy], -1)
     targets = torch.where(any_fine[:, None], fine, targets2)
@@ -276,6 +324,77 @@ def _cluster_hierarchical(cfg: FrontierConfig, grid_cfg: GridConfig,
     labels = torch.where(mask, _upsample(labels2, c), -1)
     slots = torch.where(mask, _upsample(slots2, c), -1)
     return labels, slots, centroids, targets, sizes, rep_rc, mask2
+
+
+# ---------------------------------------------------------------------------
+# Obstacle-aware cost-to-go (min-plus dilation, kernel K3) and descent
+# ---------------------------------------------------------------------------
+
+def _to_int32(x: torch.Tensor) -> torch.Tensor:
+    """float -> int32 truncation that saturates out of range, as XLA's
+    conversion does (PyTorch's CPU conversion wraps _BIG to INT_MIN)."""
+    return x.clamp(-2.0 ** 31, 2147483520.0).to(torch.int32)
+
+
+def cost_to_go(cfg: FrontierConfig, passable: torch.Tensor,
+               seeds_rc: torch.Tensor, seed_valid: torch.Tensor,
+               relax=CF.sweeps) -> torch.Tensor:
+    """(n, n) distance field in coarse cells from the valid seeds
+    (seeds_rc (S, 2)) through passable space: 2 * bfs_iters + 1 sweeps of
+    the 8-neighbour min-plus relaxation. A valid seed's own cell is
+    unblocked, so a seed hugging a wall still radiates.
+
+    `relax` runs the sweeps: by default kernel K3 on a CUDA tensor (one
+    field, this call's own blocked mask) and the plain version on the
+    CPU; `costfield._relax_sweeps_plain` runs the plain version on any
+    device, which is how the card holds the kernel against it."""
+    n = passable.shape[0]
+    rr = seeds_rc[:, 0].clamp(0, n - 1).long()
+    cc = seeds_rc[:, 1].clamp(0, n - 1).long()
+    lin = rr * n + cc
+    dist = torch.full((n * n,), _BIG, device=passable.device)
+    dist = dist.scatter_reduce(0, lin, torch.where(seed_valid, 0.0, _BIG),
+                               reduce="amin", include_self=True)
+    blocked = (~passable).reshape(-1).clone()
+    blocked[lin] = torch.where(seed_valid, False, blocked[lin])
+    blocked = blocked.reshape(n, n)
+    init = torch.where(blocked, _BIG, dist.reshape(n, n))
+    return relax(blocked, init[None], 2 * cfg.bfs_iters + 1)[0]
+
+
+#: 3 x 3 neighbourhood offsets in row-major order: index k of a patch's
+#: argmin is the step D8[k].
+_D8 = ((-1, -1), (-1, 0), (-1, 1), (0, -1), (0, 0), (0, 1),
+       (1, -1), (1, 0), (1, 1))
+D8 = torch.tensor(_D8, dtype=torch.int32)
+
+
+def _patch3(padded: torch.Tensor, rc: torch.Tensor) -> torch.Tensor:
+    """The 3 x 3 patch of a field padded by 1 whose corner is rc, read
+    by tensor indices (no host sync): (n + 2, n + 2) with rc (2,) gives
+    (3, 3); (B, n + 2, n + 2) with rc (B, 2) gives (B, 3, 3)."""
+    ar = const((0, 1, 2), padded.device, torch.int64)
+    r = rc[..., 0:1, None].long() + ar[:, None]
+    c = rc[..., 1:2, None].long() + ar[None, :]
+    if padded.dim() == 2:
+        return padded[r, c]
+    b = torch.arange(padded.shape[0], device=padded.device)[:, None, None]
+    return padded[b, r, c]
+
+
+def descent_step(padded_field: torch.Tensor, rc: torch.Tensor,
+                 n: int) -> torch.Tensor:
+    """One greedy descent step: to the argmin of rc's 3 x 3 neighbourhood
+    in a field padded by 1 with _BIG, clipped into [0, n - 1]. The first
+    minimum wins a tie, as in jnp.argmin, so at the goal (the field's
+    minimum) the centre holds. Shared by the planner's descent and the
+    fleet's waypoints; batched over a leading axis of both arguments."""
+    patch = _patch3(padded_field, rc).flatten(-2)
+    # keepdim: a 0-d index would be read on the host (a sync a step).
+    k = torch.argmin(patch, dim=-1, keepdim=True)
+    step = const(sum(_D8, ()), padded_field.device,
+                 torch.int32).reshape(9, 2)[k].squeeze(-2)
+    return (rc.to(torch.int32) + step).clamp(0, n - 1)
 
 
 # ---------------------------------------------------------------------------
@@ -317,22 +436,40 @@ def bfs_passability(cfg: FrontierConfig, grid_cfg: GridConfig,
 def compute_frontiers(cfg: FrontierConfig, grid_cfg: GridConfig,
                       logodds: torch.Tensor,
                       robot_poses: torch.Tensor) -> FrontierResult:
-    """(N, N) log-odds + (R, 3) poses -> frontiers, clusters, assignment."""
-    if cfg.decay_aware:
-        raise NotImplementedError("FrontierConfig.decay_aware is not "
-                                  "ported yet")
+    """(N, N) log-odds + (R, 3) poses -> frontiers, clusters, assignment.
+    With `decay_aware` the stale mask comes from the raw log-odds (the
+    masks alone cannot tell healed from fresh unknown)."""
     free, _occ, unknown = coarsen(cfg, grid_cfg, logodds)
+    stale = stale_mask(cfg, grid_cfg, logodds) if cfg.decay_aware else None
     return compute_frontiers_from_masks(cfg, grid_cfg, free, unknown,
-                                        robot_poses)
+                                        robot_poses, stale=stale)
 
 
 def compute_frontiers_from_masks(cfg: FrontierConfig, grid_cfg: GridConfig,
                                  free: torch.Tensor, unknown: torch.Tensor,
-                                 robot_poses: torch.Tensor) -> FrontierResult:
-    """Mask-level entry point (no crop, no warm start)."""
-    if cfg.obstacle_aware and cfg.exact_bfs:
-        raise NotImplementedError("FrontierConfig.exact_bfs is not ported "
-                                  "yet")
+                                 robot_poses: torch.Tensor, origin_rc=None,
+                                 warm_fields=None,
+                                 warm_iters: int | None = None,
+                                 return_fields: bool = False,
+                                 stale=None):
+    """Mask-level entry point.
+
+    origin_rc: the masks are a crop whose [0, 0] is this first-level
+    coarse cell of the full grid (ints or an integer tensor, a multiple of
+    cluster_downsample); targets and centroids come out global, masks,
+    labels and slots crop-shaped.
+    warm_fields: (R, n_bfs, n_bfs) previous cost fields, relaxed from an
+    offset warm start (`costfield.warm_cost_fields`) instead of the
+    multigrid solve; valid only while no blocked cell appeared since.
+    warm_iters: that relaxation's doubled sweeps (None: warm_extra_iters;
+    0: re-mask and re-seed only, exact when the blocked mask and every
+    seed cell are unchanged).
+    return_fields: return (result, fields or None, BFS blocked mask).
+    stale: (n, n) bool healed mask (`stale_mask`); with `decay_aware`
+    each slot's finite cost is scaled by 1 - stale_bonus x the stale
+    share of its target's 3 x 3 clustering-cell neighbourhood.
+    With every argument at its default this is the plain full-grid
+    computation."""
     mask = frontier_mask(free, unknown)
     c = cfg.cluster_downsample
     res = grid_cfg.resolution_m * cfg.downsample
@@ -343,30 +480,129 @@ def compute_frontiers_from_masks(cfg: FrontierConfig, grid_cfg: GridConfig,
     if c == 1:
         labels = label_components(cfg, mask)
         centroids, targets, sizes, slots, _ = _summarize(
-            cfg, grid_cfg, labels, weights=None, scale=1)
-        tgt_r = div(targets[:, 1] - oy, res).to(torch.int32).clamp(0, n - 1)
-        tgt_c = div(targets[:, 0] - ox, res).to(torch.int32).clamp(0, n - 1)
+            cfg, grid_cfg, labels, weights=None, scale=1,
+            origin_rc=origin_rc)
+        tgt_r = _to_int32(div(targets[:, 1] - oy, res))
+        tgt_c = _to_int32(div(targets[:, 0] - ox, res))
+        if origin_rc is not None:
+            tgt_r = tgt_r - origin_rc[0]
+            tgt_c = tgt_c - origin_rc[1]
+        tgt_r = tgt_r.clamp(0, n - 1)
+        tgt_c = tgt_c.clamp(0, n - 1)
         bfs_scale = 1.0
     else:
         labels, slots, centroids, targets, sizes, rep_rc, _ = \
-            _cluster_hierarchical(cfg, grid_cfg, mask)
+            _cluster_hierarchical(cfg, grid_cfg, mask, origin_rc=origin_rc)
         tgt_r, tgt_c = rep_rc[:, 0], rep_rc[:, 1]
         bfs_scale = float(c)
+    tgt_r, tgt_c = tgt_r.long(), tgt_c.long()
 
+    def to_bfs_rc(y, x):
+        rr = div(y, bfs_res).to(torch.int32)
+        cc = div(x, bfs_res).to(torch.int32)
+        if origin_rc is not None:
+            rr = rr - origin_rc[0] // c
+            cc = cc - origin_rc[1] // c
+        return rr, cc
+
+    fields = None
     if cfg.obstacle_aware:
-        rr = div(robot_poses[:, 1] - oy, bfs_res).to(torch.int32)
-        cc = div(robot_poses[:, 0] - ox, bfs_res).to(torch.int32)
-        fields = CF.cost_fields(~bfs_passable, torch.stack([rr, cc], dim=1),
-                                cfg.mg_levels, cfg.mg_refine_iters)
-        costs = fields[:, tgt_r.long(), tgt_c.long()] * bfs_scale
+        rr, cc = to_bfs_rc(robot_poses[:, 1] - oy, robot_poses[:, 0] - ox)
+        if cfg.exact_bfs:
+            # One K3 call per robot: each field unblocks its own seed.
+            bfs_cfg = (cfg if c == 1 else dataclasses.replace(
+                cfg, bfs_iters=max(1, -(-cfg.bfs_iters // c))))
+            valid = torch.ones(1, dtype=torch.bool, device=free.device)
+            costs = torch.stack([
+                cost_to_go(bfs_cfg, bfs_passable,
+                           torch.stack([rr[r], cc[r]])[None], valid
+                           )[tgt_r, tgt_c] * bfs_scale
+                for r in range(robot_poses.shape[0])])
+        else:
+            robot_rc = torch.stack([rr, cc], dim=1)
+            if warm_fields is not None:
+                fields = CF.warm_cost_fields(
+                    ~bfs_passable, robot_rc, warm_fields,
+                    cfg.warm_extra_iters if warm_iters is None
+                    else warm_iters)
+            else:
+                fields = CF.cost_fields(~bfs_passable, robot_rc,
+                                        cfg.mg_levels, cfg.mg_refine_iters)
+            costs = fields[:, tgt_r, tgt_c] * bfs_scale
         costs = torch.clamp_max(costs, _BIG)
     else:
         diff = targets[None, :, :] - robot_poses[:, None, :2]
         costs = div(torch.linalg.vector_norm(diff, dim=-1), res)
         costs = torch.where(torch.isfinite(costs), costs, _BIG)
         costs = torch.clamp_max(costs, _BIG)
+    if cfg.decay_aware and stale is not None:
+        sb = (_pool_sum(stale, c).to(torch.float32) / float(c * c)
+              if c > 1 else stale.to(torch.float32))
+        padded = torch.nn.functional.pad(sb, (1, 1, 1, 1))
+        frac = _patch3(padded, torch.stack([tgt_r, tgt_c], 1)
+                       ).sum(dim=(1, 2)) / 9.0
+        bonus = frac.new_full((), cfg.stale_bonus)
+        scale = (1.0 - bonus * frac.clamp(0.0, 1.0))[None, :]
+        # Only finite costs discount: a scaled _BIG would pass the
+        # auction's `< _BIG` gate.
+        costs = torch.where(costs < _BIG, costs * scale, costs)
     costs = torch.where((sizes > 0)[None, :], costs, _BIG)
     assignment = assign_frontiers(costs)
-    return FrontierResult(mask=mask, labels=labels, slots=slots,
-                          centroids=centroids, targets=targets, sizes=sizes,
-                          assignment=assignment, costs=costs)
+    result = FrontierResult(mask=mask, labels=labels, slots=slots,
+                            centroids=centroids, targets=targets,
+                            sizes=sizes, assignment=assignment, costs=costs)
+    if return_fields:
+        return result, fields, ~bfs_passable
+    return result
+
+
+# ---------------------------------------------------------------------------
+# Planned steering waypoints (FrontierConfig.planned_goals)
+# ---------------------------------------------------------------------------
+
+def assigned_waypoints_from_masks(cfg: FrontierConfig, grid_cfg: GridConfig,
+                                  free: torch.Tensor, unknown: torch.Tensor,
+                                  robot_poses: torch.Tensor,
+                                  targets: torch.Tensor,
+                                  assignment: torch.Tensor):
+    """Per-robot steering waypoints toward the assigned targets: one
+    multigrid cost field per robot seeded at its target's cell (K3, the
+    passability the assignment used), descended `waypoint_lookahead`
+    steps from the robot's cell. Returns (waypoints_xy (R, 2), valid
+    (R,)); invalid where unassigned, unreachable or not moved."""
+    mask = frontier_mask(free, unknown)
+    ox, oy = grid_cfg.origin_m
+    bfs_passable, bfs_res = bfs_passability(cfg, grid_cfg, free, unknown,
+                                            mask)
+    n2 = bfs_passable.shape[0]
+
+    def to_rc(xy):
+        return torch.stack(
+            [_to_int32(div(xy[:, 1] - oy, bfs_res)).clamp(0, n2 - 1),
+             _to_int32(div(xy[:, 0] - ox, bfs_res)).clamp(0, n2 - 1)], 1)
+
+    t_xy = targets[assignment.long().clamp_min(0)]
+    seeds_rc = to_rc(t_xy)
+    robot_rc = to_rc(robot_poses[:, :2])
+    fields = CF.cost_fields(~bfs_passable, seeds_rc, cfg.mg_levels,
+                            cfg.mg_refine_iters)            # (R, n2, n2)
+    padded = torch.nn.functional.pad(fields, (1, 1, 1, 1), value=_BIG)
+    rc = robot_rc
+    for _ in range(cfg.waypoint_lookahead):
+        rc = descent_step(padded, rc, n2)
+    start_min = _patch3(padded, robot_rc).amin(dim=(1, 2))
+    wp_xy = torch.stack([(rc[:, 1].to(torch.float32) + 0.5) * bfs_res + ox,
+                         (rc[:, 0].to(torch.float32) + 0.5) * bfs_res + oy],
+                        1)
+    moved = (rc != robot_rc).any(dim=1)
+    valid = (assignment >= 0) & (start_min < _BIG) & moved
+    return wp_xy, valid
+
+
+def assigned_waypoints(cfg: FrontierConfig, grid_cfg: GridConfig,
+                       logodds: torch.Tensor, robot_poses: torch.Tensor,
+                       targets: torch.Tensor, assignment: torch.Tensor):
+    """`assigned_waypoints_from_masks` from a raw log-odds grid."""
+    free, _occ, unknown = coarsen(cfg, grid_cfg, logodds)
+    return assigned_waypoints_from_masks(cfg, grid_cfg, free, unknown,
+                                         robot_poses, targets, assignment)

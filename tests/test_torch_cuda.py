@@ -26,6 +26,7 @@ mirror in tests/test_torch_frontier_sweeps.py.
 import dataclasses
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -38,6 +39,7 @@ from jax_mapping_torch.models import slam as S
 from jax_mapping_torch.ops import frontier as F
 from jax_mapping_torch.ops import fuse_kernel as FK
 from jax_mapping_torch.ops import grid as G
+from jax_mapping_torch.ops import planner as P
 from jax_mapping_torch.ops import sensor_kernel as SK
 from jax_mapping_torch.ops import voxel as V
 from jax_mapping_torch.ops import voxel_kernel as VK
@@ -611,3 +613,135 @@ def test_voxel_drive_on_card_equals_cpu(dev):
     assert _cuda.LAUNCHES["voxel_image"] == before + 6
     assert (g_dev.cpu() != g_cpu).float().mean() <= 1e-4
     assert int((g_cpu > vox.occ_threshold).sum()) > 0
+
+
+# ---------------------------------------------------------------------------
+# K3 and K2 on the exploration-planning path: cost_to_go, the planner's
+# field, the incremental publish
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("seed_blocked", [False, True])
+@pytest.mark.parametrize("n,bfs_iters", [(256, 128), (64, 128), (48, 24),
+                                         (1024, 16)])
+def test_cost_to_go_equals_plain(dev, n, bfs_iters, seed_blocked):
+    """K3 through `cost_to_go`: one field with the call's own blocked mask
+    (its seed unblocked), 2 * bfs_iters + 1 sweeps (257 at the exact_bfs
+    fleet's 256^2) along the maze's corridor; a seed inside a blocked cell
+    radiates too."""
+    blocked = KI.corridor_maze(n, seed=n)
+    open_rc = torch.nonzero(torch.as_tensor(~blocked))
+    r, c = (int(v) for v in open_rc[len(open_rc) // 3])
+    if seed_blocked:
+        c = c + 1 if blocked[r, c + 1] else c - 1    # the wall beside it
+        assert blocked[r, c]
+    passable = torch.as_tensor(~blocked).to(dev)
+    cfg = dataclasses.replace(SlamConfig().frontier, bfs_iters=bfs_iters)
+    rc = torch.tensor([[r, c]], dtype=torch.int32, device=dev)
+    valid = torch.ones(1, dtype=torch.bool, device=dev)
+    _cuda.reset_launches()
+    got = F.cost_to_go(cfg, passable, rc, valid)
+    _check_launches("costfield_relax", 2 * bfs_iters + 1, n)
+    want = F.cost_to_go(cfg, passable, rc, valid,
+                        relax=CF._relax_sweeps_plain)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), int((got != want).sum())
+    assert float(got[r, c]) == 0.0
+    assert int((got < CF._BIG).sum()) > 2 * bfs_iters
+
+
+def _rooms_logodds(cfg, dev):
+    """The default grid over rooms_world(seed=1): walls occupied, the rest
+    free, a band along the west edge unknown."""
+    n = cfg.grid.size_cells
+    world = torch.as_tensor(W.rooms_world(n, cfg.grid.resolution_m, seed=1))
+    lo = torch.where(world, 3.0, -1.0)
+    lo[:, : n // 8] = 0.0
+    return lo.to(dev)
+
+
+def test_goal_field_global_route_equals_plain(dev):
+    """The planner's field at the default config: the 4096^2 map coarsened
+    to 1024^2, 2 * 512 + 1 = 1025 sweeps of K3 on the global route (one
+    launch a sweep), equal to the plain sweeps on goal_field's own
+    inputs; then a plan from behind the wall at x = -34.85 m (its door
+    is at y = 2.15 m) reaches the goal through the door."""
+    cfg = SlamConfig()
+    lo = _rooms_logodds(cfg, dev)
+    goal = torch.tensor([-29.0, -6.0], device=dev)
+    _cuda.reset_launches()
+    got = P.goal_field(cfg.planner, cfg.frontier, cfg.grid, lo, goal)
+    assert _cuda.LAUNCHES["costfield_relax"] == 1025
+    assert _cuda.ROUTES["costfield_relax"] == {"global": 1025}
+    free, _occ, unknown = F.coarsen(cfg.frontier, cfg.grid, lo)
+    passable = free | F.frontier_mask(free, unknown) | unknown
+    n = passable.shape[0]
+    res = cfg.grid.resolution_m * cfg.frontier.downsample
+    goal_rc = P._world_to_cell(cfg.grid, res, goal, n)
+    want = F.cost_to_go(
+        dataclasses.replace(cfg.frontier, bfs_iters=cfg.planner.bfs_iters),
+        passable, goal_rc[None], torch.ones(1, dtype=torch.bool, device=dev),
+        relax=CF._relax_sweeps_plain)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), int((got != want).sum())
+    plan = P.descend_field(cfg.planner, cfg.frontier, cfg.grid, got, goal,
+                           torch.tensor([-40.0, -6.0], device=dev))
+    assert bool(plan.reachable) and int(plan.n_steps) > 0
+    path = plan.path_xy[plan.path_valid]
+    assert float(path[:, 1].max()) > 2.0              # through the door
+    assert float(torch.dist(path[-1], goal)) <= 0.3
+
+
+def test_plan_on_card_equals_cpu(dev):
+    """`plan_to_goal` on the walled tiny map (torch_kernel_inputs) on the
+    card and on the CPU: every output equal."""
+    cfg = tiny_config()
+    lo, _sealed, pts = KI.walled_map(cfg)
+    pcfg = dataclasses.replace(cfg.planner, bfs_iters=256)
+    args = (pcfg, cfg.frontier, cfg.grid)
+    want = P.plan_to_goal(*args, torch.as_tensor(lo),
+                          torch.as_tensor(pts["goal"]),
+                          torch.as_tensor(pts["start"]))
+    got = P.plan_to_goal(*args, torch.as_tensor(lo).to(dev),
+                         torch.as_tensor(pts["goal"]).to(dev),
+                         torch.as_tensor(pts["start"]).to(dev))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert bool(want.reachable) and int(want.n_steps) > 0
+
+
+@pytest.mark.parametrize("name", ["mg0", "exact0", "euclid0", "decay2"])
+def test_incremental_publish_on_card_equals_cpu(dev, name):
+    """The incremental publish of a seeded mission (torch_kernel_inputs)
+    on the card and on the CPU: every publish and status counter equal,
+    K2 and K3 on the card; sizes, targets and assignment equal the card's
+    full recompute. Costs are exact min-plus fields (times the decay
+    discount, one IEEE multiply on both devices), but Euclidean costs
+    come from `torch.linalg.vector_norm`, whose CUDA and CPU reductions
+    may round differently: 1e-6 relative there, as against JAX."""
+    from jax_mapping_torch.ops.frontier_incremental import \
+        IncrementalFrontierPipeline
+    fcfg = KI.mission_frontier(**KI.MISSIONS[name][0])
+    g = KI.mission_grid(512)
+    card = IncrementalFrontierPipeline(fcfg, g, KI.MISSION_TILE, device=dev)
+    cpu = IncrementalFrontierPipeline(fcfg, g, KI.MISSION_TILE, device="cpu")
+    _cuda.reset_launches()
+    for lo, poses, tile_rev, rev in KI.mission_steps(name):
+        a = card.compute(lo, poses, tile_rev, rev)
+        b = cpu.compute(lo, poses, tile_rev, rev)
+        for f in ("targets", "sizes", "assignment", "crop_rc",
+                  "recomputed"):
+            assert np.array_equal(getattr(a, f), getattr(b, f)), f
+        if name.startswith("euclid"):
+            np.testing.assert_allclose(a.costs, b.costs, rtol=1e-6, atol=0)
+        else:
+            assert np.array_equal(a.costs, b.costs)
+        full = F.compute_frontiers(fcfg, g, torch.as_tensor(lo).to(dev),
+                                   torch.as_tensor(poses).to(dev))
+        for f in ("targets", "sizes", "assignment"):
+            assert np.array_equal(getattr(a, f), getattr(full, f).cpu()), f
+    sa, sb = card.status(), cpu.status()
+    sa.pop("last_recompute_ms"), sb.pop("last_recompute_ms")
+    assert sa == sb
+    assert _cuda.LAUNCHES["label_prop"] > 0
+    if name != "euclid0":
+        assert _cuda.LAUNCHES["costfield_relax"] > 0

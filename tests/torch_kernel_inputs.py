@@ -4,8 +4,12 @@ The frontier sweeps' inputs (K2, K3): paths longer than the sweep count
 that cross every row slab of the kernels' cluster decomposition
 (tests/test_torch_frontier_sweeps.py). The voxel cull's edge cases (K6,
 K7): poses at the edges of the (tile, image) cull and the z interval
-(tests/test_torch_voxel_tiles.py). Plain numpy and PyTorch; no pytest and
-no JAX, so chip_smoke.py can import it on the card's machine.
+(tests/test_torch_voxel_tiles.py). The exploration path's inputs: the
+incremental publish's seeded missions
+(tests/test_torch_frontier_incremental.py) and the planner's walled map
+(tests/test_torch_planner.py). Plain numpy and PyTorch; no pytest and no
+JAX, so chip_smoke.py and the card tests can import it on the card's
+machine.
 """
 
 import math
@@ -13,6 +17,7 @@ import math
 import numpy as np
 import torch
 
+from jax_mapping_torch.config import FrontierConfig, GridConfig
 from jax_mapping_torch.ops import voxel as V
 from jax_mapping_torch.ops import voxel_kernel as VK
 
@@ -174,3 +179,144 @@ def cameras_around_region(cfg, y0, ny, nx, B, seed):
         (y0 + rng.uniform(-10, ny + 10, B)) * res + oy,
         rng.uniform(-math.pi, math.pi, B)], 1), dtype=torch.float32)
     return voxel_depths(cfg, B, rng), poses
+
+
+# ---------------------------------------------------------------------------
+# The exploration path: incremental-publish missions, the planner's map
+# ---------------------------------------------------------------------------
+
+#: The incremental publish missions' tile (cells).
+MISSION_TILE = 64
+
+
+def mission_grid(size=512):
+    """The missions' grid: 512^2 cells at 0.05 m, tile 64."""
+    return GridConfig(size_cells=size, patch_cells=64, max_range_m=2.0,
+                      align_rows=8, align_cols=8)
+
+
+#: The missions' FrontierConfig fields (JAX's tests/test_frontier_incremental
+#: `_fcfg`).
+MISSION_FRONTIER = dict(downsample=2, max_clusters=8, min_cluster_cells=2,
+                        label_prop_iters=64, bfs_iters=256, crop_pad=8)
+
+
+def mission_frontier(**kw):
+    """The missions' FrontierConfig with `kw` overridden."""
+    return FrontierConfig(**{**MISSION_FRONTIER, **kw})
+
+
+class WorldSim:
+    """Seeded random mission: free-space carves, occasional walls, robot
+    pose walks; every mutation marks its tiles' revisions."""
+
+    def __init__(self, gcfg, seed, n_robots=3, walls=True):
+        self.g = gcfg
+        self.rng = np.random.default_rng(seed)
+        n = gcfg.size_cells
+        self.nt = n // MISSION_TILE
+        self.lo = np.zeros((n, n), np.float32)
+        self.tile_rev = np.zeros((self.nt, self.nt), np.int64)
+        self.rev = 0
+        self.walls = walls
+        self._carve(40, 40, 60, walls=False)
+        res = gcfg.resolution_m
+        ox, oy = gcfg.origin_m
+        self.poses = np.stack([
+            np.array([ox + self.rng.uniform(45, 95) * res,
+                      oy + self.rng.uniform(45, 95) * res,
+                      0.0], np.float32)
+            for _ in range(n_robots)])
+
+    def _mark(self, r, c, h, w):
+        self.rev += 1
+        t = MISSION_TILE
+        t0r, t1r = r // t, min(self.nt - 1, (r + h) // t)
+        t0c, t1c = c // t, min(self.nt - 1, (c + w) // t)
+        self.tile_rev[t0r:t1r + 1, t0c:t1c + 1] = self.rev
+
+    def _carve(self, r, c, size, walls):
+        n = self.g.size_cells
+        r, c = min(r, n - size - 1), min(c, n - size - 1)
+        self.lo[r:r + size, c:c + size] = -2.0
+        if walls and self.rng.random() < 0.6:
+            wr = r + int(self.rng.integers(2, size - 4))
+            self.lo[wr:wr + 2, c:c + int(0.7 * size)] = 2.0
+        self._mark(r, c, size, size)
+
+    def step(self, grow=True):
+        """One mission step: maybe carve near the frontier, walk robots."""
+        if grow and self.rng.random() < 0.8:
+            free = np.argwhere(self.lo < 0)
+            base = free[self.rng.integers(len(free))]
+            jitter = self.rng.integers(-20, 30, 2)
+            r = int(np.clip(base[0] + jitter[0], 2,
+                            self.g.size_cells - 30))
+            c = int(np.clip(base[1] + jitter[1], 2,
+                            self.g.size_cells - 30))
+            self._carve(r, c, int(self.rng.integers(12, 26)),
+                        walls=self.walls)
+        self.poses[:, :2] += self.rng.normal(
+            0, 0.08, self.poses[:, :2].shape).astype(np.float32)
+
+    def snapshot(self):
+        return (self.lo.copy(), self.poses.copy(), self.tile_rev.copy(),
+                self.rev)
+
+
+#: name -> (FrontierConfig overrides, seed, walls). "decay" decays the map
+#: after four steps (every cell's log-odds x 0.2, every tile marked).
+MISSIONS = {
+    "mg0": (dict(), 0, False),
+    "mg1": (dict(), 1, False),
+    "exact0": (dict(exact_bfs=True), 0, True),
+    "euclid0": (dict(obstacle_aware=False), 0, True),
+    "decay2": (dict(decay_aware=True, stale_bonus=0.3), 2, True),
+}
+
+
+def mission_steps(name):
+    """The mission's publish inputs, one (lo, poses, tile_rev, rev) a
+    step: ten steps, every third holding the world still; the decay
+    mission's four steps, the decay pass and two more."""
+    _kw, seed, walls = MISSIONS[name]
+    g = mission_grid(512)
+    sim = WorldSim(g, seed=seed, walls=walls)
+    steps = []
+    if name.startswith("decay"):
+        for step in range(4):
+            if step:
+                sim.step(grow=True)
+            steps.append(sim.snapshot())
+        sim.lo *= 0.2
+        sim._mark(0, 0, g.size_cells, g.size_cells)
+        steps.append(sim.snapshot())
+        for _ in range(2):
+            sim.step(grow=True)
+            steps.append(sim.snapshot())
+        return steps
+    for step in range(10):
+        if step:
+            sim.step(grow=(step % 3 != 0))
+        steps.append(sim.snapshot())
+    return steps
+
+def walled_map(cfg):
+    """The planner's walled map at `cfg` (tests/test_planner.py): a
+    vertical wall with one gap near the top; start left of it and goal
+    right of it, both near the bottom. Returns (log-odds, the same with
+    the gap sealed, {"start": xy, "goal": xy})."""
+    g, f = cfg.grid, cfg.frontier
+    n = g.size_cells
+    lo = np.full((n, n), -1.0, np.float32)
+    mid = n // 2
+    lo[:, mid - 2:mid + 2] = 3.0
+    lo[n - 40:n - 20, mid - 2:mid + 2] = -1.0
+    sealed = lo.copy()
+    sealed[:, mid - 2:mid + 2] = 3.0
+    res = g.resolution_m * f.downsample
+    ox, oy = g.origin_m
+    start = np.array([ox + 10 * res, oy + 10 * res], np.float32)
+    goal = np.array([ox + (n // f.downsample - 10) * res, oy + 10 * res],
+                    np.float32)
+    return lo, sealed, {"start": start, "goal": goal}
