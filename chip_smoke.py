@@ -62,6 +62,28 @@ Phases, each printed as one JSON line:
            decayed x 0.5) and exact_bfs on in turn, 10 ticks each, 8
            robots where the mapper drive starts them, its map as their
            map: tick p50/p90, host syncs, K2/K3 launches by route
+  recovery the recovery path for one robot, on the mapper drive's
+           scans fused at their true poses: `slam_step` a scan on a
+           1.2 m circle round robot 0's circle centre, the divergence
+           watchdog fed as MapperNode feeds it, ghost returns on half
+           the live beams at steps 15-29; from the declaration on, each
+           step is quarantined and calls `Relocalizer.attempt_for`
+           through the pyramid cache (per-256^2-tile revisions); a
+           verified pose restarts the chain. Checks: declared inside the
+           fault window, re-admitted after it, the final pose within
+           0.1 m / 0.05 rad. Attempt ms by cache hit and miss, host syncs
+           and K1 launches an attempt, the match alone (pruned hit /
+           miss, unpruned), a wide basin (1.0 m, 0.3 rad off)
+  rendezvous  fleet A: 4 robots of the mapper drive on one grid until
+           each has 3 graph poses; fleet B: A's robots 0 and 1 in a frame
+           moved by a known transform. `RendezvousMerger.poll` on
+           stand-in mappers until it merges (the transform within 0.1 m
+           / 0.02 rad), `merge_fleets` alone (ms, K1 launches), one
+           `merged_frontier_assignment`
+  fuse_paths  `fuse_scans_bucketed` at 37, 100, 200 scans and
+           `fuse_scans_touched` at 64, each grid bit-equal to
+           `fuse_scans_masked` / `fuse_scans`, the touched tiles to a
+           host recomputation
   window   the bench's window workload: 256 scans on a 0.4 m loop into
            the 4096^2 grid through `fuse_scans_window` (K5), and 1024
            scans (K4 subtotals of 512, then one apply)
@@ -86,10 +108,16 @@ Phases, each printed as one JSON line:
            K7's window and K7 over the whole grid. K2 and K3 at the
            exploration path's shapes: the planner's field, one exact_bfs
            field (256^2 x 257 sweeps), every distinct K2/K3 call of the
-           publishes (crop-span levels, warm 8 and 0 sweeps)
+           publishes (crop-span levels, warm 8 and 0 sweeps). K1 at
+           the recovery path's own batches (deltas 48, the bucket of 37;
+           the relocalizer's wide stage on the 0.2 m view, rasters 21 and
+           529), and every K1 row with its launches on the recovery,
+           rendezvous and fuse_paths phases
   parity   a tiny mission, each tick run on the card and on the CPU from
            the same state with the same wheel noise; then with each
-           frontier option on (the assignment must agree exactly)
+           frontier option on (the assignment must agree exactly); one
+           relocalization streak and one merge (tiny_config), card
+           against CPU
   slam_parity  a tiny single robot, window and single steps, each run on
            the card and on the CPU from the same state
   voxel    slice 3's main path, the voxel mapper's device work: 8 robots
@@ -389,12 +417,17 @@ class VerifyCount:
 
 
 class BatchCount:
-    """Counts K1's launches by mode and scan count B while the context is
-    open, from the calls of its wrappers on CUDA tensors (each such call
-    with B > 0 launches the kernel once)."""
+    """Counts K1's launches by mode and batch while the context is open,
+    from the calls of its wrappers on CUDA tensors (each such call with
+    B > 0 launches the kernel once). A batch is keyed by its scan count B;
+    a call on another grid than `base` (loop verification's and the
+    relocalizer's coarse view) is keyed "B@<resolution>m"."""
 
     NAMES = {"scan_deltas": "sensor_model_delta",
              "scan_rasters": "sensor_model_raster"}
+
+    def __init__(self, base=None):
+        self.base = base
 
     def __enter__(self):
         from jax_mapping_torch.ops import sensor_kernel as SK
@@ -404,12 +437,13 @@ class BatchCount:
             setattr(SK, f, self._counted(self.orig[f], self.n[name]))
         return self
 
-    @staticmethod
-    def _counted(fn, counts):
+    def _counted(self, fn, counts):
         def counted(grid_cfg, scan_cfg, ranges_b, *args):
             B = ranges_b.shape[0]
             if ranges_b.device.type == "cuda" and B > 0:
-                counts[B] = counts.get(B, 0) + 1
+                key = (str(B) if self.base is None or grid_cfg == self.base
+                       else f"{B}@{grid_cfg.resolution_m:g}m")
+                counts[key] = counts.get(key, 0) + 1
             return fn(grid_cfg, scan_cfg, ranges_b, *args)
         return counted
 
@@ -418,7 +452,7 @@ class BatchCount:
             setattr(self.sk, f, fn)
 
     def per_tick(self, ticks: int) -> dict:
-        return {name: {str(b): c / ticks for b, c in sorted(n.items())}
+        return {name: {b: c / ticks for b, c in sorted(n.items())}
                 for name, n in self.n.items()}
 
 
@@ -451,7 +485,7 @@ def phase_fleet(torch, cfg, world, ticks: int, seed: int):
     torch.cuda.synchronize()
     _cuda.reset_launches()
     tick_ms, verifies, keys, closed, syncs = [], [], 0, 0, []
-    with VerifyCount() as vc, BatchCount() as bc:
+    with VerifyCount() as vc, BatchCount(cfg.grid) as bc:
         for i in range(ticks):
             n0 = vc.n
             t0 = time.perf_counter()
@@ -711,11 +745,15 @@ def phase_profile(torch, cfg, st, world, seed: int, ticks: int = 3):
 
 
 def phase_kernels(torch, cfg, world, mapped, seed: int, fleet: dict,
-                  mapper: dict, voxel: tuple, explore: tuple):
+                  mapper: dict, voxel: tuple, explore: tuple,
+                  new_paths: dict):
     """Each kernel against its plain version at the main path's shapes.
     The scans are taken near walls and the frontier comes from `mapped`,
     the re-fused map, so that every kernel sees non-trivial input; the
-    voxel kernels take the voxel phases' images (`voxel`: their states)."""
+    voxel kernels take the voxel phases' images (`voxel`: their states).
+    Every K1 row also carries its batch's launches on the recovery path's
+    phases (`new_paths`), and the batches only those paths launch get rows
+    of their own."""
     from jax_mapping_torch.ops import costfield as CF
     from jax_mapping_torch.ops import frontier as F
     from jax_mapping_torch.ops import grid as G
@@ -739,7 +777,8 @@ def phase_kernels(torch, cfg, world, mapped, seed: int, fleet: dict,
         ranges = lidar.simulate_scans(cfg.scan, world, res, n_samples, poses)
         origins = G.patch_origin(cfg.grid, poses[:, :2]).contiguous()
         rows["sensor_model_delta" + ("" if B == 64 else f"_b{B}")] = \
-            _k1_row(torch, cfg, False, ranges, poses, origins, fleet, mapper)
+            _k1_row(torch, cfg, False, ranges, poses, origins, fleet, mapper,
+                    new_paths=new_paths)
     n_r = cfg.fleet.n_robots
     for name, R, stage in (("sensor_model_raster", n_r, "coarse"),
                            ("sensor_model_raster_b392", n_r, "subcell"),
@@ -747,7 +786,10 @@ def phase_kernels(torch, cfg, world, mapped, seed: int, fleet: dict,
                            ("sensor_model_raster_b49", 1, "subcell")):
         r_b, p_b, o_b = _raster_inputs(torch, cfg, scans[:R], guess[:R],
                                        stage)
-        rows[name] = _k1_row(torch, cfg, True, r_b, p_b, o_b, fleet, mapper)
+        rows[name] = _k1_row(torch, cfg, True, r_b, p_b, o_b, fleet, mapper,
+                             new_paths=new_paths)
+    rows.update(recovery_k1_rows(torch, cfg, world, gen, fleet, mapper,
+                                 new_paths))
 
     # K2: the 256^2 clustering mask of the fused map's frontier.
     fcfg = cfg.frontier
@@ -937,15 +979,18 @@ def _class_shares(cfg, ranges, poses, origins, raster: bool) -> dict:
 
 
 def _k1_row(torch, cfg, raster: bool, ranges, poses, origins, fleet: dict,
-            mapper: dict) -> dict:
+            mapper: dict, key: str = None, new_paths: dict = None) -> dict:
     """K1 against its plain version on one batch: exact comparison, times,
     the bound from the function (output bytes; 55 operations per cell
     within max range), the tile-class shares, launches per tick of this
-    batch on the fleet and mapper paths."""
+    batch on the fleet and mapper paths, and its launches on the recovery
+    path's phases (`new_paths`: BatchCount totals and their units by
+    phase). `key` is the batch's BatchCount key (default: B)."""
     from jax_mapping_torch.ops import sensor_kernel as SK
     kernel = SK.scan_rasters if raster else SK.scan_deltas
     plain = SK.scan_rasters_plain if raster else SK.scan_deltas_plain
     B, nb = ranges.shape
+    key = key or str(B)
     P = cfg.grid.patch_cells
     got = kernel(cfg.grid, cfg.scan, ranges, poses, origins)
     want = plain(cfg.grid, cfg.scan, ranges, poses, origins)
@@ -958,9 +1003,13 @@ def _k1_row(torch, cfg, raster: bool, ranges, poses, origins, fleet: dict,
         shape=[B, P, P], cells_within_range=cells,
         class_shares=_class_shares(cfg, ranges, poses, origins, raster),
         launches_per_fleet_tick=fleet["k1_launches_per_tick_by_batch"][
-            name].get(str(B), 0.0),
+            name].get(key, 0.0),
         launches_per_mapper_tick=mapper["k1_launches_per_tick_by_batch"][
-            name].get(str(B), 0.0),
+            name].get(key, 0.0),
+        launches_recovery_path={
+            phase: {"launches": v["k1_launches_by_batch"][name].get(key, 0),
+                    "per": v["per"]}
+            for phase, v in (new_paths or {}).items()},
         library_ms=None,
         ms=cuda_ms(lambda: kernel(cfg.grid, cfg.scan, ranges, poses,
                                   origins)),
@@ -1020,7 +1069,8 @@ def phase_parity(torch, seed: int, ticks: int = 6, option_ticks: int = 4):
     both, must agree exactly. Tolerances: sin/cos and the matcher's
     convolution round differently on the two devices, so a simulated beam
     may move by one sample step and a matched pose by a fine step; cells
-    may differ on sensor-model boundaries."""
+    may differ on sensor-model boundaries. Then one relocalization streak
+    and one merge (`_parity_recovery`)."""
     import dataclasses
     from jax_mapping_torch.config import tiny_config
     base = tiny_config(2)
@@ -1030,9 +1080,10 @@ def phase_parity(torch, seed: int, ticks: int = 6, option_ticks: int = 4):
         cfg = base.replace(frontier=dataclasses.replace(base.frontier, **kw))
         options[name] = _parity_mission(torch, cfg, seed, option_ticks)
     n_cells = base.grid.size_cells ** 2
+    recovery = _parity_recovery(torch)
     emit({"phase": "parity", "config": "tiny_config(2)", "ticks": ticks,
           "worst": worst, "option_ticks": option_ticks, "options": options,
-          "cells_total": n_cells})
+          "recovery": recovery, "cells_total": n_cells})
     for name, w in (("default", worst), *options.items()):
         check(w["pose_m"] <= 1e-2 and w["yaw_rad"] <= 1e-2,
               f"parity ({name}): estimates differ by {w}")
@@ -1134,7 +1185,8 @@ class _Drive:
 
     def next(self, n_scans: int):
         """The next n_scans of every robot: ((R, n, beams) scans at the
-        true poses, (R, n, 2) measured wheel speeds)."""
+        true poses, (R, n, 2) measured wheel speeds). The true poses stay
+        in `self.poses`."""
         from jax_mapping_torch.ops.odometry import rk2_step
         from jax_mapping_torch.sim import lidar
         torch, cfg = self.torch, self.cfg
@@ -1146,6 +1198,7 @@ class _Drive:
                                   self.cmd[1], dt)
             poses.append(self.truth)
         poses = torch.stack(poses, 1)                          # (R, n, 3)
+        self.poses = poses
         scans = lidar.simulate_scans(
             cfg.scan, self.world, cfg.grid.resolution_m, self.n_samples,
             poses.reshape(R * n_scans, 3)).reshape(R, n_scans, -1)
@@ -1189,7 +1242,7 @@ def phase_mapper(torch, cfg, seed: int, ticks: int = 10, on_tick=None):
     torch.cuda.synchronize()
     _cuda.reset_launches()
     tick_ms, times, diags = [], {"window": [], "single": []}, []
-    with BatchCount() as bc:
+    with BatchCount(cfg.grid) as bc:
         for _ in range(ticks):
             scans, wheels = drive.next(W + 2)
             torch.cuda.synchronize()
@@ -2686,6 +2739,579 @@ def kernel_times(torch, seed: int) -> dict:
                     jax_mapping_torch.__file__), "csrc"))}}
 
 
+# ---------------------------------------------------------------------------
+# The recovery path (relocalization, rendezvous merge, fuse paths)
+# ---------------------------------------------------------------------------
+
+#: Tile side (cells) of the recovery phase's region revisions: the serving
+#: tile of the JAX package's default ServingConfig.
+REVISION_TILE = 256
+#: The recovery drive: steps, the ghost-return window [start, end) and
+#: the share of the live beams it replaces.
+RECOVERY_STEPS = 70
+FAULT_WINDOW = (15, 30)
+GHOST_FRAC = 0.5
+#: Fleet B's frame -> fleet A's frame in the rendezvous phase, about the
+#: mean start of B's robots: a fleet's belief frame has its origin where
+#: the fleet started, so B's poses sit metres, not tens of metres, from
+#: it (the merge's transform error grows with that lever arm).
+RENDEZVOUS_T = (2.0, -1.5, 0.3)
+
+
+class _Revisions:
+    """Per-tile map revisions, as the mapper's serving side keeps them:
+    `mark(r0, c0)` stamps the tiles a fused patch at (r0, c0) covers with
+    a new map revision; `region(row0, col0, span)`, the relocalizer's
+    `region_rev_fn`, is the newest revision of the tiles a region
+    covers."""
+
+    def __init__(self, cfg):
+        import numpy as np
+        nt = cfg.grid.size_cells // REVISION_TILE
+        self.tile_rev = np.zeros((nt, nt), np.int64)
+        self.rev = 0
+        self.P = cfg.grid.patch_cells
+
+    def _tiles(self, row0, col0, span):
+        t = REVISION_TILE
+        return (slice(row0 // t, (row0 + span - 1) // t + 1),
+                slice(col0 // t, (col0 + span - 1) // t + 1))
+
+    def mark(self, r0, c0):
+        self.rev += 1
+        self.tile_rev[self._tiles(r0, c0, self.P)] = self.rev
+
+    def region(self, row0, col0, span):
+        return int(self.tile_rev[self._tiles(row0, col0, span)].max())
+
+
+class _RecoveryDrive(_Drive):
+    """One robot on a 1.2 m circle round the centre of the mapper drive's
+    first circle: 0.0083 rad a scan, so the heading a quarantine leaves
+    behind stays well inside the matcher's 0.35 rad window."""
+
+    RADIUS = 1.2
+
+
+def _truth_map(torch, cfg, seed: int, ticks: int = 10):
+    """The mapper drive's scans (8 robots, `ticks` x 18 each) fused at
+    their true poses into an empty grid, as `phase_refuse` fuses its
+    map: the recovery phase's map, so that a pose relocalized against it
+    can be held to the truth (the mapper drive's own map carries its
+    0.2-0.4 m drift)."""
+    from jax_mapping_torch.ops import grid as G
+    drive = _Drive(torch, cfg, seed)
+    grid = G.empty_grid(cfg.grid, drive.truth.device)
+    nb = cfg.scan.padded_beams
+    for _ in range(ticks):
+        scans, _w = drive.next(cfg.fleet.batch_scans + 2)
+        grid = G.fuse_scans(cfg.grid, cfg.scan, grid, scans.reshape(-1, nb),
+                            drive.poses.reshape(-1, 3))
+    return grid
+
+
+def _attempt_cache(before: dict, after: dict) -> str:
+    dh = after["n_hits"] - before["n_hits"]
+    dm = after["n_misses"] - before["n_misses"]
+    return "hit" if (dh, dm) == (2, 0) else "miss" if (dh, dm) == (0, 2) \
+        else f"{dh} hits, {dm} misses"
+
+
+def phase_recovery(torch, cfg, seed: int):
+    """The recovery path for one robot, as `MapperNode` runs it:
+    `slam_step` a scan on `_truth_map` (the mapper drive's region of
+    rooms_world, fused at the true poses), the divergence
+    watchdog fed every step (a key step's diag agreement, match and
+    covariance trace; a sub-gate step's `scan_agreement` at the post-step
+    pose), ghost returns on half the live beams in FAULT_WINDOW. From the
+    declaration on, steps are quarantined (not run, not installed) and
+    each calls `Relocalizer.attempt_for` with its scan from the last
+    estimate, through the pyramid cache keyed on per-tile revisions; a
+    verified re-anchor restarts the chain at the pose on the kept map."""
+    import dataclasses
+    import numpy as np
+    from jax_mapping_torch.models import slam as S
+    from jax_mapping_torch.ops import pyramid as PYR
+    from jax_mapping_torch.recovery import (RecoveryManager, Relocalizer,
+                                            relocalize_match)
+    from jax_mapping_torch.sim.lidar import apply_ghost_returns
+    cfg1 = cfg.replace(fleet=dataclasses.replace(cfg.fleet, n_robots=1))
+    drive = _RecoveryDrive(torch, cfg1, seed + 5)
+    rec = RecoveryManager(cfg.recovery, 1, robot=cfg.robot)
+    wd, reloc = rec.watchdog, rec.relocalizer
+    revs = _Revisions(cfg)
+    grid = _truth_map(torch, cfg, seed)
+    mapped_occ = int((grid > cfg.grid.occ_threshold).sum())
+    st = S.init_state(cfg, drive.truth[0], DEV)._replace(grid=grid)
+    declared_at = readmitted_at = None
+    attempts, steps_key, quarantined = [], 0, 0
+    for t in range(RECOVERY_STEPS):
+        scans, wheels = drive.next(1)
+        ranges = scans[0, 0]
+        if FAULT_WINDOW[0] <= t < FAULT_WINDOW[1]:
+            ranges = torch.as_tensor(apply_ghost_returns(
+                cfg.scan, ranges.cpu().numpy(), GHOST_FRAC,
+                np.random.default_rng((seed, t, 0))), device=grid.device)
+        if not wd.is_diverged(0):
+            st2, d = S.slam_step(cfg, st, ranges, wheels[0, 0, 0],
+                                 wheels[0, 0, 1], drive.DT)
+            key, matched = bool(d.key_added), bool(d.matched)
+            if key:
+                agreement = float(d.window_agreement)
+                cov_trace = float(d.cov.sum()) if matched else None
+            else:
+                agreement = float(S.scan_agreement(cfg, grid, ranges,
+                                                   st2.pose))
+                cov_trace = None
+            if wd.observe(0, key, matched, agreement, cov_trace):
+                declared_at = t
+                reloc.reset(0)
+                quarantined += 1
+                continue
+            if key:
+                steps_key += 1
+                revs.mark(*PYR.patch_origin_host(cfg.grid,
+                                                 st2.pose[:2].cpu()))
+            st, grid = st2, st2.grid
+            continue
+        quarantined += 1
+        guess = st.pose.cpu().numpy()
+        before = reloc.pyramid_cache.snapshot()
+        torch.cuda.synchronize()
+        with BatchCount(cfg.grid) as bc:
+            t0 = time.perf_counter()
+            pose, n_sync = _count_syncs(torch, lambda: reloc.attempt_for(
+                0, cfg, grid, ranges, guess, region_rev_fn=revs.region,
+                grid_revision=revs.rev))
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        attempts.append({
+            "step": t, "ms": ms, "host_syncs": n_sync,
+            "cache": _attempt_cache(before, reloc.pyramid_cache.snapshot()),
+            "k1_launches": bc.n, "verified": pose is not None})
+        if pose is not None:
+            readmitted_at = t
+            st = S.init_state(cfg, torch.as_tensor(pose), DEV)._replace(
+                grid=grid)
+            wd.readmit(0)
+    truth = drive.truth[0]
+    err = (st.pose - truth).cpu()
+    err_m = float(torch.hypot(err[0], err[1]))
+    err_rad = abs(math.remainder(float(err[2]), 2 * math.pi))
+
+    # The match alone: pruned through a warm cache (hits) and a cold one
+    # (misses), and the unpruned relocalize_match, on the last scan from
+    # a guess 0.1 m and 0.05 rad off; then a wide basin, 1.0 m and 0.3
+    # rad off.
+    guess = (truth + torch.tensor([0.08, -0.06, 0.05],
+                                  device=truth.device)).cpu().numpy()
+    warm = Relocalizer(cfg.recovery, 1)
+
+    def pruned(r):
+        return r._match_pruned(cfg, grid, ranges, guess, revs.region,
+                               revs.rev)
+
+    pruned(warm)
+    guess_t = torch.as_tensor(guess, device=grid.device)
+    (_, syncs_unpruned) = _count_syncs(torch, lambda: relocalize_match(
+        cfg, grid, ranges, guess_t))
+    times = {
+        "pruned_hit_ms": cuda_ms(lambda: pruned(warm)),
+        "pruned_miss_ms": cuda_ms(lambda: pruned(Relocalizer(cfg.recovery,
+                                                             1))),
+        "unpruned_ms": cuda_ms(lambda: relocalize_match(cfg, grid, ranges,
+                                                        guess_t))}
+    wide_guess = truth + torch.tensor([0.8, 0.6, 0.3], device=truth.device)
+    wide = relocalize_match(cfg, grid, ranges, wide_guess)
+    wide_err = (wide.pose[0] - truth).cpu()
+    times["wide_basin_ms"] = cuda_ms(lambda: relocalize_match(
+        cfg, grid, ranges, wide_guess))
+
+    verify_at = [a["step"] for a in attempts if a["verified"]]
+    by_cache = {}
+    for a in attempts:
+        by_cache.setdefault(a["cache"], []).append(a)
+    launches = attempts[0]["k1_launches"] if attempts else {}
+    out = {"phase": "recovery", "map_occ_cells": mapped_occ,
+           "steps": RECOVERY_STEPS,
+           "fault_window": list(FAULT_WINDOW), "ghost_frac": GHOST_FRAC,
+           "declared_at_step": declared_at,
+           "steps_to_declare": (None if declared_at is None
+                                else declared_at - FAULT_WINDOW[0] + 1),
+           "readmitted_at_step": readmitted_at,
+           "attempts": len(attempts),
+           "attempts_to_verify": (None if not verify_at else
+                                  sum(a["step"] <= verify_at[0]
+                                      for a in attempts)),
+           "attempts_after_fault_to_verify": (
+               None if not verify_at else
+               sum(FAULT_WINDOW[1] <= a["step"] <= verify_at[0]
+                   for a in attempts)),
+           "steps_quarantined": quarantined, "key_steps_installed": steps_key,
+           "attempt_ms": {c: _p50_p90([a["ms"] for a in v])
+                          for c, v in by_cache.items()},
+           "attempt_host_syncs": {c: sorted({a["host_syncs"] for a in v})
+                                  for c, v in by_cache.items()},
+           "k1_launches_per_attempt": launches,
+           "unpruned_host_syncs": syncs_unpruned, **times,
+           "wide_basin": {"guess_off_m": 1.0, "guess_off_rad": 0.3,
+                          "accepted": bool(wide.accepted[0]),
+                          "response": float(wide.response[0]),
+                          "err_m": float(torch.hypot(wide_err[0],
+                                                     wide_err[1])),
+                          "err_rad": abs(math.remainder(float(wide_err[2]),
+                                                        2 * math.pi))},
+           "relocalizer": reloc.snapshot(), "watchdog": wd.snapshot(),
+           "transitions": [list(x) for x in wd.transitions],
+           "pose_err_m": err_m, "pose_err_rad": err_rad,
+           "attempt_log": attempts}
+    emit(out)
+    check(declared_at is not None
+          and FAULT_WINDOW[0] <= declared_at < FAULT_WINDOW[1],
+          f"recovery: divergence declared at step {declared_at}, not "
+          f"inside the fault window {FAULT_WINDOW}")
+    check(readmitted_at is not None and readmitted_at >= FAULT_WINDOW[1],
+          f"recovery: re-admitted at step {readmitted_at}, not after the "
+          f"fault window")
+    check(not wd.is_diverged(0), "recovery: the robot ends diverged")
+    check(err_m <= 0.1 and err_rad <= 0.05,
+          f"recovery: final pose {err_m} m / {err_rad} rad off the truth")
+    check("hit" in by_cache and "miss" in by_cache,
+          f"recovery: attempts saw no cache hit and miss: {list(by_cache)}")
+    check(launches.get("sensor_model_raster"),
+          "recovery: an attempt launched no K1 raster")
+    return {"per": "attempt", "k1_launches_by_batch": _k1_sum(
+        [a["k1_launches"] for a in attempts], len(attempts))}, out
+
+
+def _k1_sum(counts, n: int = 1) -> dict:
+    """BatchCount counts (a list of {mode: {batch: launches}}) summed and
+    divided by n."""
+    tot = {name: {} for name in BatchCount.NAMES.values()}
+    for by_name in counts:
+        for name, by in by_name.items():
+            for k, c in by.items():
+                tot[name][k] = tot[name].get(k, 0) + c
+    return {name: {k: c / n for k, c in by.items()}
+            for name, by in tot.items()}
+
+
+def phase_rendezvous(torch, cfg, seed: int):
+    """The rendezvous merge: fleet A is 4 robots of the mapper drive
+    (`_Drive`, `slam_step_window` on one shared grid) until each has the
+    merger's min_keyscans graph poses; fleet B is A's robots 0 and 1 in a
+    frame RENDEZVOUS_T maps onto A's (poses, graphs and rings through its
+    inverse, a grid re-fused in B's frame). `RendezvousMerger.poll` on
+    stand-in mappers until it merges; then `merge_fleets` alone and one
+    `merged_frontier_assignment` on the merged grid."""
+    import dataclasses
+    import inspect
+    import numpy as np
+    from jax_mapping_torch.models import slam as S
+    from jax_mapping_torch.ops import _cuda
+    from jax_mapping_torch.ops import grid as G
+    from jax_mapping_torch.scenarios import rendezvous as RV
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import torch_kernel_inputs as KI
+    cfg4 = cfg.replace(fleet=dataclasses.replace(cfg.fleet, n_robots=4))
+    drive = _Drive(torch, cfg4, seed + 7)
+    W = cfg.fleet.batch_scans
+    states = [S.init_state(cfg, drive.truth[r], DEV) for r in range(4)]
+    drive_start = drive.truth.cpu()
+    shared = states[0].grid
+    min_keys = inspect.signature(RV.RendezvousMerger).parameters[
+        "min_keyscans"].default
+    ticks = 0
+    while min(int(s.graph.n_poses) for s in states) < min_keys:
+        check(ticks < 8, "rendezvous: fleet A made too few key scans")
+        scans, wheels = drive.next(W)
+        for r in range(4):
+            states[r], _ = S.slam_step_window(
+                cfg, states[r]._replace(grid=shared), scans[r], wheels[r],
+                drive.DT)
+            shared = states[r].grid
+        ticks += 1
+    cap = cfg.loop.max_poses
+    states_a = [s._replace(grid=shared) for s in states]
+    start = drive_start[:2, :2].mean(dim=0).tolist()
+    T = np.asarray([start[0] + RENDEZVOUS_T[0], start[1] + RENDEZVOUS_T[1],
+                    RENDEZVOUS_T[2]], np.float32)
+    t_inv = RV.se2_from_pair(np.zeros(3, np.float32), T)
+    moved = [RV.transform_state(st, t_inv) for st in states_a[:2]]
+    grid_b = G.empty_grid(cfg.grid, shared.device)
+    for st in moved:
+        grid_b = G.fuse_scans_masked(cfg.grid, cfg.scan, grid_b,
+                                     st.scan_ring, st.graph.poses[:cap],
+                                     st.graph.pose_valid[:cap])
+    states_b = [st._replace(grid=grid_b) for st in moved]
+    merger = RV.RendezvousMerger(cfg, KI.StandInMapper(states_a, cap),
+                                 KI.StandInMapper(states_b, cap))
+    poll_ms = []
+    torch.cuda.synchronize()
+    with BatchCount(cfg.grid) as bc:
+        for _ in range(4):
+            t0 = time.perf_counter()
+            merged = merger.poll()
+            torch.cuda.synchronize()
+            poll_ms.append((time.perf_counter() - t0) * 1e3)
+            if merged:
+                break
+    check(merger.merged, f"rendezvous: no merge in 4 polls: "
+          f"{merger.snapshot()}")
+    err = merger.transform - T
+    err_m = float(np.hypot(err[0], err[1]))
+    err_rad = abs(math.remainder(float(err[2]), 2 * math.pi))
+
+    # merge_fleets alone, anchored as the merger anchors it.
+    j = 0
+    n = int(states_b[j].graph.n_poses)
+    verified = RV.se2_apply(merger.transform,
+                            states_b[j].graph.poses[n - 1].cpu().numpy())
+    with BatchCount(cfg.grid) as bm:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grid_m, merged_states = RV.merge_fleets(
+            cfg, states_a, states_b, merger.transform, anchor=(j, verified))
+        torch.cuda.synchronize()
+        merge_ms = (time.perf_counter() - t0) * 1e3
+    before = dict(_cuda.LAUNCHES)
+    t0 = time.perf_counter()
+    fr = RV.merged_frontier_assignment(cfg, merger.merged_grid,
+                                       merger.merged_states)
+    torch.cuda.synchronize()
+    assign_ms = (time.perf_counter() - t0) * 1e3
+    assign_launches = {k: _cuda.LAUNCHES[k] - before[k]
+                       for k in ("label_prop", "costfield_relax")}
+    assignment = fr.assignment.cpu().numpy()
+    costs = fr.costs.cpu().numpy()
+    sizes = fr.sizes.cpu().numpy()
+    # The auction's promise: a robot left without a frontier could reach
+    # none that an earlier robot had not taken.
+    taken = set(int(a) for a in assignment if a >= 0)
+    starved = [r for r, a in enumerate(assignment)
+               if a < 0 and any(costs[r, k] < 1e9 and sizes[k] > 0
+                                and k not in taken
+                                for k in range(len(sizes)))]
+    occ = cfg.grid.occ_threshold
+    out = {"phase": "rendezvous", "robots_a": 4, "robots_b": 2,
+           "drive_ticks": ticks,
+           "n_poses_a": [int(s.graph.n_poses) for s in states_a],
+           "transform_true": [float(v) for v in T],
+           "transform": [float(v) for v in merger.transform],
+           "transform_err_m": err_m, "transform_err_rad": err_rad,
+           "polls_to_merge": len(poll_ms), "poll_ms": poll_ms,
+           "k1_launches_polls": bc.n,
+           "merge_fleets_ms": merge_ms, "k1_launches_merge": bm.n,
+           "assignment_ms": assign_ms,
+           "assignment_launches": assign_launches,
+           "assignment": assignment.tolist(),
+           "clusters": int((sizes > 0).sum()),
+           "occ_cells_before": int((shared > occ).sum()),
+           "occ_cells_after": int((merger.merged_grid > occ).sum()),
+           "merger": merger.snapshot()}
+    emit(out)
+    check(err_m <= 0.1 and err_rad <= 0.02,
+          f"rendezvous: transform {err_m} m / {err_rad} rad off the truth")
+    check(torch.equal(grid_m, merger.merged_grid),
+          "rendezvous: merge_fleets differs from the merger's merge")
+    check(len(merged_states) == 6
+          and all(s.grid is merger.merged_grid
+                  for s in merger.merged_states),
+          "rendezvous: merged states do not share one grid")
+    check(bool(torch.isfinite(merger.merged_grid).all()),
+          "rendezvous: merged grid non-finite")
+    check(not starved, f"rendezvous: robots {starved} could reach an "
+          "untaken frontier but got none")
+    check((assignment >= 0).any(), "rendezvous: no robot got a frontier")
+    return {"per": "poll (the last one merges)",
+            "k1_launches_by_batch": _k1_sum([bc.n], len(poll_ms))}, out
+
+
+def phase_fuse_paths(torch, cfg, mapped, seed: int):
+    """`fuse_scans_bucketed` at 37, 100 and 200 scans near walls of
+    rooms_world (70% of them unmasked) onto the mapper drive's map, each
+    held bit for bit against `fuse_scans_masked` on the same batch; then
+    `fuse_scans_touched` at 64 scattered poses (tile 256), its grid held
+    against `fuse_scans` and its touched tiles against a host
+    recomputation from `patch_origin_host`."""
+    import numpy as np
+    from jax_mapping_torch.ops import fuse_kernel as FK
+    from jax_mapping_torch.ops import grid as G
+    from jax_mapping_torch.ops import pyramid as PYR
+    from jax_mapping_torch.sim import lidar
+    from jax_mapping_torch.sim import world as Wd
+    n, res = cfg.grid.size_cells, cfg.grid.resolution_m
+    world = torch.as_tensor(Wd.rooms_world(n, res, seed=1),
+                            device=mapped.device)
+    n_samples = int(cfg.scan.range_max_m / (res * 0.5))
+    gen = torch.Generator().manual_seed(seed + 11)
+    out = {"phase": "fuse_paths", "bucketed": {}}
+    launches = {}
+    for B in (37, 100, 200):
+        poses = _poses_near_walls(torch, cfg, world, B, gen)
+        ranges = lidar.simulate_scans(cfg.scan, world, res, n_samples, poses)
+        mask = (torch.rand(B, generator=gen) < 0.7).to(mapped.device)
+        with BatchCount(cfg.grid) as bc:
+            got = G.fuse_scans_bucketed(cfg.grid, cfg.scan, mapped, ranges,
+                                        poses, mask)
+        want = G.fuse_scans_masked(cfg.grid, cfg.scan, mapped, ranges,
+                                   poses, mask)
+        equal = bool(torch.equal(got, want))
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            G.fuse_scans_bucketed(cfg.grid, cfg.scan, mapped, ranges, poses,
+                                  mask)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out["bucketed"][str(B)] = {
+            "bucket": G._batch_bucket(B), "unmasked": int(mask.sum()),
+            "ms": statistics.median(ms), "bit_equal_masked": equal,
+            "cells_changed": int((got != mapped).sum()),
+            "k1_launches": bc.n}
+        launches[f"bucketed_{B}"] = bc.n
+        check(equal, f"fuse_paths: fuse_scans_bucketed({B}) differs from "
+              "fuse_scans_masked")
+        del got, want
+    B = 64
+    poses = _poses_near_walls(torch, cfg, world, B, gen)
+    ranges = lidar.simulate_scans(cfg.scan, world, res, n_samples, poses)
+    with BatchCount(cfg.grid) as bc:
+        grid_t, touched = FK.fuse_scans_touched(cfg.grid, cfg.scan,
+                                                REVISION_TILE, mapped,
+                                                ranges, poses)
+    want = G.fuse_scans(cfg.grid, cfg.scan, mapped, ranges, poses)
+    K = FK.patch_span_tiles(cfg.grid, REVISION_TILE)
+    nt = n // REVISION_TILE
+    host = np.zeros((nt, nt), bool)
+    for p in poses.cpu().numpy():
+        r0, c0 = PYR.patch_origin_host(cfg.grid, p[:2])
+        tr = min(r0 // REVISION_TILE, nt - K)
+        tc = min(c0 // REVISION_TILE, nt - K)
+        host[tr:tr + K, tc:tc + K] = True
+    ms = cuda_ms(lambda: FK.fuse_scans_touched(
+        cfg.grid, cfg.scan, REVISION_TILE, mapped, ranges, poses), reps=3,
+        warmup=1)
+    out["touched"] = {
+        "scans": B, "tile_cells": REVISION_TILE, "boxes": K,
+        "ms": ms, "grid_bit_equal": bool(torch.equal(grid_t, want)),
+        "touched_equal_host": bool(np.array_equal(touched.cpu().numpy(),
+                                                  host)),
+        "tiles_touched": int(touched.sum()), "tiles": nt * nt,
+        "k1_launches": bc.n}
+    launches["touched_64"] = bc.n
+    emit(out)
+    check(out["touched"]["grid_bit_equal"],
+          "fuse_paths: fuse_scans_touched's grid differs from fuse_scans")
+    check(out["touched"]["touched_equal_host"],
+          "fuse_paths: touched tiles differ from the host recomputation")
+    return {"per": "phase (three bucketed fuses, one touched fuse)",
+            "k1_launches_by_batch": _k1_sum(launches.values())}, out
+
+
+def recovery_k1_rows(torch, cfg, world, gen, fleet: dict, mapper: dict,
+                     new_paths: dict) -> dict:
+    """K1 at the batches only the recovery path launches: deltas at 48
+    scans (the bucket of a 37-scan `fuse_scans_bucketed`), and the
+    relocalizer's wide stage on the 4x coarser view (0.2 m cells, the
+    same 640^2 patch): 21 coarse angles and 23 x 23 sub-cell offsets
+    (529)."""
+    from jax_mapping_torch.models import slam as S
+    from jax_mapping_torch.ops import grid as G
+    from jax_mapping_torch.sim import lidar
+    res = cfg.grid.resolution_m
+    n_samples = int(cfg.scan.range_max_m / (res * 0.5))
+    rows = {}
+    poses = _poses_near_walls(torch, cfg, world, 48, gen)
+    ranges = lidar.simulate_scans(cfg.scan, world, res, n_samples, poses)
+    origins = G.patch_origin(cfg.grid, poses[:, :2]).contiguous()
+    rows["sensor_model_delta_b48"] = _k1_row(
+        torch, cfg, False, ranges, poses, origins, fleet, mapper,
+        new_paths=new_paths)
+    g_c, m_c = S._loop_wide_cfgs(cfg)
+    cfg_c = cfg.replace(grid=g_c, matcher=m_c)
+    guess = _poses_near_walls(torch, cfg, world, 1, gen)
+    scans = lidar.simulate_scans(cfg.scan, world, res, n_samples, guess)
+    tag = f"@{g_c.resolution_m:g}m"
+    for stage, B in (("coarse", 21), ("subcell", 529)):
+        r_b, p_b, o_b = _raster_inputs(torch, cfg_c, scans, guess, stage)
+        check(r_b.shape[0] == B, f"wide {stage} batch {r_b.shape[0]}")
+        rows[f"sensor_model_raster_wide_b{B}"] = dict(
+            _k1_row(torch, cfg_c, True, r_b, p_b, o_b, fleet, mapper,
+                    key=f"{B}{tag}", new_paths=new_paths),
+            grid_resolution_m=g_c.resolution_m)
+    return rows
+
+
+def _parity_recovery(torch) -> dict:
+    """One relocalization streak and one merge at tiny_config, each on the
+    card and on the CPU from the same inputs (tests/torch_kernel_inputs.py
+    `reloc_inputs`, `tiny_fleets`): the same streak, cache counters and
+    merge poll; poses within the matcher's tolerance (one fine step, one
+    fine angle step: its convolution rounds differently on the two
+    devices), the anchored graphs within the Gauss-Newton tolerance
+    (1e-3) and at most 1e-3 of the merged grid's cells apart."""
+    import numpy as np
+    from jax_mapping_torch.config import tiny_config
+    from jax_mapping_torch.recovery import Relocalizer
+    from jax_mapping_torch.scenarios import rendezvous as RV
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import torch_kernel_inputs as KI
+    cfg = tiny_config(2)
+    m = cfg.matcher
+    out = {"reloc_pose_m": 0.0, "reloc_yaw_rad": 0.0}
+    grid, ranges, guess = KI.reloc_inputs(cfg)
+    card, cpu = Relocalizer(cfg.recovery, 1), Relocalizer(cfg.recovery, 1)
+    streak = []
+    for _ in range(2):
+        a = card.attempt_for(0, cfg, grid.cuda(), ranges.numpy(),
+                             guess.numpy(), lambda *_: 1)
+        b = cpu.attempt_for(0, cfg, grid, ranges.numpy(), guess.numpy(),
+                            lambda *_: 1)
+        check((a is None) == (b is None), "parity: relocalization streak")
+        if a is not None:
+            out["reloc_pose_m"] = max(out["reloc_pose_m"],
+                                      float(np.abs(a[:2] - b[:2]).max()))
+            out["reloc_yaw_rad"] = max(out["reloc_yaw_rad"],
+                                       float(abs(a[2] - b[2])))
+        streak.append(a is not None)
+    out["streak"] = streak
+    check(streak == [False, True], f"parity: streak {streak}")
+    check(card.snapshot() == cpu.snapshot(),
+          "parity: relocalizer counters differ")
+    T = np.array([0.9, -0.7, 0.6], np.float32)
+    a_cpu, b_cpu = KI.tiny_fleets(cfg, T)
+    a_dev, b_dev = KI.tiny_fleets(cfg, T, "cuda")
+    anchor = (1, a_cpu[1].graph.poses[5].numpy() + np.float32(0.02))
+    g1, m1 = RV.merge_fleets(cfg, a_dev, b_dev, T, anchor=anchor)
+    g0, m0 = RV.merge_fleets(cfg, a_cpu, b_cpu, T, anchor=anchor)
+    out["merge_pose"] = max(float((x.graph.poses.cpu() - y.graph.poses)
+                                  .abs().max()) for x, y in zip(m1, m0))
+    out["merge_cells"] = int((g1.cpu() != g0).sum())
+    cap = cfg.loop.max_poses
+    polls = []
+    for a, b in ((a_dev, b_dev), (a_cpu, b_cpu)):
+        mg = RV.RendezvousMerger(cfg, KI.StandInMapper(a, cap),
+                                 KI.StandInMapper(b, cap))
+        polls.append(([mg.poll() for _ in range(3)], mg.transform))
+    out["merge_polls"] = polls[0][0]
+    check(polls[0][0] == polls[1][0] and any(polls[0][0]),
+          f"parity: merger polls {polls[0][0]} (card) vs {polls[1][0]}")
+    dt = np.abs(polls[0][1] - polls[1][1])
+    out["merge_transform"] = [float(v) for v in dt]
+    n_cells = cfg.grid.size_cells ** 2
+    check(out["reloc_pose_m"] <= m.fine_step_m + 1e-5
+          and out["reloc_yaw_rad"] <= m.fine_angle_step_rad + 1e-5,
+          f"parity: relocalized poses differ by {out}")
+    check(out["merge_pose"] <= 1e-3 and out["merge_cells"] <= 1e-3 * n_cells,
+          f"parity: merges differ by {out}")
+    check(dt[:2].max() <= m.fine_step_m + 1e-5
+          and dt[2] <= m.fine_angle_step_rad + 1e-5,
+          f"parity: merge transforms differ by {dt}")
+    return out
+
+
 def phase_ab(parent: str, seed: int) -> dict:
     """K1-K7 of the tree `parent` and of this one, timed in turns (parent,
     change, change, parent) on this card, each run in a process of its own
@@ -2801,13 +3427,18 @@ def main(argv=None) -> int:
         _plan, planned = phase_planner(torch, cfg, publisher.grid,
                                        publisher.poses, publisher.last)
         phase_fleet_modes(torch, cfg, publisher.grid, args.seed)
+        new_paths = {
+            "recovery": phase_recovery(torch, cfg, args.seed)[0],
+            "rendezvous": phase_rendezvous(torch, cfg, args.seed)[0],
+            "fuse_paths": phase_fuse_paths(torch, cfg, publisher.grid,
+                                           args.seed)[0]}
         phase_window(torch, cfg)
         vstate = phase_voxel(torch, cfg)
         bench = phase_voxel_bench(torch, cfg)
         phase_voxel_region(torch, cfg, vstate)
         rows = phase_kernels(torch, cfg, world, mapped, args.seed, fleet,
                              mapper, (vstate, bench, vstate["out"]),
-                             (publisher.grid, publisher, planned))
+                             (publisher.grid, publisher, planned), new_paths)
         voxel_launches = vstate["out"]["launches"]
         voxel_summed_launches = bench["launches"]["voxel_summed"]
         del mapped, world, st, vstate, bench, publisher, planned

@@ -1,6 +1,6 @@
 """Configuration for the PyTorch port: the slice of `SlamConfig` that the
-fleet tick, the SLAM step, the planner and the voxel path read, with the
-JAX package's field names and defaults.
+fleet tick, the SLAM step, the planner, the voxel path and the recovery
+path read, with the JAX package's field names and defaults.
 
 The dataclasses are frozen, so a config is hashable and can key caches.
 `SlamConfig.from_json` accepts the JSON that the JAX package's
@@ -274,19 +274,72 @@ class DepthCamConfig:
         return self.height_px / 2.0 - 0.5
 
 
+@_frozen
+class RecoveryConfig:
+    """Estimator guardrails (the `recovery` package): the divergence
+    watchdog's score and hysteresis, the quarantine and wide-window
+    relocalization gates, and the anti-stuck ladder. Watchdog thresholds
+    count mapper observations; anti-stuck thresholds count control
+    ticks."""
+
+    enabled: bool = True
+    # -- divergence watchdog -------------------------------------------------
+    # Key observations before a rejected match is charged (an empty map
+    # rejects legitimately at bootstrap).
+    min_keyscans: int = 5
+    # score = decay * score + (1 - decay) * bad, with
+    # bad = agreement_weight * min(1, (1 - agreement) / deficit_scale)
+    #     + match_weight * (1 - matched)             [key steps only]
+    #     + cov_weight * min(1, cov_trace / cov_scale_m2).
+    score_decay: float = 0.7
+    match_weight: float = 0.5
+    agreement_weight: float = 0.5
+    agreement_deficit_scale: float = 0.35
+    cov_weight: float = 0.1
+    cov_scale_m2: float = 0.05
+    # `diverge_persist_steps` consecutive observations at or above the
+    # threshold declare divergence.
+    diverge_threshold: float = 0.4
+    diverge_persist_steps: int = 3
+    # -- quarantine + relocalization ----------------------------------------
+    quarantine_cap: int = 64
+    # A re-anchor is verified by `reloc_consecutive` consecutive accepted
+    # matches with at least this response whose poses agree within the
+    # consistency radii, each scan agreeing with the map at its pose.
+    reloc_min_response: float = 0.35
+    reloc_consecutive: int = 2
+    reloc_consistency_m: float = 0.2
+    reloc_consistency_rad: float = 0.25
+    reloc_min_agreement: float = 0.8
+    # -- anti-stuck recovery ladder -----------------------------------------
+    # Stuck: commanded motion on >= stuck_commanded_frac of the window's
+    # ticks, yet net displacement under stuck_displacement_frac of the
+    # distance the commands should have produced.
+    stuck_window_ticks: int = 30
+    stuck_displacement_frac: float = 0.25
+    stuck_commanded_frac: float = 0.6
+    min_commanded_units: int = 20
+    # Rungs: rotate, backup, blacklist; a re-detection within the
+    # escalation memory climbs one rung.
+    rotate_recovery_ticks: int = 12
+    backup_recovery_ticks: int = 10
+    escalation_memory_ticks: int = 90
+    blacklist_ttl_ticks: int = 300
+
+
 _SECTIONS = {
     "grid": GridConfig, "scan": ScanConfig, "robot": RobotConfig,
     "matcher": MatcherConfig, "loop": LoopClosureConfig,
     "frontier": FrontierConfig, "fleet": FleetConfig,
     "planner": PlannerConfig, "voxel": VoxelConfig,
-    "depthcam": DepthCamConfig,
+    "depthcam": DepthCamConfig, "recovery": RecoveryConfig,
 }
 
 
 @_frozen
 class SlamConfig:
-    """The sections the fleet tick, the SLAM step, the planner and the
-    voxel path read, plus the operating mode."""
+    """The sections the fleet tick, the SLAM step, the planner, the voxel
+    path and the recovery path read, plus the operating mode."""
 
     grid: GridConfig = GridConfig()
     scan: ScanConfig = ScanConfig()
@@ -298,6 +351,7 @@ class SlamConfig:
     planner: PlannerConfig = PlannerConfig()
     voxel: VoxelConfig = VoxelConfig()
     depthcam: DepthCamConfig = DepthCamConfig()
+    recovery: RecoveryConfig = RecoveryConfig()
     mode: str = "mapping"
 
     def replace(self, **kw: Any) -> "SlamConfig":
@@ -337,6 +391,20 @@ def tiny_config(n_robots: int = 2) -> SlamConfig:
                           align_y=8, align_x=8),
         depthcam=DepthCamConfig(width_px=40, height_px=30,
                                 range_max_m=1.2),
+        # Short watchdog and anti-stuck horizons, so a short mission walks
+        # the whole diverge -> relocalize -> re-admit ladder.
+        recovery=RecoveryConfig(min_keyscans=2,
+                                score_decay=0.5,
+                                diverge_threshold=0.4,
+                                diverge_persist_steps=2,
+                                quarantine_cap=32,
+                                reloc_consecutive=2,
+                                stuck_window_ticks=12,
+                                stuck_displacement_frac=0.25,
+                                rotate_recovery_ticks=6,
+                                backup_recovery_ticks=5,
+                                escalation_memory_ticks=40,
+                                blacklist_ttl_ticks=80),
     )
 
 

@@ -24,9 +24,9 @@ Port of the JAX package's `ops/fuse_kernel.py`.
   where the class asks for it (see the source).
   Larger windows are summed by kernel K4 as 512-scan subtotals and
   applied once.
-* `touched_tile_box`, `patch_span_tiles` and `fuse_scans_window_touched`:
-  which serving tiles a step's patches touched, and the hashes of that
-  region of the new grid.
+* `touched_tile_box`, `patch_span_tiles`, `fuse_scans_window_touched` and
+  `fuse_scans_touched`: which serving tiles a step's patches touched, and
+  the hashes of that region of the new grid.
 
 On a CPU tensor `window_apply` runs its plain version
 (`window_apply_plain`); on a CUDA tensor it launches K5 or raises.
@@ -205,3 +205,41 @@ def fuse_scans_window_touched(grid_cfg: GridConfig, scan_cfg: ScanConfig,
     span = K * tile_cells
     region = new[tr:tr + span, tc:tc + span]
     return new, tile_rc, G.tile_hashes(region, tile_cells)
+
+
+def fuse_scans_touched(grid_cfg: GridConfig, scan_cfg: ScanConfig,
+                       tile_cells: int, grid_arr: torch.Tensor,
+                       ranges_b: torch.Tensor, poses_b: torch.Tensor,
+                       mask_b: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fuse scattered scans and report the serving tiles they touched.
+
+    Returns (new_grid, touched): the grid exactly as `grid.fuse_scans`
+    (or `grid.fuse_scans_masked` with a mask) gives it, and the (nt, nt)
+    bool mask of the K x K tile boxes (K = `patch_span_tiles`) at
+    min(origin // tile_cells, nt - K) of every contributing scan's patch;
+    a masked-out scan marks nothing. The boxes are marked in one scatter
+    on the grid's device."""
+    from jax_mapping_torch.ops import grid as G
+    if mask_b is None:
+        out = G.fuse_scans(grid_cfg, scan_cfg, grid_arr, ranges_b, poses_b)
+    else:
+        out = G.fuse_scans_masked(grid_cfg, scan_cfg, grid_arr, ranges_b,
+                                  poses_b, mask_b)
+    K = patch_span_tiles(grid_cfg, tile_cells)
+    nt = grid_cfg.size_cells // tile_cells
+    dev = grid_arr.device
+    B = ranges_b.shape[0]
+    rc = torch.clamp_max(torch.div(G.patch_origin(grid_cfg, poses_b[:, :2]),
+                                   tile_cells, rounding_mode="floor"),
+                         nt - K).long()                          # (B, 2)
+    ar = torch.arange(K, device=dev)
+    rows = (rc[:, 0, None] + ar)[:, :, None].expand(B, K, K)
+    cols = (rc[:, 1, None] + ar)[:, None, :].expand(B, K, K)
+    keep = (torch.ones(B, dtype=torch.int32, device=dev) if mask_b is None
+            else mask_b.to(torch.int32))
+    hits = torch.zeros((nt, nt), dtype=torch.int32, device=dev)
+    hits.index_put_((rows.reshape(-1), cols.reshape(-1)),
+                    keep[:, None, None].expand(B, K, K).reshape(-1),
+                    accumulate=True)
+    return out, hits > 0

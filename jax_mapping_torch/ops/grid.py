@@ -15,7 +15,8 @@ as the JAX functions do; inside, the fold updates that copy in place.
 A shared-patch window (`fuse_scans_window`) goes through kernel K5 or K4
 (`ops/fuse_kernel.py`, `ops/sensor_kernel.py`). The map-side functions
 (`decay_grid`, `merge_delta`, `to_occupancy`, `to_gray`,
-`downsample_gray`, `tile_hashes`) follow at the end.
+`downsample_gray`, `tile_hashes`, `occupancy_to_png_array`) follow at the
+end.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import dataclasses
 import math
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from jax_mapping_torch._util import const, div
@@ -39,6 +41,12 @@ from jax_mapping_torch.ops import trig
 def world_to_cell(grid: GridConfig, xy: torch.Tensor) -> torch.Tensor:
     """Continuous world metres (..., 2) -> continuous cell (col, row)."""
     return div(xy - const(grid.origin_m, xy.device), grid.resolution_m)
+
+
+def cell_to_world(grid: GridConfig, cr: torch.Tensor) -> torch.Tensor:
+    """Continuous cell (col, row) (..., 2) -> world metres; integer
+    coordinates + 0.5 give the cell's centre."""
+    return cr * grid.resolution_m + const(grid.origin_m, cr.device)
 
 
 def empty_grid(grid: GridConfig, device) -> torch.Tensor:
@@ -301,6 +309,22 @@ def fuse_scans_masked(grid_cfg: GridConfig, scan_cfg: ScanConfig,
     return out
 
 
+def fuse_scans_bucketed(grid_cfg: GridConfig, scan_cfg: ScanConfig,
+                        grid_arr: torch.Tensor, ranges_b: torch.Tensor,
+                        poses_b: torch.Tensor,
+                        mask_b: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """`fuse_scans_masked` with the batch padded to its `_batch_bucket`
+    with masked rows (exact: a masked scan adds nothing), so callers whose
+    batch length churns launch one K1 batch shape per bucket. No mask:
+    every scan contributes. B = 0 returns a copy of the grid."""
+    B = ranges_b.shape[0]
+    if B == 0:
+        return grid_arr.clone()
+    r, p, m = _pad_batch_to(_batch_bucket(B), ranges_b, poses_b, mask_b)
+    return fuse_scans_masked(grid_cfg, scan_cfg, grid_arr, r, p, m)
+
+
 def fuse_scan(grid_cfg: GridConfig, scan_cfg: ScanConfig,
               grid_arr: torch.Tensor, ranges: torch.Tensor,
               pose: torch.Tensor) -> torch.Tensor:
@@ -484,3 +508,16 @@ def tile_hashes(arr: torch.Tensor, tile_cells: int) -> torch.Tensor:
     h1 = _mul32(tv, w1).sum(dim=(2, 3)) & _MASK32
     h2 = _mul32(tv, w2).sum(dim=(2, 3)) & _MASK32
     return torch.stack([h1, h2], dim=-1)
+
+
+def occupancy_to_png_array(occ_int8) -> np.ndarray:
+    """int8 occupancy (a tensor or an array) -> uint8 grayscale image:
+    127 unknown, 255 free, 0 occupied, flipped so that row 0 is the top
+    (max-y) row. Host numpy."""
+    if torch.is_tensor(occ_int8):
+        occ_int8 = occ_int8.detach().cpu().numpy()
+    data = np.asarray(occ_int8, dtype=np.int8)
+    img = np.full(data.shape, 127, dtype=np.uint8)
+    img[data == 0] = 255
+    img[data == 100] = 0
+    return np.flipud(img)

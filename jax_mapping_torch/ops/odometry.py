@@ -1,7 +1,9 @@
 """Differential-drive odometry (RK2 midpoint) and SE(2) helpers.
 
-Port of the JAX package's `ops/odometry.py`. Every function works on any
-leading batch shape: a pose is the last axis of length 3, [x, y, yaw].
+Port of the JAX package's `ops/odometry.py`. The step and SE(2) functions
+work on any leading batch shape: a pose is the last axis of length 3,
+[x, y, yaw]. `integrate` and `integrate_fleet` run a whole wheel log, where
+the JAX package scans `rk2_step` with `lax.scan`.
 """
 
 from __future__ import annotations
@@ -33,6 +35,34 @@ def rk2_step(robot: RobotConfig, pose: torch.Tensor, left_units: torch.Tensor,
         pose[..., 1] + v_lin * torch.sin(mid) * dt,
         pose[..., 2] + delta_th,
     ], dim=-1)
+
+
+def integrate(robot: RobotConfig, pose0: torch.Tensor,
+              left_units: torch.Tensor, right_units: torch.Tensor,
+              dts: torch.Tensor) -> torch.Tensor:
+    """Integrate a wheel-speed log of T steps -> (T, 3) poses after each
+    step: T `rk2_step`s on the log's device, with no host read between
+    them."""
+    pose, traj = pose0, []
+    for t in range(left_units.shape[0]):
+        pose = rk2_step(robot, pose, left_units[t], right_units[t], dts[t])
+        traj.append(pose)
+    return torch.stack(traj) if traj else pose0.new_zeros((0, 3))
+
+
+def integrate_fleet(robot: RobotConfig, poses0: torch.Tensor,
+                    left_units: torch.Tensor, right_units: torch.Tensor,
+                    dts: torch.Tensor) -> torch.Tensor:
+    """`integrate` for R robots at once: (R, 3), (R, T), (R, T), (R, T) ->
+    (R, T, 3); each step moves every robot together."""
+    pose, traj = poses0, []
+    for t in range(left_units.shape[1]):
+        pose = rk2_step(robot, pose, left_units[:, t], right_units[:, t],
+                        dts[:, t])
+        traj.append(pose)
+    if not traj:
+        return poses0.new_zeros((poses0.shape[0], 0, 3))
+    return torch.stack(traj, dim=1)
 
 
 def twist_to_wheel_units(robot: RobotConfig, v_lin_mps, v_ang_radps):

@@ -11,7 +11,10 @@ Every function carries a leading robot axis R where the JAX package
 vmaps. The correlation is a grouped `conv1d` in full f32 (TF32 off);
 `coarse_bf16` is a TPU-only knob and is ignored, as on the JAX CPU path.
 Top-k keeps jax.lax.top_k's order (the lower index first among equal
-values) through a stable sort.
+values) through a stable sort. The cached entry points at the end
+(`match_with_pyramid` and its coarse/refine split) match against a
+prebuilt pyramid (ops/pyramid.py); the JAX package donates the refine's
+buffers to XLA, which has no counterpart here.
 """
 
 from __future__ import annotations
@@ -62,7 +65,7 @@ def _rows(R: int, dev) -> torch.Tensor:
 def _blur_weights(sigma: float, radius: int):
     """exp(-0.5 (off/sigma)^2) per offset, each rounded once to f32."""
     return [float(torch.exp(torch.tensor(-0.5 * (off / sigma) ** 2,
-                                         dtype=torch.float32)))
+                                         dtype=torch.float32, device="cpu")))
             for off in range(-radius, radius + 1)]
 
 
@@ -589,3 +592,58 @@ def _bnb_finish(grid_cfg: GridConfig, scan_cfg: ScanConfig,
                                 device=dev),
         prune_ratio=torch.full((R,), max(0.0, 1.0 - n_scored / total),
                                dtype=torch.float32, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# Cached-pyramid entry points (ops/pyramid.PyramidCache)
+# ---------------------------------------------------------------------------
+# One scan in: ranges (beams,), guess_pose (3,), origin (2,) int32. As with
+# `match`, every output keeps a leading axis of 1, and `levels` are the
+# (1, ., .) levels of `build_levels` (ops/pyramid.build_match_pyramid).
+# None of them writes into `levels`: the cache hands one pyramid to every
+# later attempt.
+
+def pyramid_coarse_scores(grid_cfg: GridConfig, scan_cfg: ScanConfig,
+                          m_cfg: MatcherConfig, n_levels: int, levels,
+                          origin: torch.Tensor, ranges: torch.Tensor,
+                          guess_pose: torch.Tensor):
+    """Stage 1 of the cached pruned match: the coarse rasters and the
+    top-level bound surface against a prebuilt pyramid. Returns
+    (resp_top, rasters_c, mass_ref), the device tensors `pyramid_refine`
+    takes."""
+    full_f32()
+    _, rasters_c, mass_ref = _bnb_setup(grid_cfg, scan_cfg, m_cfg,
+                                        origin[None], ranges[None],
+                                        guess_pose[None])
+    stride, n_steps = window_params(grid_cfg, m_cfg)
+    resp_top = _bnb_top(levels, rasters_c, mass_ref, n_steps, stride,
+                        n_levels)
+    return resp_top, rasters_c, mass_ref
+
+
+def pyramid_refine(grid_cfg: GridConfig, scan_cfg: ScanConfig,
+                   m_cfg: MatcherConfig, n_levels: int,
+                   resp_top: torch.Tensor, levels, origin: torch.Tensor,
+                   ranges: torch.Tensor, rasters_c: torch.Tensor,
+                   mass_ref: torch.Tensor,
+                   guess_pose: torch.Tensor) -> MatchResult:
+    """Stage 2: the branch-and-bound descent and the fine stages, with no
+    host read between levels."""
+    full_f32()
+    dth_c = _angle_grid(m_cfg.coarse_angle_half_rad,
+                        m_cfg.coarse_angle_step_rad, guess_pose.device)
+    return _bnb_finish(grid_cfg, scan_cfg, m_cfg, levels, resp_top,
+                       rasters_c, mass_ref, dth_c, origin[None],
+                       ranges[None], guess_pose[None], n_levels)
+
+
+def match_with_pyramid(grid_cfg: GridConfig, scan_cfg: ScanConfig,
+                       m_cfg: MatcherConfig, n_levels: int, levels,
+                       origin: torch.Tensor, ranges: torch.Tensor,
+                       guess_pose: torch.Tensor) -> MatchResult:
+    """The pruned match against a prebuilt pyramid in one call: the same
+    result as `match` on the grid the pyramid was built from, bit for
+    bit."""
+    full_f32()
+    return _match_bnb(grid_cfg, scan_cfg, m_cfg, levels, origin[None],
+                      ranges[None], guess_pose[None], n_levels)

@@ -2,11 +2,16 @@
 
 Port of the JAX package's `sim/lidar.py`: every beam samples the world at
 fixed radial steps (one gather) and the first hit falls out of an argmax
-over the hit profile. Batched over robots.
+over the hit profile. Batched over robots. The sensor faults
+(`apply_lidar_miscal`, `apply_ghost_returns`) are host numpy, as in the
+JAX package, so the same `rng` gives the same beams.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 
 from jax_mapping_torch._util import div, linspace_f32
@@ -25,11 +30,10 @@ def _first_hit(world: torch.Tensor, world_res_m: float, xs: torch.Tensor,
     return hit.any(dim=-1), torch.argmax(hit.to(torch.uint8), dim=-1)
 
 
-def simulate_scans(scan_cfg: ScanConfig, world: torch.Tensor,
-                   world_res_m: float, n_samples: int,
-                   poses: torch.Tensor) -> torch.Tensor:
-    """(R, 3) poses -> (R, padded_beams) ranges in metres; a beam with no
-    return inside range_max (or past the world's edge) reports 0.0."""
+def _ranges(scan_cfg: ScanConfig, world: torch.Tensor, world_res_m: float,
+            n_samples: int, poses: torch.Tensor):
+    """(R, 3) poses -> ((R, padded_beams) first-hit ranges before the
+    padding mask, any-hit mask, live-beam mask)."""
     dev = poses.device
     B = scan_cfg.padded_beams
     idx = torch.arange(B, dtype=torch.float32, device=dev)
@@ -44,9 +48,58 @@ def simulate_scans(scan_cfg: ScanConfig, world: torch.Tensor,
     xs = poses[:, 0, None, None] + torch.cos(ang)[:, :, None] * rs
     ys = poses[:, 1, None, None] + torch.sin(ang)[:, :, None] * rs
     any_hit, first = _first_hit(world, world_res_m, xs, ys)
-    r = torch.where(any_hit, rs[first], 0.0)
-    live = idx < scan_cfg.n_beams
+    return torch.where(any_hit, rs[first], 0.0), any_hit, idx < scan_cfg.n_beams
+
+
+def simulate_scans(scan_cfg: ScanConfig, world: torch.Tensor,
+                   world_res_m: float, n_samples: int,
+                   poses: torch.Tensor) -> torch.Tensor:
+    """(R, 3) poses -> (R, padded_beams) ranges in metres; a beam with no
+    return inside range_max (or past the world's edge) reports 0.0."""
+    r, _, live = _ranges(scan_cfg, world, world_res_m, n_samples, poses)
     return torch.where(live, r, 0.0).to(torch.float32)
+
+
+def simulate_scan(scan_cfg: ScanConfig, world: torch.Tensor,
+                  world_res_m: float, n_samples: int, pose: torch.Tensor,
+                  noise: Optional[torch.Tensor] = None,
+                  noise_std_m: float = 0.0) -> torch.Tensor:
+    """One scan (padded_beams,) from pose (3,). `noise` holds the
+    (padded_beams,) standard normals that the JAX package draws from its
+    `noise_key`: beams with a return get `noise_std_m` times theirs added
+    when `noise_std_m` > 0."""
+    r, hit, live = _ranges(scan_cfg, world, world_res_m, n_samples,
+                           pose[None])
+    r, hit = r[0], hit[0]
+    if noise is not None:
+        n = torch.as_tensor(noise, dtype=torch.float32, device=r.device)
+        r = torch.where(hit & (noise_std_m > 0.0), r + noise_std_m * n, r)
+    return torch.where(live, r, 0.0).to(torch.float32)
+
+
+def apply_lidar_miscal(poses, offset_rad):
+    """The `lidar_miscal` fault: a sensor mount rotated by `offset_rad`
+    reports beam k's range for the world angle theta + offset +
+    k * increment while still labelling it beam k, which is a raycast from
+    a pose whose heading is offset. poses (R, 3), offset_rad (R,); returns
+    the raycast poses (numpy)."""
+    out = np.array(poses, np.float32, copy=True)
+    out[:, 2] += np.asarray(offset_rad, np.float32)
+    return out
+
+
+def apply_ghost_returns(scan_cfg: ScanConfig, ranges, frac, rng,
+                        short_max_m: float = 0.5):
+    """The `ghost_returns` fault: replace a `frac` share of the live beams,
+    drawn from the caller's `np.random.Generator`, with spurious short
+    ranges in [range_min, short_max_m]. ranges (padded_beams,); returns a
+    modified float32 copy (numpy)."""
+    out = np.array(ranges, np.float32, copy=True)
+    n = scan_cfg.n_beams
+    mask = rng.random(n) < frac
+    ghosts = rng.uniform(scan_cfg.range_min_m, short_max_m, n)
+    out[:n] = np.where(mask, ghosts.astype(np.float32), out[:n])
+    return out
 
 
 def ir_proximity(world: torch.Tensor, world_res_m: float, poses: torch.Tensor,

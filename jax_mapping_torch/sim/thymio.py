@@ -13,6 +13,7 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from jax_mapping_torch._util import linspace_f32
@@ -63,3 +64,12 @@ def step_fleet(robot: RobotConfig, state: FleetSimState,
                         device=actual.device)
     measured = actual * (1.0 + speed_noise_frac * n)
     return FleetSimState(poses=poses, wheel_speeds=actual), measured
+
+
+def apply_wheel_slip(measured, slip_factor):
+    """The `wheel_slip` fault: the measured wheel speeds (R, 2) times a
+    per-robot factor (R,) (1.0 is healthy) while the true motion is
+    untouched, so odometry integrates motion the robot did not make.
+    numpy in, numpy out."""
+    return np.asarray(measured) * np.asarray(slip_factor,
+                                             np.float32)[:, None]

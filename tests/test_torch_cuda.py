@@ -20,7 +20,9 @@ and K3 run each field as one thread-block cluster of row slabs up to
 512^2 and one launch a sweep above; their cases reach cluster sizes 16, 8
 and 4 (through the number of fields) and both routes, on paths through
 every slab boundary. Other slab splits are held on the CPU by the plain
-mirror in tests/test_torch_frontier_sweeps.py.
+mirror in tests/test_torch_frontier_sweeps.py. The recovery path's cases
+put K1 on the relocalizer's, the bucketed and touched fuses' and the
+rendezvous merge's batches, card against CPU.
 """
 
 import dataclasses
@@ -745,3 +747,111 @@ def test_incremental_publish_on_card_equals_cpu(dev, name):
     assert _cuda.LAUNCHES["label_prop"] > 0
     if name != "euclid0":
         assert _cuda.LAUNCHES["costfield_relax"] > 0
+
+
+# ---------------------------------------------------------------------------
+# The recovery path: relocalization, the bucketed and touched fuses, the
+# rendezvous merge (K1 on their batches)
+# ---------------------------------------------------------------------------
+
+def _near(a, b, m):
+    d = np.abs(np.asarray(a) - np.asarray(b))
+    return (d[:2].max() <= m.fine_step_m + 1e-5
+            and d[2] <= m.fine_angle_step_rad + 1e-5)
+
+
+@pytest.mark.parametrize("pruned", [True, False])
+def test_relocalization_on_card_equals_cpu(dev, pruned):
+    """Attempts on the card (K1 rasters) and on the CPU (plain) from the
+    same numpy scan and guess: the same streak and cache counters, poses
+    within the matcher's tolerance (its convolution rounds differently on
+    the two devices). With the default device set to `meta`, the card's
+    attempt still runs: it builds every tensor on the grid's device."""
+    from jax_mapping_torch import recovery as RC
+    cfg = tiny_config(2)
+    cfg = cfg.replace(matcher=dataclasses.replace(cfg.matcher,
+                                                  pruned=pruned))
+    grid, ranges, guess = KI.reloc_inputs(cfg)
+    card, cpu = (RC.Relocalizer(cfg.recovery, 1) for _ in range(2))
+    grid_d = grid.to(dev)
+    _cuda.reset_launches()
+    verified = 0
+    for k in range(4):
+        kw = dict(region_rev_fn=lambda *a: 3)
+        if k == 3:
+            with torch.device("meta"):
+                a = card.attempt_for(0, cfg, grid_d, ranges.numpy(),
+                                     guess.numpy(), **kw)
+        else:
+            a = card.attempt_for(0, cfg, grid_d, ranges.numpy(),
+                                 guess.numpy(), **kw)
+        b = cpu.attempt_for(0, cfg, grid, ranges.numpy(), guess.numpy(),
+                            **kw)
+        assert (a is None) == (b is None)
+        if a is not None:
+            verified += 1
+            assert _near(a, b, cfg.matcher)
+    assert verified == 2
+    assert card.snapshot() == cpu.snapshot()
+    assert _cuda.LAUNCHES["sensor_model_raster"] > 0
+    res = RC.relocalize_match(cfg, grid_d, ranges.to(dev), guess.to(dev))
+    want = RC.relocalize_match(cfg, grid, ranges, guess)
+    assert bool(res.accepted[0]) == bool(want.accepted[0])
+    assert _near(res.pose[0].cpu(), want.pose[0], cfg.matcher)
+
+
+@pytest.mark.parametrize("B", [0, 1, 5, 37, 100])
+@pytest.mark.parametrize("name", ["tiny", "default"])
+def test_fuse_scans_bucketed_on_card_equals_cpu(dev, name, B):
+    cfg = CONFIGS[name]()
+    r, p, _ = _scan_batch(cfg, B, seed=B + 3)
+    m = torch.rand(B, generator=torch.Generator().manual_seed(B)) < 0.7
+    g0 = torch.zeros((cfg.grid.size_cells,) * 2)
+    g0[::7, ::5] = 1.5
+    for mask in (None, m):
+        want = G.fuse_scans_bucketed(cfg.grid, cfg.scan, g0, r, p, mask)
+        got = G.fuse_scans_bucketed(
+            cfg.grid, cfg.scan, g0.to(dev), r.to(dev), p.to(dev),
+            None if mask is None else mask.to(dev))
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("name", ["tiny", "default"])
+def test_fuse_scans_touched_on_card_equals_cpu(dev, name, masked):
+    cfg = CONFIGS[name]()
+    tile = 16 if name == "tiny" else 256
+    r, p, _ = _scan_batch(cfg, 24, seed=5)
+    m = (torch.rand(24, generator=torch.Generator().manual_seed(1)) < 0.5
+         if masked else None)
+    g0 = torch.zeros((cfg.grid.size_cells,) * 2)
+    want, wt = FK.fuse_scans_touched(cfg.grid, cfg.scan, tile, g0, r, p, m)
+    got, gt = FK.fuse_scans_touched(cfg.grid, cfg.scan, tile, g0.to(dev),
+                                    r.to(dev), p.to(dev),
+                                    None if m is None else m.to(dev))
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(gt.cpu(), wt) and gt.any()
+
+
+def test_rendezvous_merge_on_card_equals_cpu(dev):
+    """merge_fleets on the card (K1 deltas) and on the CPU: without an
+    anchor the grids are equal; with one, graph poses agree to the
+    Gauss-Newton tolerance (1e-3: the Cholesky solves round differently)
+    and at most 1e-3 of the cells differ."""
+    from jax_mapping_torch.scenarios import rendezvous as RV
+    cfg = tiny_config(2)
+    T = np.array([0.9, -0.7, 0.6], np.float32)
+    a_cpu, b_cpu = KI.tiny_fleets(cfg, T)
+    a_dev, b_dev = KI.tiny_fleets(cfg, T, dev)
+    _cuda.reset_launches()
+    g1, _ = RV.merge_fleets(cfg, a_dev, b_dev, T)
+    g0, _ = RV.merge_fleets(cfg, a_cpu, b_cpu, T)
+    assert torch.equal(g1.cpu(), g0)
+    assert _cuda.LAUNCHES["sensor_model_delta"] > 0
+    anchor = (1, a_cpu[1].graph.poses[5].numpy() + np.float32(0.02))
+    g1, m1 = RV.merge_fleets(cfg, a_dev, b_dev, T, anchor=anchor)
+    g0, m0 = RV.merge_fleets(cfg, a_cpu, b_cpu, T, anchor=anchor)
+    for x, y in zip(m1, m0):
+        torch.testing.assert_close(x.graph.poses.cpu(), y.graph.poses,
+                                   rtol=0, atol=1e-3)
+    assert (g1.cpu() != g0).float().mean() <= 1e-3

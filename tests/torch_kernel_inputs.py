@@ -7,9 +7,9 @@ K7): poses at the edges of the (tile, image) cull and the z interval
 (tests/test_torch_voxel_tiles.py). The exploration path's inputs: the
 incremental publish's seeded missions
 (tests/test_torch_frontier_incremental.py) and the planner's walled map
-(tests/test_torch_planner.py). Plain numpy and PyTorch; no pytest and no
-JAX, so chip_smoke.py and the card tests can import it on the card's
-machine.
+(tests/test_torch_planner.py). The rendezvous merge's stand-in mapper
+(`StandInMapper`). Plain numpy and PyTorch; no pytest and no JAX, so
+chip_smoke.py and the card tests can import it on the card's machine.
 """
 
 import math
@@ -320,3 +320,114 @@ def walled_map(cfg):
     goal = np.array([ox + (n // f.downsample - 10) * res, oy + 10 * res],
                     np.float32)
     return lo, sealed, {"start": start, "goal": goal}
+
+
+# ---------------------------------------------------------------------------
+# Rendezvous merge (RendezvousMerger's mapper interface)
+# ---------------------------------------------------------------------------
+
+def _host(x) -> np.ndarray:
+    """A tensor (torch, or any array type numpy reads) as numpy."""
+    if torch.is_tensor(x):
+        x = x.detach().cpu()
+    return np.asarray(x)
+
+
+class StandInMapper:
+    """The four members `RendezvousMerger` reads of a mapper, over a list
+    of SlamStates that share one grid: `.states`, `.n_robots`,
+    `.graph_snapshot(i)` and `.merged_grid()`. Works on either package's
+    states (numpy reads torch tensors through `_host`, JAX arrays
+    directly)."""
+
+    def __init__(self, states, max_poses: int):
+        self.states = list(states)
+        self.n_robots = len(self.states)
+        self.max_poses = max_poses
+
+    def graph_snapshot(self, i: int):
+        st = self.states[i]
+        cap = self.max_poses
+        return (0, _host(st.graph.poses[:cap]).astype(np.float32),
+                _host(st.graph.pose_valid[:cap]).astype(bool),
+                int(st.graph.n_poses), int(st.n_keyscans))
+
+    def merged_grid(self):
+        return self.states[0].grid
+
+
+def reloc_inputs(cfg, device="cpu"):
+    """A relocalization case at tiny_config: rooms_world(256) fused from 16
+    poses on a 1.6 m circle, a scan at (1.0, 0.4, 0.3) and a guess
+    (0.06, -0.05, 0.08) off it. Returns (grid, ranges, guess) on
+    `device`."""
+    from jax_mapping_torch.ops import grid as G
+    from jax_mapping_torch.sim import lidar
+    from jax_mapping_torch.sim import world as W
+    g, s = cfg.grid, cfg.scan
+    world = torch.as_tensor(W.rooms_world(g.size_cells, g.resolution_m))
+    ns = int(s.range_max_m / (g.resolution_m * 0.5))
+    k = torch.arange(16, dtype=torch.float32)
+    poses = torch.stack([1.6 * torch.cos(k / 3), 1.6 * torch.sin(k / 3),
+                         k * 0.3], 1)
+    scans = lidar.simulate_scans(s, world, g.resolution_m, ns, poses)
+    grid = G.fuse_scans(g, s, G.empty_grid(g, "cpu"), scans, poses)
+    truth = torch.tensor([1.0, 0.4, 0.3])
+    ranges = lidar.simulate_scans(s, world, g.resolution_m, ns,
+                                  truth[None])[0]
+    guess = truth + torch.tensor([0.06, -0.05, 0.08])
+    return grid.to(device), ranges.to(device), guess.to(device)
+
+
+def tiny_fleets(cfg, T, device="cpu"):
+    """Two fleets for the rendezvous merge at tiny_config: fleet A is two
+    robots along short paths in rooms_world(256)'s centre room (graph
+    poses, key-scan rings, one grid fused from their scans); fleet B is
+    the same robots in a frame that T (B -> A) maps onto A's, on a grid
+    re-fused in that frame. Returns (states_a, states_b) on `device`."""
+    from jax_mapping_torch.models import slam as S
+    from jax_mapping_torch.ops import grid as G
+    from jax_mapping_torch.ops import posegraph as PG
+    from jax_mapping_torch.scenarios import rendezvous as RV
+    from jax_mapping_torch.sim import lidar
+    from jax_mapping_torch.sim import world as W
+    g, s = cfg.grid, cfg.scan
+    world = torch.as_tensor(W.rooms_world(g.size_cells, g.resolution_m))
+    ns = int(s.range_max_m / (g.resolution_m * 0.5))
+    k = torch.arange(6, dtype=torch.float32)
+    paths = [torch.stack([-0.6 + 0.15 * k, 0.4 + 0.05 * k, 0.1 * k], 1),
+             torch.stack([0.7 - 0.05 * k, -0.5 + 0.15 * k, 1.6 + 0.12 * k],
+                         1)]
+    states, scans_all = [], []
+    for path in paths:
+        scans = lidar.simulate_scans(s, world, g.resolution_m, ns, path)
+        st = S.init_state(cfg, path[0], "cpu")
+        gr, ring = st.graph, st.scan_ring.clone()
+        for i in range(len(path)):
+            gr = PG.add_pose(gr, path[i])
+            if i:
+                gr = PG.odometry_edge(gr, i - 1, i)
+            ring[i] = scans[i]
+        states.append(st._replace(pose=path[-1], last_key_pose=path[-1],
+                                  graph=gr, scan_ring=ring,
+                                  n_keyscans=torch.tensor(len(path),
+                                                          dtype=torch.int32)))
+        scans_all.append(scans)
+    grid_a = G.fuse_scans(g, s, G.empty_grid(g, "cpu"),
+                          torch.cat(scans_all), torch.cat(paths))
+    t_inv = RV.se2_from_pair(np.zeros(3, np.float32), T)
+    moved = [RV.transform_state(st, t_inv) for st in states]
+    cap = cfg.loop.max_poses
+    grid_b = G.empty_grid(g, "cpu")
+    for st in moved:
+        grid_b = G.fuse_scans_masked(g, s, grid_b, st.scan_ring,
+                                     st.graph.poses[:cap],
+                                     st.graph.pose_valid[:cap])
+
+    def on(st, grid):
+        return type(st)(*(x.to(device) if torch.is_tensor(x) else
+                          type(x)(*(y.to(device) for y in x))
+                          for x in st._replace(grid=grid)))
+
+    return ([on(st, grid_a) for st in states],
+            [on(st, grid_b) for st in moved])
