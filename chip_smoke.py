@@ -84,6 +84,23 @@ Phases, each printed as one JSON line:
            `fuse_scans_touched` at 64, each grid bit-equal to
            `fuse_scans_masked` / `fuse_scans`, the touched tiles to a
            host recomputation
+  tenancy  slice 9's main path: `megabatch_tick` over missions of the
+           default SlamConfig with lane health armed, mission t on
+           rooms_world(4096, 0.05, seed=1 + t) with its robots near
+           walls; 10 ticks at 3 tenants (bucket 3) and at 5 in bucket 6
+           (a pad lane). Counts are zeroed before each run's ticks and
+           read after: K1-K3 must launch, K2 once and K3 three times a
+           tick for all tenants. Per run: tick p50/p90, ms per mission
+           step, the solo tick on the same worlds and the ratio, host
+           syncs of ticks 1-3, pending hops, peak memory, every lane
+           against its solo run on the card (bit-equal on the exact
+           ladder), the pad lane frozen, occupied cells and accepted
+           matches per tenant (all robots, and key robots), and the
+           megabatch's matcher with and without its per-lane split
+           against solo calls (mismatches, ms; the split must match).
+           Then one lane's grid poisoned with a NaN:
+           only its word sets HEALTH_NONFINITE, the co-tenants stay on
+           their solo runs, and the words fold through LaneHealthLadder
   window   the bench's window workload: 256 scans on a 0.4 m loop into
            the 4096^2 grid through `fuse_scans_window` (K5), and 1024
            scans (K4 subtotals of 512, then one apply)
@@ -112,12 +129,15 @@ Phases, each printed as one JSON line:
            the recovery path's own batches (deltas 48, the bucket of 37;
            the relocalizer's wide stage on the 0.2 m view, rasters 21 and
            529), and every K1 row with its launches on the recovery,
-           rendezvous and fuse_paths phases
+           rendezvous, fuse_paths and tenancy phases. K1 at the
+           megabatch's batches (3 x 8 deltas, 3 x 168 and 3 x 392
+           rasters), K2 over 3 tenants' masks in one launch and K3 over
+           their 24 fields under a mask each
   parity   a tiny mission, each tick run on the card and on the CPU from
            the same state with the same wheel noise; then with each
            frontier option on (the assignment must agree exactly); one
            relocalization streak and one merge (tiny_config), card
-           against CPU
+           against CPU; a micro_config megabatch of 3 missions, 6 ticks
   slam_parity  a tiny single robot, window and single steps, each run on
            the card and on the CPU from the same state
   voxel    slice 3's main path, the voxel mapper's device work: 8 robots
@@ -746,7 +766,7 @@ def phase_profile(torch, cfg, st, world, seed: int, ticks: int = 3):
 
 def phase_kernels(torch, cfg, world, mapped, seed: int, fleet: dict,
                   mapper: dict, voxel: tuple, explore: tuple,
-                  new_paths: dict):
+                  new_paths: dict, tenancy: dict):
     """Each kernel against its plain version at the main path's shapes.
     The scans are taken near walls and the frontier comes from `mapped`,
     the re-fused map, so that every kernel sees non-trivial input; the
@@ -790,6 +810,8 @@ def phase_kernels(torch, cfg, world, mapped, seed: int, fleet: dict,
                              new_paths=new_paths)
     rows.update(recovery_k1_rows(torch, cfg, world, gen, fleet, mapper,
                                  new_paths))
+    rows.update(tenancy_kernel_rows(torch, cfg, world, gen, fleet, mapper,
+                                    new_paths, tenancy))
 
     # K2: the 256^2 clustering mask of the fused map's frontier.
     fcfg = cfg.frontier
@@ -1081,9 +1103,15 @@ def phase_parity(torch, seed: int, ticks: int = 6, option_ticks: int = 4):
         options[name] = _parity_mission(torch, cfg, seed, option_ticks)
     n_cells = base.grid.size_cells ** 2
     recovery = _parity_recovery(torch)
+    megabatch = _parity_megabatch(torch, seed)
     emit({"phase": "parity", "config": "tiny_config(2)", "ticks": ticks,
           "worst": worst, "option_ticks": option_ticks, "options": options,
-          "recovery": recovery, "cells_total": n_cells})
+          "recovery": recovery, "cells_total": n_cells,
+          "megabatch": megabatch})
+    check(megabatch["pose_m"] <= 1e-2,
+          f"parity (megabatch): estimates differ by {megabatch}")
+    check(megabatch["cells"] <= 1e-3 * megabatch["cells_total"],
+          f"parity (megabatch): {megabatch['cells']} grid cells differ")
     for name, w in (("default", worst), *options.items()):
         check(w["pose_m"] <= 1e-2 and w["yaw_rad"] <= 1e-2,
               f"parity ({name}): estimates differ by {w}")
@@ -3312,6 +3340,461 @@ def _parity_recovery(torch) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice 9: the tenant megabatch
+# ---------------------------------------------------------------------------
+
+#: (active tenants, bucket) of the tenancy phase's runs: bucket 3 full,
+#: then 5 tenants in bucket 6 (one pad lane).
+TENANT_RUNS = ((3, 3), (5, 6))
+TENANT_TICKS = 10
+
+
+class HopCount:
+    """Counts the solo `fleet_step` calls (pending hops) made while the
+    context is open."""
+
+    def __enter__(self):
+        from jax_mapping_torch.models import fleet as FL
+        self.fl, self.orig, self.n = FL, FL.fleet_step, 0
+
+        def counted(*args, **kwargs):
+            self.n += 1
+            return self.orig(*args, **kwargs)
+        FL.fleet_step = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.fl.fleet_step = self.orig
+
+
+def _tenant_missions(torch, cfg, n: int, seed: int):
+    """n missions of the default config: mission t on rooms_world(4096,
+    0.05, seed=1 + t), its robots started near walls (`_poses_near_walls`)
+    so that every mission maps walls from its first tick."""
+    from jax_mapping_torch.models import fleet as FL
+    from jax_mapping_torch.sim import world as Wd
+    states, worlds = [], []
+    for t in range(n):
+        gen = torch.Generator().manual_seed(seed + 100 + t)
+        w = torch.as_tensor(Wd.rooms_world(cfg.grid.size_cells,
+                                           cfg.grid.resolution_m,
+                                           seed=1 + t), device=DEV)
+        st = FL.init_fleet_state(cfg, device=DEV, generator=gen)
+        p = _poses_near_walls(torch, cfg, w, cfg.fleet.n_robots, gen)
+        states.append(st._replace(sim=st.sim._replace(poses=p.clone()),
+                                  est_poses=p.clone()))
+        worlds.append(w)
+    return states, worlds
+
+
+def _tree_equal(torch, a, b) -> bool:
+    from jax_mapping_torch.tenancy import megabatch as MB
+    out = []
+    MB._tree_map(lambda x, y: out.append(bool(torch.equal(x, y))), a, b)
+    return all(out)
+
+
+def _tree_max_diff(torch, a, b) -> float:
+    from jax_mapping_torch.tenancy import megabatch as MB
+    out = [0.0]
+
+    def d(x, y):
+        if not torch.equal(x, y):
+            out.append(float((x.double() - y.double()).abs().nan_to_num(
+                posinf=1e30).max()) if x.is_floating_point() else 1.0)
+    MB._tree_map(d, a, b)
+    return max(out)
+
+
+def _solo_runs(torch, cfg, states, worlds, normals, ticks: int):
+    """Each mission's solo `fleet_step` run on the card with its lane's
+    normals: (final states, tick ms, host syncs of mission 0's ticks 1-3,
+    peak bytes)."""
+    from jax_mapping_torch.models import fleet as FL
+    res = cfg.grid.resolution_m
+    finals, ms, syncs = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for t, (st, w) in enumerate(zip(states, worlds)):
+        for k in range(ticks):
+            t0 = time.perf_counter()
+            if t == 0 and 1 <= k <= 3:
+                (st, _d), n = _count_syncs(torch, lambda: FL.fleet_step(
+                    cfg, st, res, w, wheel_normals=normals[k][t]))
+                syncs.append(n)
+            else:
+                st, _d = FL.fleet_step(cfg, st, res, w,
+                                       wheel_normals=normals[k][t])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        finals.append(st)
+    return finals, ms, syncs, torch.cuda.max_memory_allocated()
+
+
+def _tenant_run(torch, cfg, n_active: int, bucket: int, seed: int) -> dict:
+    from jax_mapping_torch.ops import _cuda
+    from jax_mapping_torch.tenancy import megabatch as MB
+    res = cfg.grid.resolution_m
+    R = cfg.fleet.n_robots
+    states, worlds = _tenant_missions(torch, cfg, n_active, seed)
+    batch0 = MB.make_tenant_batch(states, worlds, list(range(n_active)),
+                                  capacity=bucket)
+    gen = torch.Generator().manual_seed(seed + 7 * bucket)
+    normals = [torch.randn((bucket, R, 2), generator=gen).to(DEV)
+               for _ in range(TENANT_TICKS)]
+    b = batch0
+    tick_ms, syncs, words, keys = [], [], [], []
+    accepted = torch.zeros(bucket, dtype=torch.int64)
+    accepted_key = torch.zeros(bucket, dtype=torch.int64)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    with BatchCount(cfg.grid) as bc, HopCount() as hops:
+        for k in range(TENANT_TICKS):
+            t0 = time.perf_counter()
+            if 1 <= k <= 3:
+                (b, diag, h), n = _count_syncs(torch, lambda: MB.megabatch_tick(
+                    cfg, b, res, wheel_normals=normals[k]))
+                syncs.append(n)
+            else:
+                b, diag, h = MB.megabatch_tick(cfg, b, res,
+                                               wheel_normals=normals[k])
+            torch.cuda.synchronize()
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
+            words.append([int(x) for x in h])
+            keys.append(diag.is_key.sum(dim=1).tolist())
+            ok = diag.match_response >= cfg.matcher.min_response
+            accepted += ok.sum(dim=1).cpu()
+            accepted_key += (ok & diag.is_key).sum(dim=1).cpu()
+    launches = dict(_cuda.LAUNCHES)
+    routes = {k: dict(v) for k, v in _cuda.ROUTES.items()}
+    peak = torch.cuda.max_memory_allocated()
+    occ = (b.states.grid > cfg.grid.occ_threshold).flatten(1).sum(1).cpu()
+
+    solo, solo_ms, solo_syncs, solo_peak = _solo_runs(
+        torch, cfg, states, worlds, normals, TENANT_TICKS)
+    equal = [_tree_equal(torch, MB.lane_state(b, t), solo[t])
+             for t in range(n_active)]
+    diffs = [_tree_max_diff(torch, MB.lane_state(b, t), solo[t])
+             for t in range(n_active)]
+    pad_frozen = [_tree_equal(torch, MB.lane_state(b, t),
+                              MB.lane_state(batch0, t))
+                  for t in range(n_active, bucket)]
+    steady = tick_ms[1:]
+    p = _p50_p90(steady)
+    solo_p = _p50_p90(solo_ms)
+    out = {
+        "tenants": n_active, "bucket": bucket, "ticks": TENANT_TICKS,
+        "robots_per_tenant": R, "tick_ms": tick_ms,
+        "tick_p50_ms": p["p50"], "tick_p90_ms": p["p90"],
+        "ms_per_mission_step": p["p50"] / n_active,
+        "solo_tick_p50_ms": solo_p["p50"], "solo_tick_p90_ms": solo_p["p90"],
+        "speedup_vs_sequential_solo": solo_p["p50"] * n_active / p["p50"],
+        "host_syncs_ticks_1_to_3": syncs,
+        "solo_host_syncs_ticks_1_to_3": solo_syncs,
+        "pending_hops": hops.n, "launches": launches,
+        "launches_per_tick": {k: v / TENANT_TICKS
+                              for k, v in launches.items()},
+        "routes": routes,
+        "k1_launches_per_tick_by_batch": bc.per_tick(TENANT_TICKS),
+        "k1_launches_by_batch": bc.n,
+        "peak_bytes": peak, "solo_peak_bytes": solo_peak,
+        "lanes_bit_equal_solo": equal, "lane_max_abs_diff": diffs,
+        "pad_lanes_frozen": pad_frozen,
+        "occupied_cells": occ[:n_active].tolist(),
+        "accepted_matches": accepted[:n_active].tolist(),
+        "accepted_key_matches": accepted_key[:n_active].tolist(),
+        "key_robots_per_tick": keys, "health_words": words}
+    return out, b, solo, worlds
+
+
+def _matcher_split(torch, cfg, b) -> dict:
+    """The megabatch's `match_batch` (every lane's scans at its sim poses
+    against its own grid) with the per-lane split of the reductions and
+    correlations, without it, and as one solo call a lane: mismatched
+    elements of each field against the solo calls, and CUDA-event ms."""
+    from jax_mapping_torch.ops import scan_match as M
+    from jax_mapping_torch.sim import lidar
+    res = cfg.grid.resolution_m
+    ns = int(cfg.scan.range_max_m / (res * 0.5))
+    B, R = b.active.shape[0], cfg.fleet.n_robots
+    ten = torch.arange(B, device=b.states.grid.device).repeat_interleave(R)
+    scans = lidar.simulate_scans(cfg.scan, b.worlds, res, ns,
+                                 b.states.sim.poses.reshape(B * R, 3),
+                                 tenant=ten)
+    est = b.states.est_poses.reshape(B * R, 3)
+
+    def batched():
+        return M.match_batch(cfg.grid, cfg.scan, cfg.matcher,
+                             b.states.grid, scans, est, tenant=ten)
+
+    def solo():
+        return [M.match_batch(cfg.grid, cfg.scan, cfg.matcher,
+                              b.states.grid[t], scans[t * R:(t + 1) * R],
+                              est[t * R:(t + 1) * R]) for t in range(B)]
+
+    want = M.MatchResult(*(torch.cat(x) for x in zip(*solo())))
+
+    def diff(got):
+        return {f: compare(x, y)
+                for f, x, y in zip(M.MatchResult._fields, got, want)}
+
+    out = {"split_mismatches": diff(batched()),
+           "split_ms": cuda_ms(batched, reps=3, warmup=1),
+           "solo_calls_ms": cuda_ms(solo, reps=3, warmup=1)}
+    split = M._per_lane
+    M._per_lane = lambda fn, *xs: fn(*xs)
+    try:
+        out["whole_mismatches"] = diff(batched())
+        out["whole_ms"] = cuda_ms(batched, reps=3, warmup=1)
+    finally:
+        M._per_lane = split
+    return out
+
+
+def _check_tenant_run(out: dict) -> None:
+    from jax_mapping_torch.tenancy import megabatch as MB
+    n_active, words = out["tenants"], out["health_words"]
+    launches, routes = out["launches"], out["routes"]
+    check(all(w == 0 for ws in words for w in ws),
+          f"tenancy T={n_active}: a health word is set on a clean run")
+    for name in FLEET_KERNELS:
+        check(launches[name] > 0,
+              f"tenancy: kernel {name} never launched on the megabatch path")
+    for name, per_tick in FLEET_SWEEP_LAUNCHES.items():
+        check(launches[name] == per_tick * TENANT_TICKS,
+              f"tenancy T={n_active}: {name} launched {launches[name]} "
+              f"times in {TENANT_TICKS} ticks, not {per_tick} a tick")
+        check(all(r.startswith("cluster") for r in routes[name]),
+              f"tenancy: {name} left the cluster route: {routes[name]}")
+    check(all(out["pad_lanes_frozen"]),
+          f"tenancy T={n_active}: a pad lane moved")
+    check(all(o > 0 for o in out["occupied_cells"]),
+          f"tenancy T={n_active}: a tenant mapped no wall")
+    check(all(a > 0 for a in out["accepted_matches"]),
+          f"tenancy T={n_active}: a tenant accepted no match")
+    check(not any(v["mismatches"] for v in
+                  out["matcher_split"]["split_mismatches"].values()),
+          f"tenancy T={n_active}: the split matcher differs from solo")
+    if out["bucket"] in MB.EXACT_BUCKETS:
+        check(all(out["lanes_bit_equal_solo"]),
+              f"tenancy: bucket {out['bucket']} is on the exact ladder but "
+              f"lanes differ from solo: {out['lane_max_abs_diff']}")
+
+
+def _tenant_health(torch, cfg, b, solo, worlds, seed: int) -> dict:
+    """Lane 1's grid poisoned with a NaN before ticks 0, 2 and 3 of four
+    (cleared before tick 1): only lane 1's word may carry
+    HEALTH_NONFINITE, the co-tenants stay bit-equal to their solo runs,
+    and the words fold through `LaneHealthLadder`."""
+    from jax_mapping_torch.models import fleet as FL
+    from jax_mapping_torch.tenancy import lanehealth as LH
+    from jax_mapping_torch.tenancy import megabatch as MB
+    res = cfg.grid.resolution_m
+    n = cfg.grid.size_cells // 2
+    B, R = b.active.shape[0], cfg.fleet.n_robots
+    gen = torch.Generator().manual_seed(seed + 31)
+    ladder = LH.LaneHealthLadder(cfg.tenancy)
+    words = []
+    solo = list(solo)
+    for k, poison in enumerate((True, False, True, True)):
+        grid = b.states.grid.clone()
+        grid[1, n, n] = float("nan") if poison else 0.0
+        b = b._replace(states=b.states._replace(grid=grid))
+        normals = torch.randn((B, R, 2), generator=gen).to(DEV)
+        b, _diag, h = MB.megabatch_tick(cfg, b, res, wheel_normals=normals)
+        words.append([int(x) for x in h])
+        for t in (0, 2):
+            solo[t], _ = FL.fleet_step(cfg, solo[t], res, worlds[t],
+                                       wheel_normals=normals[t])
+        for t, w in enumerate(h):
+            ladder.observe(f"m{t}", int(w), k)
+    co_equal = [_tree_equal(torch, MB.lane_state(b, t), solo[t])
+                for t in (0, 2)]
+    out = {"poisoned_lane": 1, "poisoned_ticks": [0, 2, 3],
+           "health_words": words, "co_tenants_bit_equal_solo": co_equal,
+           "ladder_transitions": [list(x) for x in ladder.transitions],
+           "ladder_states": {f"m{t}": ladder.state(f"m{t}")
+                             for t in range(B)}}
+    return out
+
+
+def _check_tenant_health(out: dict, B: int) -> None:
+    from jax_mapping_torch.tenancy import lanehealth as LH
+    from jax_mapping_torch.tenancy import megabatch as MB
+    words = out["health_words"]
+    check(all(words[k][1] & MB.HEALTH_NONFINITE for k in (0, 2, 3)),
+          "tenancy: the poisoned lane's word lacks HEALTH_NONFINITE")
+    check(all(w[t] == 0 for w in words for t in range(B) if t != 1),
+          "tenancy: a co-tenant's health word is set")
+    check(all(out["co_tenants_bit_equal_solo"]),
+          "tenancy: a co-tenant of the poisoned lane moved off its solo run")
+    check(out["ladder_states"]["m1"] == LH.QUARANTINED,
+          "tenancy: the poisoned lane was not quarantined")
+
+
+def phase_tenancy(torch, cfg, seed: int):
+    """Slice 9's main path: `megabatch_tick` over missions of the default
+    config (TenancyConfig(enabled=True, lane_health=True)), each on its own
+    rooms_world(4096, 0.05, seed=1 + t) with its robots near walls, 10
+    ticks at 3 tenants (bucket 3) and at 5 in bucket 6 (one pad lane).
+    Launch counts are zeroed before each run's ticks and read after; K2
+    must launch once and K3 three times a tick for all tenants. Every lane
+    is held against the mission's solo `fleet_step` run on the card from
+    the same state with the same normals; then the NaN-poisoned lane."""
+    from jax_mapping_torch.config import TenancyConfig
+    cfg = cfg.replace(tenancy=TenancyConfig(enabled=True, lane_health=True))
+    runs, k1, keep = {}, [], None
+    for n_active, bucket in TENANT_RUNS:
+        out, b, solo, worlds = _tenant_run(torch, cfg, n_active, bucket,
+                                           seed)
+        out["matcher_split"] = _matcher_split(torch, cfg, b)
+        runs[f"T{n_active}_in_{bucket}"] = out
+        k1.append(out.pop("k1_launches_by_batch"))
+        if keep is None:
+            keep = (b, solo, worlds)
+        del b, solo, worlds
+    b, solo, worlds = keep
+    grids, poses = b.states.grid.clone(), b.states.est_poses.clone()
+    health = _tenant_health(torch, cfg, b, solo, worlds, seed)
+    del keep, b, solo, worlds
+    out = {"phase": "tenancy", "config": "SlamConfig(), lane_health",
+           "runs": runs, "health": health}
+    emit(out)
+    for run in runs.values():
+        _check_tenant_run(run)
+    _check_tenant_health(health, TENANT_RUNS[0][1])
+    return ({"per": f"{len(TENANT_RUNS)} runs of {TENANT_TICKS} ticks",
+             "k1_launches_by_batch": _k1_sum(k1)},
+            {"grids": grids, "poses": poses}, out)
+
+
+def tenancy_kernel_rows(torch, cfg, world, gen, fleet: dict, mapper: dict,
+                        new_paths: dict, tenancy: dict) -> dict:
+    """K1 at the megabatch's batches (T = 3: rasters 3 x 168 and 3 x 392,
+    deltas 3 x 8), K2 over the 3 tenants' 256^2 clustering masks in one
+    launch, K3 over their 3 x 8 fields under a mask each (three levels):
+    exact against the plain versions, bounds T times the solo rows'."""
+    from jax_mapping_torch.ops import costfield as CF
+    from jax_mapping_torch.ops import frontier as F
+    from jax_mapping_torch.ops import grid as G
+    from jax_mapping_torch.sim import lidar
+    res = cfg.grid.resolution_m
+    n_samples = int(cfg.scan.range_max_m / (res * 0.5))
+    T, R = TENANT_RUNS[0][0], cfg.fleet.n_robots
+    rows = {}
+    guess = _poses_near_walls(torch, cfg, world, T * R, gen)
+    scans = lidar.simulate_scans(cfg.scan, world, res, n_samples, guess)
+    origins = G.patch_origin(cfg.grid, guess[:, :2]).contiguous()
+    rows[f"sensor_model_delta_tenant_b{T * R}"] = _k1_row(
+        torch, cfg, False, scans, guess, origins, fleet, mapper,
+        new_paths=new_paths)
+    for stage, per in (("coarse", 21), ("subcell", 49)):
+        r_b, p_b, o_b = _raster_inputs(torch, cfg, scans, guess, stage)
+        rows[f"sensor_model_raster_tenant_b{T * R * per}"] = _k1_row(
+            torch, cfg, True, r_b, p_b, o_b, fleet, mapper,
+            new_paths=new_paths)
+
+    fcfg = cfg.frontier
+    grids = tenancy["grids"][:T]
+    free, _occ, unknown = F.coarsen(fcfg, cfg.grid, grids)
+    mask = F.frontier_mask(free, unknown)
+    mask2 = F._pool_any(mask, fcfg.cluster_downsample).contiguous()
+    n = mask2.shape[-1]
+    iters = max(1, -(-fcfg.label_prop_iters // fcfg.cluster_downsample))
+    lin = torch.arange(n * n, dtype=torch.int32,
+                       device=grids.device).reshape(n, n)
+    seed_lab = torch.where(mask2, lin, -1).to(torch.int32)
+    sweeps = 2 * iters + 1
+    got, ran = F.label_sweeps(mask2, seed_lab, sweeps)
+    want = torch.stack([F._label_prop_plain(mask2[t], seed_lab[t], iters)
+                        for t in range(T)])
+    rows[f"label_prop_tenant_t{T}"] = dict(
+        compare(got, want), shape=[T, n, n], sweeps=sweeps, **ran,
+        mask_cells=int(mask2.sum()),
+        **_sweep_times(lambda: F.label_prop(mask2, seed_lab, iters),
+                       lambda: F._label_prop_plain(mask2, seed_lab, iters),
+                       "label", sweeps),
+        **bound(T * n * n * (1 + 4 + 4), T * sweeps * n * n * 9))
+
+    passable, bfs_res = F.bfs_passability(fcfg, cfg.grid, free, unknown,
+                                          mask)
+    blocked = ~passable
+    ox, oy = cfg.grid.origin_m
+    pose = tenancy["poses"][:T]
+    rc = torch.stack([((pose[..., 1] - oy) / bfs_res).to(torch.int32),
+                      ((pose[..., 0] - ox) / bfs_res).to(torch.int32)], -1)
+    calls = []
+
+    def relax_recorded(blk, init, iters):
+        calls.append((blk, init, iters))
+        return CF.relax_level(blk, init, iters)
+
+    got = CF.cost_fields(blocked, rc, fcfg.mg_levels, fcfg.mg_refine_iters,
+                         relax=relax_recorded)
+    want = torch.stack([CF.cost_fields(blocked[t], rc[t], fcfg.mg_levels,
+                                       fcfg.mg_refine_iters,
+                                       relax=CF._relax_level_xla)
+                        for t in range(T)])
+    levels = [dict(n=init.shape[-1], sweeps=2 * iters,
+                   **CF.relax_sweeps(blk, init, 2 * iters)[1],
+                   **_sweep_times(
+                       lambda: CF.relax_level(blk, init, iters),
+                       lambda: CF._relax_level_xla(blk, init, iters),
+                       "relax", 2 * iters))
+              for blk, init, iters in calls]
+    F_ = T * R
+    n_bytes = sum(v["n"] ** 2 * (T + 2 * 4 * F_) for v in levels)
+    n_ops = sum(17 * F_ * v["sweeps"] * v["n"] ** 2 for v in levels)
+    rows[f"costfield_relax_tenant_t{T}"] = dict(
+        compare(got, want), shape=[T, R, n, n],
+        reachable_cells=int((want < CF._BIG).sum()), levels=levels,
+        **{k: (None if None in [v[k] for v in levels]
+               else sum(v[k] for v in levels))
+           for k in ("ms", "device_ms", "plain_ms")},
+        **bound(n_bytes, n_ops))
+    return rows
+
+
+def _parity_megabatch(torch, seed: int, T: int = 3, ticks: int = 6) -> dict:
+    """A micro_config megabatch of T missions, each tick run on the card
+    and on the CPU from the same CPU batch with the same normals."""
+    from jax_mapping_torch import interop
+    from jax_mapping_torch.config import micro_config
+    from jax_mapping_torch.models import fleet as FL
+    from jax_mapping_torch.sim import world as Wd
+    from jax_mapping_torch.tenancy import megabatch as MB
+    cfg = micro_config(2)
+    res = cfg.grid.resolution_m
+    gen = torch.Generator().manual_seed(seed + 5)
+    states = [FL.init_fleet_state(cfg, device="cpu", generator=gen)
+              for _ in range(T)]
+    worlds = [Wd.rooms_world(64, res, seed=1 + t) for t in range(T)]
+    b = MB.make_tenant_batch(states, worlds, list(range(T)))
+    worst = {"config": f"micro_config(2) x {T}", "ticks": ticks,
+             "pose_m": 0.0, "cells": 0, "keys": 0,
+             "cells_total": T * cfg.grid.size_cells ** 2}
+    for _ in range(ticks):
+        normals = torch.randn((b.active.shape[0], 2, 2), generator=gen)
+        on_card = interop.tenant_batch_from_numpy(
+            interop.tenant_batch_to_numpy(b), "cuda")
+        g, gd, _h = MB.megabatch_tick(cfg, on_card, res,
+                                      wheel_normals=normals)
+        b, cd, _h = MB.megabatch_tick(cfg, b, res, wheel_normals=normals)
+        check(torch.equal(gd.is_key.cpu(), cd.is_key),
+              "parity megabatch: key gate")
+        check(torch.equal(gd.frontiers.assignment.cpu(),
+                          cd.frontiers.assignment),
+              "parity megabatch: assignment")
+        worst["keys"] += int(cd.is_key.sum())
+        dp = (g.states.est_poses.cpu() - b.states.est_poses).abs()
+        worst["pose_m"] = max(worst["pose_m"], float(dp.max()))
+        worst["cells"] = max(worst["cells"], int(
+            (g.states.grid.cpu() != b.states.grid).sum()))
+    return worst
+
+
 def phase_ab(parent: str, seed: int) -> dict:
     """K1-K7 of the tree `parent` and of this one, timed in turns (parent,
     change, change, parent) on this card, each run in a process of its own
@@ -3432,16 +3915,19 @@ def main(argv=None) -> int:
             "rendezvous": phase_rendezvous(torch, cfg, args.seed)[0],
             "fuse_paths": phase_fuse_paths(torch, cfg, publisher.grid,
                                            args.seed)[0]}
+        new_paths["tenancy"], tenancy, tenancy_out = phase_tenancy(
+            torch, cfg, args.seed)
         phase_window(torch, cfg)
         vstate = phase_voxel(torch, cfg)
         bench = phase_voxel_bench(torch, cfg)
         phase_voxel_region(torch, cfg, vstate)
         rows = phase_kernels(torch, cfg, world, mapped, args.seed, fleet,
                              mapper, (vstate, bench, vstate["out"]),
-                             (publisher.grid, publisher, planned), new_paths)
+                             (publisher.grid, publisher, planned), new_paths,
+                             tenancy)
         voxel_launches = vstate["out"]["launches"]
         voxel_summed_launches = bench["launches"]["voxel_summed"]
-        del mapped, world, st, vstate, bench, publisher, planned
+        del mapped, world, st, vstate, bench, publisher, planned, tenancy
         phase_parity(torch, args.seed)
         phase_slam_parity(torch, args.seed)
         phase_voxel_parity(torch, args.seed)
@@ -3471,6 +3957,10 @@ def main(argv=None) -> int:
             "bound_by": r["bound_by"],
             # No single PyTorch call computes any of these functions.
             "library_ms": None})
+        if name in FLEET_KERNELS:
+            kernels[-1]["launches_tenancy"] = sum(
+                run["launches"][name]
+                for run in tenancy_out["runs"].values())
     emit({"seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

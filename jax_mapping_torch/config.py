@@ -1,6 +1,7 @@
 """Configuration for the PyTorch port: the slice of `SlamConfig` that the
-fleet tick, the SLAM step, the planner, the voxel path and the recovery
-path read, with the JAX package's field names and defaults.
+fleet tick, the SLAM step, the planner, the voxel path, the recovery
+path and the tenant megabatch read, with the JAX package's field names
+and defaults.
 
 The dataclasses are frozen, so a config is hashable and can key caches.
 `SlamConfig.from_json` accepts the JSON that the JAX package's
@@ -327,19 +328,101 @@ class RecoveryConfig:
     blacklist_ttl_ticks: int = 300
 
 
+@_frozen
+class ServingConfig:
+    """Tiled delta-map distribution. The port serves no tiles yet; the
+    tenancy path reads `tile_cells` through `world.store.window_slam_config`."""
+
+    enabled: bool = True
+    # Tile edge in cells at every pyramid level; divides grid.size_cells.
+    tile_cells: int = 256
+    # Overview pyramid depth including level 0 (full resolution).
+    pyramid_levels: int = 3
+    # Per-client event queue bound (`/map-events`).
+    event_queue_depth: int = 4
+    # Cap on one long-poll wait or event stream, seconds.
+    event_wait_max_s: float = 30.0
+    # zlib level of tile PNGs.
+    png_compress_level: int = 6
+
+
+@_frozen
+class WorldConfig:
+    """Bounded-memory robocentric world store. The port has only the
+    window's config derivation (`world.store.window_slam_config`); with
+    `windowed` each tenant lane's grid is the window, not the logical
+    extent."""
+
+    windowed: bool = False
+    # Window edge in serving tiles: the device grid is
+    # (window_tiles * serving.tile_cells)^2 cells.
+    window_tiles: int = 8
+    # Recentring hysteresis, in tiles from the window's edge.
+    margin_tiles: int = 1
+    # Host LRU capacity, in evicted tiles.
+    host_tile_budget: int = 256
+    # Governor watermarks, as fractions of host_tile_budget.
+    host_high_watermark: float = 0.75
+    host_critical_watermark: float = 0.92
+    # Disk spill directory; "" means no disk tier.
+    spill_dir: str = ""
+    # Downsampling factor of spilled tiles under pressure.
+    retention_coarsen: int = 2
+
+
+@_frozen
+class TenancyConfig:
+    """Mission multi-tenancy: the tenant megabatch (`tenancy/megabatch.py`,
+    many independent missions stacked on a leading tenant axis and ticked
+    as one launch chain) and the lane-health ladder
+    (`tenancy/lanehealth.py`). The control-plane fields are kept for the
+    JAX package's JSON; the port has no control plane yet."""
+
+    enabled: bool = False
+    # Capacity ceiling `bucket_capacity` refuses past.
+    max_tenants: int = 64
+    # Serve capacities only from the bit-exact bucket ladder
+    # (`megabatch.EXACT_BUCKETS`); False serves {2^k} u {3 * 2^(k-1)}.
+    bit_exact_buckets: bool = True
+    # Control plane: pre-warm a bucket before admission; checkpoint on
+    # eviction.
+    prewarm_on_admit: bool = True
+    checkpoint_on_evict: bool = True
+    # Compute the per-tenant health word in the megabatch step: bit 0
+    # non-finite pose or grid delta, bit 1 a pose jump over
+    # pose_jump_max_m, bit 2 an accepted key match under match_floor.
+    lane_health: bool = False
+    pose_jump_max_m: float = 0.5
+    # 0.0 disables the match-floor bit.
+    match_floor: float = 0.0
+    # Consecutive flagged ticks before a suspect lane is quarantined.
+    quarantine_persist_ticks: int = 2
+    # Re-admission probe cadence (ticks after quarantine) and budget.
+    readmit_probe_ticks: int = 8
+    max_readmit_probes: int = 3
+    # Control plane: lifecycle journal, its compaction period, and the
+    # bound on concurrent admissions (0: unbounded).
+    journal: bool = False
+    journal_compact_every: int = 64
+    admission_queue_max: int = 0
+
+
 _SECTIONS = {
     "grid": GridConfig, "scan": ScanConfig, "robot": RobotConfig,
     "matcher": MatcherConfig, "loop": LoopClosureConfig,
     "frontier": FrontierConfig, "fleet": FleetConfig,
     "planner": PlannerConfig, "voxel": VoxelConfig,
     "depthcam": DepthCamConfig, "recovery": RecoveryConfig,
+    "serving": ServingConfig, "world": WorldConfig,
+    "tenancy": TenancyConfig,
 }
 
 
 @_frozen
 class SlamConfig:
     """The sections the fleet tick, the SLAM step, the planner, the voxel
-    path and the recovery path read, plus the operating mode."""
+    path, the recovery path and the tenant megabatch read, plus the
+    operating mode."""
 
     grid: GridConfig = GridConfig()
     scan: ScanConfig = ScanConfig()
@@ -352,6 +435,9 @@ class SlamConfig:
     voxel: VoxelConfig = VoxelConfig()
     depthcam: DepthCamConfig = DepthCamConfig()
     recovery: RecoveryConfig = RecoveryConfig()
+    serving: ServingConfig = ServingConfig()
+    world: WorldConfig = WorldConfig()
+    tenancy: TenancyConfig = TenancyConfig()
     mode: str = "mapping"
 
     def replace(self, **kw: Any) -> "SlamConfig":
@@ -405,6 +491,9 @@ def tiny_config(n_robots: int = 2) -> SlamConfig:
                                 backup_recovery_ticks=5,
                                 escalation_memory_ticks=40,
                                 blacklist_ttl_ticks=80),
+        # 4 x 4 tiles over the 256^2 grid.
+        serving=ServingConfig(tile_cells=64, pyramid_levels=3,
+                              event_wait_max_s=5.0),
     )
 
 
@@ -428,6 +517,9 @@ def micro_config(n_robots: int = 1) -> SlamConfig:
                                 label_prop_iters=16, bfs_iters=32,
                                 mg_levels=2, mg_refine_iters=4),
         fleet=FleetConfig(n_robots=n_robots, batch_scans=1),
+        # 4 x 4 tiles over the 64^2 grid.
+        serving=ServingConfig(tile_cells=16, pyramid_levels=2,
+                              event_wait_max_s=5.0),
     )
 
 

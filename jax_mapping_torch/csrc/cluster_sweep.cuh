@@ -1,6 +1,8 @@
 // Jacobi sweeps of a 3 x 3 stencil over R fields of n x n in one launch,
 // one thread-block cluster per field. Shared by kernels K2
-// (csrc/label_prop.cu) and K3 (csrc/costfield_relax.cu).
+// (csrc/label_prop.cu) and K3 (csrc/costfield_relax.cu). Consecutive
+// fields share a mask in groups of `group`: field f reads mask f / group
+// (K2 gives every grid its own mask; K3 one mask to a tenant's R robots).
 //
 // Layout. CTA k of a cluster of C owns the slab of rows
 // [k * S, min(n, (k + 1) * S)), S = ceil(n / C), and keeps it
@@ -150,7 +152,7 @@ __device__ __forceinline__ void push1(unsigned to, int v, unsigned mbar) {
 template <typename Op>
 __global__ void __launch_bounds__(kMaxThreads) sweep_kernel(
     const typename Op::T* __restrict__ in, const uint8_t* __restrict__ mask,
-    typename Op::T* __restrict__ out, int n, int n_sweeps) {
+    typename Op::T* __restrict__ out, int n, int n_sweeps, int group) {
   using T = typename Op::T;
   using Row = typename Op::Row;
   static_assert(sizeof(T) == 4, "4-byte values");
@@ -199,8 +201,9 @@ __global__ void __launch_bounds__(kMaxThreads) sweep_kernel(
     buf0[(size_t)br * W + kLead - 1] = fill;
     buf0[(size_t)br * W + kLead + n] = fill;
   }
-  // The mask slab, contiguous in global memory.
-  const uint8_t* ms = mask + (size_t)r0 * n;
+  // The mask slab of this field's mask, contiguous in global memory.
+  const uint8_t* ms =
+      mask + ((size_t)(blockIdx.y / group) * n + (size_t)r0) * n;
   if (((uintptr_t)ms & 15) == 0 && ((rows * n) & 15) == 0) {
     for (int e = tid; e < (rows * n) >> 4; e += T_)
       cp_async16(m + 16 * e, ms + 16 * e);
@@ -378,18 +381,18 @@ inline std::mutex& lock() {
 
 }  // namespace detail
 
-// Launch Op's kernel on plan `p` over R fields; `*active` receives the
-// clusters the card can hold at once. Returns a cudaError_t or
-// kNoClusterFits.
+// Launch Op's kernel on plan `p` over R fields, `group` fields to a
+// mask; `*active` receives the clusters the card can hold at once.
+// Returns a cudaError_t or kNoClusterFits.
 template <typename Op>
 int launch(const typename Op::T* in, const uint8_t* mask,
-           typename Op::T* out, int R, int n, int n_sweeps, const Plan& p,
-           int* active, cudaStream_t s) {
+           typename Op::T* out, int R, int n, int n_sweeps, int group,
+           const Plan& p, int* active, cudaStream_t s) {
   static detail::Entry cache[64];
   static int n_cache = 0;
   static bool prepared[64] = {};
   void (*kernel)(const typename Op::T*, const uint8_t*, typename Op::T*,
-                 int, int) = sweep_kernel<Op>;
+                 int, int, int) = sweep_kernel<Op>;
 
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)p.C, (unsigned)R, 1);
@@ -440,7 +443,8 @@ int launch(const typename Op::T* in, const uint8_t* mask,
     }
   }
   if (*active == 0) return kNoClusterFits;
-  err = cudaLaunchKernelEx(&cfg, kernel, in, mask, out, n, n_sweeps);
+  err = cudaLaunchKernelEx(&cfg, kernel, in, mask, out, n, n_sweeps,
+                           group);
   if (err == cudaSuccess) err = cudaGetLastError();
   return (int)err;
 }

@@ -1,7 +1,9 @@
 // Kernel K3: per-robot min-plus cost-field relaxation.
 //
 // Replaces the Pallas kernel jax_mapping/ops/costfield.py::_relax_level_pallas.
-// n_sweeps Jacobi sweeps over R fields of n x n:
+// n_sweeps Jacobi sweeps over R fields of n x n, field f under blocked mask
+// f / group (one mask for all fields, or one a tenant of the megabatch
+// for its `group` robots):
 //   d'[c] = blocked[c] ? BIG : min(d[c], min_k (d[c + o_k] + w_k))
 // over the 8 neighbours o_k with w = 1 (axial) or 1.41421356 (diagonal)
 // and BIG = 1e9 shifted in past the border. The first sweep reads `init`
@@ -79,7 +81,7 @@ __device__ __forceinline__ float relax_cell(const float* __restrict__ d,
 
 __global__ void __launch_bounds__(kThreads) relax_sweep_global(
     const float* __restrict__ src, const uint8_t* __restrict__ blocked,
-    float* __restrict__ dst, int R, int n) {
+    float* __restrict__ dst, int R, int n, int group) {
   const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const size_t nn = (size_t)n * n;
   if (idx >= nn * R) return;
@@ -87,7 +89,8 @@ __global__ void __launch_bounds__(kThreads) relax_sweep_global(
   const int cell = (int)(idx - (size_t)f * nn);
   const int r = cell / n;
   const int c = cell - r * n;
-  dst[idx] = blocked[cell] ? kBig : relax_cell(src + (size_t)f * nn, r, c, n);
+  dst[idx] = blocked[(size_t)(f / group) * nn + cell]
+                 ? kBig : relax_cell(src + (size_t)f * nn, r, c, n);
 }
 
 // Slab cells a thread (measured best at the fleet's three levels on the
@@ -96,15 +99,17 @@ constexpr int kCellsPerThread = 16;
 
 }  // namespace
 
-// blocked: (n, n) uint8; init, out, scratch: (R, n, n) f32. The route
-// is chosen by size (cluster_sweep::plan). info[0] receives the grids
-// launched, info[1] the cluster size (0: global route), info[2] the
-// threads a CTA, info[3] the clusters the card holds at once.
+// blocked: (R / group, n, n) uint8; init, out, scratch: (R, n, n) f32;
+// field f sweeps under blocked mask f / group. The route is chosen by size
+// (cluster_sweep::plan). info[0] receives the grids launched, info[1] the
+// cluster size (0: global route), info[2] the threads a CTA, info[3] the
+// clusters the card holds at once.
 extern "C" int costfield_relax_launch(const void* blocked, const void* init,
                                       void* out, void* scratch, int R, int n,
-                                      int n_sweeps, int* info,
+                                      int n_sweeps, int group, int* info,
                                       void* stream) {
   info[0] = info[1] = info[2] = info[3] = 0;
+  if (group <= 0 || (R > 0 && R % group)) return (int)cudaErrorInvalidValue;
   if (R <= 0 || n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* blk = static_cast<const uint8_t*>(blocked);
@@ -114,7 +119,7 @@ extern "C" int costfield_relax_launch(const void* blocked, const void* init,
   if (p.C > 0) {
     const int err = cluster_sweep::launch<RelaxOp>(
         static_cast<const float*>(init), blk, static_cast<float*>(out), R, n,
-        n_sweeps, p, &info[3], s);
+        n_sweeps, group, p, &info[3], s);
     if (err == 0) {
       info[0] = 1;
       info[1] = p.C;
@@ -136,7 +141,8 @@ extern "C" int costfield_relax_launch(const void* blocked, const void* init,
   // Sweep k (1-based) writes bufs[(n_sweeps - k) % 2]: the last one `out`.
   for (int k = 1; k <= n_sweeps; ++k) {
     float* dst = bufs[(n_sweeps - k) % 2];
-    relax_sweep_global<<<blocks, kThreads, 0, s>>>(src, blk, dst, R, n);
+    relax_sweep_global<<<blocks, kThreads, 0, s>>>(src, blk, dst, R, n,
+                                                   group);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     ++info[0];

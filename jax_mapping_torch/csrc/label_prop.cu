@@ -3,7 +3,7 @@
 // Replaces the Pallas kernel jax_mapping/ops/frontier.py::_label_prop_pallas.
 // Exact integer semantics: from the seed, as given (the linear cell index
 // on mask cells and -1 elsewhere when `label_components` makes it),
-// exactly n_sweeps Jacobi sweeps of
+// exactly n_sweeps Jacobi sweeps, on each of T grids with its own mask, of
 //   lab'[c] = mask[c] ? max(lab[c], lab[8 neighbours of c]) : -1
 // with -1 shifted in past the border. The labels depend on the fixed
 // sweep count, so the sweeps stay Jacobi and are never cut short.
@@ -24,7 +24,9 @@
 // for 16 CTAs' shared memory (n above about 600, e.g. cluster_downsample
 // = 1 on a 4096^2 map gives 1024^2) take the second route: two global
 // buffers ping-ponged in L2, one launch a sweep. The route is chosen by
-// size, never as a fallback, and reported to the caller.
+// size, never as a fallback, and reported to the caller. A batch of T
+// grids (the tenant megabatch's, one a mission) is one launch on either
+// route: T clusters, or T grids a sweep.
 
 #include "cluster_sweep.cuh"
 
@@ -51,16 +53,19 @@ struct LabelOp {
 
 __global__ void __launch_bounds__(kThreads) label_sweep_kernel(
     const int* __restrict__ src, const uint8_t* __restrict__ mask,
-    int* __restrict__ dst, int n) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n * n) return;
+    int* __restrict__ dst, int T, int n) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t nn = (size_t)n * n;
+  if (idx >= nn * T) return;
   if (!mask[idx]) {
     dst[idx] = -1;
     return;
   }
-  const int r = idx / n;
-  const int c = idx - r * n;
-  int best = src[idx];
+  const int cell = (int)(idx % nn);
+  const int r = cell / n;
+  const int c = cell - r * n;
+  src += idx - cell;                     // this grid's labels
+  int best = src[cell];
   for (int dr = -1; dr <= 1; ++dr) {
     for (int dc = -1; dc <= 1; ++dc) {
       if (dr == 0 && dc == 0) continue;
@@ -79,24 +84,25 @@ constexpr int kCellsPerThread = 8;
 
 }  // namespace
 
-// mask: (n, n) uint8; seed, out, scratch: (n, n) int32. The route is
-// chosen by size (cluster_sweep::plan). info[0] receives the grids
-// launched, info[1] the cluster size (0: global route), info[2] the
-// threads a CTA, info[3] the clusters the card holds at once.
+// mask: (T, n, n) uint8; seed, out, scratch: (T, n, n) int32, grid t
+// sweeping under mask t. The route is chosen by size
+// (cluster_sweep::plan). info[0] receives the grids launched, info[1] the
+// cluster size (0: global route), info[2] the threads a CTA, info[3] the
+// clusters the card holds at once.
 extern "C" int label_prop_launch(const void* mask, const void* seed,
-                                 void* out, void* scratch, int n,
+                                 void* out, void* scratch, int T, int n,
                                  int n_sweeps, int* info, void* stream) {
   info[0] = info[1] = info[2] = info[3] = 0;
-  if (n <= 0) return 0;
+  if (T <= 0 || n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* m = static_cast<const uint8_t*>(mask);
   cluster_sweep::Plan p;
-  const int rc = cluster_sweep::plan(n, 1, kCellsPerThread, &p);
+  const int rc = cluster_sweep::plan(n, T, kCellsPerThread, &p);
   if (rc != 0) return rc;
   if (p.C > 0) {
     const int err = cluster_sweep::launch<LabelOp>(
-        static_cast<const int*>(seed), m, static_cast<int*>(out), 1, n,
-        n_sweeps, p, &info[3], s);
+        static_cast<const int*>(seed), m, static_cast<int*>(out), T, n,
+        n_sweeps, 1, p, &info[3], s);
     if (err == 0) {
       info[0] = 1;
       info[1] = p.C;
@@ -105,12 +111,13 @@ extern "C" int label_prop_launch(const void* mask, const void* seed,
     return err;
   }
 
+  const size_t cells = (size_t)T * n * n;
   if (n_sweeps <= 0) {
-    cudaMemcpyAsync(out, seed, sizeof(int) * n * n, cudaMemcpyDeviceToDevice,
+    cudaMemcpyAsync(out, seed, sizeof(int) * cells, cudaMemcpyDeviceToDevice,
                     s);
     return (int)cudaGetLastError();
   }
-  const int blocks = (n * n + kThreads - 1) / kThreads;
+  const unsigned blocks = (unsigned)((cells + kThreads - 1) / kThreads);
   int* bufs[2] = {static_cast<int*>(out), static_cast<int*>(scratch)};
   info[2] = kThreads;
   // Sweep k (1-based) writes bufs[(n_sweeps - k) % 2], so sweep n_sweeps
@@ -118,7 +125,7 @@ extern "C" int label_prop_launch(const void* mask, const void* seed,
   const int* src = static_cast<const int*>(seed);
   for (int k = 1; k <= n_sweeps; ++k) {
     int* dst = bufs[(n_sweeps - k) % 2];
-    label_sweep_kernel<<<blocks, kThreads, 0, s>>>(src, m, dst, n);
+    label_sweep_kernel<<<blocks, kThreads, 0, s>>>(src, m, dst, T, n);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     ++info[0];

@@ -10,6 +10,8 @@ inputs. `fleet_state_to_numpy` goes back to a port `FleetState` of numpy
 arrays, the layout a test compares against the JAX side.
 `slam_state_from_numpy` / `slam_state_to_numpy` do the same for a JAX
 `SlamState` (its `graph` is one unbatched `PoseGraph`, as in the port).
+`tenant_batch_from_numpy` / `tenant_batch_to_numpy` carry a JAX
+`TenantBatch` (its states with a leading tenant axis).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from jax_mapping_torch.models.fleet import FleetState
 from jax_mapping_torch.models.slam import SlamState
 from jax_mapping_torch.ops.posegraph import PoseGraph
 from jax_mapping_torch.sim.thymio import FleetSimState
+from jax_mapping_torch.tenancy.megabatch import TenantBatch
 
 _DTYPES = {np.dtype(np.float32): torch.float32,
            np.dtype(np.float64): torch.float32,
@@ -94,3 +97,23 @@ def slam_state_to_numpy(state: SlamState) -> SlamState:
         graph=PoseGraph(*(n(x) for x in state.graph)),
         scan_ring=n(state.scan_ring), n_loops=n(state.n_loops),
         n_keyscans=n(state.n_keyscans))
+
+
+def tenant_batch_from_numpy(tree, device) -> TenantBatch:
+    """A JAX TenantBatch with numpy leaves (`states` a FleetState with a
+    leading tenant axis, `worlds`, `keys`, `active`) -> the port's."""
+    keys = np.asarray(tree.keys).astype(np.int64)
+    return TenantBatch(
+        states=fleet_state_from_numpy(tree.states, device),
+        worlds=_t(tree.worlds, device), keys=torch.as_tensor(
+            keys, device=device), active=_t(tree.active, device))
+
+
+def tenant_batch_to_numpy(batch: TenantBatch) -> TenantBatch:
+    """The port's TenantBatch -> the same structure with numpy leaves."""
+    def n(x):
+        return x.detach().cpu().numpy()
+
+    return TenantBatch(states=fleet_state_to_numpy(batch.states),
+                       worlds=n(batch.worlds), keys=n(batch.keys),
+                       active=n(batch.active))

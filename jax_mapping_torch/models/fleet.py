@@ -9,7 +9,10 @@ whole loop for every robot at once:
   -> per-robot pose graphs, loop closure with shared-map re-fusion.
 
 State lives on one device (CUDA unless the caller asks for the CPU) and
-every stage carries a leading robot axis. The JAX step is one jitted
+every stage carries a leading robot axis. The tenant megabatch
+(`tenancy/megabatch.py`) runs the same stages (`_tick_sense`,
+`_tick_graph`, `_tick_finish`) on T missions stacked on a leading tenant
+axis. The JAX step is one jitted
 program; here the loop-closure branch (`lax.cond` there) is a Python `if`
 on `(attempt | xattempt).any()`, which costs one host sync per tick, and
 the fusion fold reads its patch origins on the host (one sync per fused
@@ -120,20 +123,26 @@ def _update_graphs(cfg: SlamConfig, graphs: PG.PoseGraph, est: torch.Tensor,
 def _cross_candidates(cfg: SlamConfig, graphs: PG.PoseGraph,
                       est: torch.Tensor):
     """Nearest OTHER robot's established chain pose within the loop radius:
-    (robot (R,), pose index (R,), found (R,))."""
-    R = est.shape[0]
+    (robot, pose index, found), each (R,), or (T, R) for the megabatch's
+    missions, a robot looking only at its own mission's fleet-mates."""
+    one = est.dim() == 2
+    if one:
+        graphs, est = PG.PoseGraph(*(x[None] for x in graphs)), est[None]
+    T, R = est.shape[:2]
     cap = cfg.loop.max_poses
     dev = est.device
-    pos = graphs.poses[:, :, :2]
-    d = _norm2(pos[None, :, :, :] - est[:, None, None, :2])    # (R, R, cap)
+    pos = graphs.poses[..., :2]
+    d = _norm2(pos[:, None] - est[:, :, None, None, :2])     # (T, R, R, cap)
     established = graphs.n_poses >= cfg.loop.min_chain_size
-    ok = (graphs.pose_valid & established[:, None])[None]
-    ok = ok & ~torch.eye(R, dtype=torch.bool, device=dev)[:, :, None]
-    flat = torch.where(ok, d, float("inf")).reshape(R, R * cap)
-    best = torch.argmin(flat, dim=1)
-    found = flat.gather(1, best[:, None])[:, 0] <= cfg.loop.search_radius_m
-    return ((best // cap).to(torch.int32), (best % cap).to(torch.int32),
-            found)
+    ok = (graphs.pose_valid & established[..., None])[:, None]
+    ok = ok & ~torch.eye(R, dtype=torch.bool, device=dev)[None, :, :, None]
+    flat = torch.where(ok, d, float("inf")).reshape(T, R, R * cap)
+    best = torch.argmin(flat, dim=2)
+    found = flat.gather(2, best[..., None])[..., 0] <= \
+        cfg.loop.search_radius_m
+    out = ((best // cap).to(torch.int32), (best % cap).to(torch.int32),
+           found)
+    return tuple(x[0] for x in out) if one else out
 
 
 def _verify_and_optimize(cfg: SlamConfig, graphs: PG.PoseGraph,
@@ -240,83 +249,124 @@ class _TickPre(NamedTuple):
     xattempt: torch.Tensor
 
 
-class _TickMove(NamedTuple):
+class _TickSense(NamedTuple):
+    """Steps 1-7 of a tick: sense, frontier-driven policy, move,
+    odometry, key gate, correlative match, fusion. Under the tenant
+    megabatch every field keeps the (T, R) layout of its input."""
+
     sim2: thymio.FleetSimState
-    measured: torch.Tensor
     pol: PolicyOut
     fr: F.FrontierResult
+    res: M.MatchResult
+    est: torch.Tensor
+    is_key: torch.Tensor
+    grid: torch.Tensor
     scans: torch.Tensor
 
 
-def _tick_move(cfg: SlamConfig, state: FleetState, world_res_m: float,
-               world: torch.Tensor, wheel_normals=None,
-               generator=None) -> _TickMove:
-    """Sense, frontier-driven policy, simulated motion."""
+def _flat(x: torch.Tensor, lead: tuple) -> torch.Tensor:
+    """Merge the robot axes `lead` ((R,) or (T, R)) of x into one."""
+    return x.reshape(-1, *x.shape[len(lead):])
+
+
+def _unflat(x: torch.Tensor, lead: tuple) -> torch.Tensor:
+    return x.reshape(*lead, *x.shape[1:])
+
+
+def _tick_sense(cfg: SlamConfig, state: FleetState, world_res_m: float,
+                world: torch.Tensor, wheel_normals=None,
+                generator=None) -> _TickSense:
+    """Steps 1-7 of the fleet tick on one mission (grid (N, N), robot
+    leaves (R, ...), world (H, W), normals (R, 2)) or on the tenant
+    megabatch's T missions (grid (T, N, N), robot leaves (T, R, ...),
+    worlds (T, H, W), normals (T, R, 2)). Per-robot stages run on all
+    T * R robots at once; a tenant index picks each robot's world and
+    map; the frontiers run over the T grids."""
     dt = 1.0 / cfg.robot.control_rate_hz
     n_samples = int(cfg.scan.range_max_m / (world_res_m * 0.5))
+    lead = tuple(state.est_poses.shape[:-1])
+    tenant = None
+    if state.grid.dim() == 3:
+        T, R = lead
+        tenant = torch.arange(T, device=state.grid.device
+                              ).repeat_interleave(R)
+
+    def flat(x):
+        return _flat(x, lead)
+
+    def unflat(x):
+        return _unflat(x, lead)
+
+    sim_poses = flat(state.sim.poses)
     scans = lidar.simulate_scans(cfg.scan, world, world_res_m, n_samples,
-                                 state.sim.poses)
-    prox = lidar.ir_proximity(world, world_res_m, state.sim.poses)
+                                 sim_poses, tenant=tenant)
+    prox = lidar.ir_proximity(world, world_res_m, sim_poses, tenant=tenant)
     fr = F.compute_frontiers(cfg.frontier, cfg.grid, state.grid,
                              state.est_poses)
-    goals = fr.targets[fr.assignment.long().clamp_min(0)]
+    a = fr.assignment.long().clamp_min(0)
+    goals = torch.gather(fr.targets, -2, a[..., None].expand(*a.shape, 2))
     goal_valid = fr.assignment >= 0
-    if cfg.frontier.planned_goals:
-        # A waypoint along the min-plus shortest path to the assigned
-        # target replaces the straight-line goal wherever a plan exists.
+    if cfg.frontier.planned_goals:         # one mission: the frontiers
+        # refuse the option over a batch. A waypoint along the min-plus
+        # shortest path to the assigned target replaces the straight-line
+        # goal wherever a plan exists.
         wps, wvalid = F.assigned_waypoints(cfg.frontier, cfg.grid,
                                            state.grid, state.est_poses,
                                            fr.targets, fr.assignment)
         goals = torch.where(wvalid[:, None], wps, goals)
-    pol = frontier_policy(cfg.robot, cfg.scan, state.est_poses, goals,
-                          goal_valid, scans, prox, state.exploring)
+    est0 = flat(state.est_poses)
+    pol = frontier_policy(cfg.robot, cfg.scan, est0, flat(goals),
+                          flat(goal_valid), scans, prox,
+                          flat(state.exploring))
     # step_fleet's own noise fraction, as in the JAX fleet tick (which
     # does not pass RobotConfig.speed_noise_frac either).
     sim2, measured = thymio.step_fleet(
-        cfg.robot, state.sim, pol.targets.to(torch.float32), dt,
-        wheel_normals=wheel_normals, generator=generator)
-    return _TickMove(sim2=sim2, measured=measured, pol=pol, fr=fr,
-                     scans=scans)
-
-
-def _tick_est(cfg: SlamConfig, est_poses: torch.Tensor,
-              measured: torch.Tensor) -> torch.Tensor:
-    """Odometry: propagate the estimates from the measured wheel speeds."""
-    dt = 1.0 / cfg.robot.control_rate_hz
-    return rk2_step(cfg.robot, est_poses, measured[:, 0], measured[:, 1], dt)
-
-
-def _tick_map(cfg: SlamConfig, state: FleetState, est: torch.Tensor,
-              scans: torch.Tensor):
-    """Key gate, correlative correction, fusion: (res, est, is_key, grid)."""
-    d = _norm2(est[:, :2] - state.last_key_poses[:, :2])
-    dth = torch.abs(wrap_angle(est[:, 2] - state.last_key_poses[:, 2]))
+        cfg.robot, thymio.FleetSimState(sim_poses,
+                                        flat(state.sim.wheel_speeds)),
+        pol.targets.to(torch.float32), dt, wheel_normals=wheel_normals,
+        generator=generator)
+    # Odometry, then the key-scan gate.
+    est = rk2_step(cfg.robot, est0, measured[:, 0], measured[:, 1], dt)
+    last_key = flat(state.last_key_poses)
+    d = _norm2(est[:, :2] - last_key[:, :2])
+    dth = torch.abs(wrap_angle(est[:, 2] - last_key[:, 2]))
     is_key = (d > cfg.matcher.min_travel_m) | \
         (dth > cfg.matcher.min_heading_rad)
     res = M.match_batch(cfg.grid, cfg.scan, cfg.matcher, state.grid, scans,
-                        est)
+                        est, tenant=tenant)
     est = torch.where((is_key & res.accepted)[:, None], res.pose, est)
     if cfg.mode == "localization":
         grid = state.grid
     else:
         grid = G.fuse_scans_masked(cfg.grid, cfg.scan, state.grid, scans,
-                                   est, is_key)
-    return res, est, is_key, grid
+                                   est, is_key, tenant=tenant)
+    return _TickSense(
+        sim2=thymio.FleetSimState(*(unflat(x) for x in sim2)),
+        pol=PolicyOut(*(unflat(x) for x in pol)), fr=fr,
+        res=M.MatchResult(*(unflat(x) for x in res)), est=unflat(est),
+        is_key=unflat(is_key), grid=grid, scans=unflat(scans))
 
 
 def _tick_graph(cfg: SlamConfig, graphs: PG.PoseGraph, rings: torch.Tensor,
                 est: torch.Tensor, is_key: torch.Tensor, scans: torch.Tensor,
                 accepted: torch.Tensor):
     """Graph growth and loop-closure candidates: (graphs, rings, k_idx,
-    cand, attempt, xrobot, xcand, xattempt)."""
-    R = est.shape[0]
+    cand, attempt, xrobot, xcand, xattempt), on (R, ...) robots or the
+    megabatch's (T, R, ...); cross-robot candidates stay within a
+    mission."""
+    lead = tuple(est.shape[:-1])
     if cfg.mode == "localization":
-        zi = torch.zeros((R,), dtype=torch.int32, device=est.device)
-        zb = torch.zeros((R,), dtype=torch.bool, device=est.device)
+        zi = torch.zeros(lead, dtype=torch.int32, device=est.device)
+        zb = torch.zeros(lead, dtype=torch.bool, device=est.device)
         return graphs, rings, zi, zi, zb, zi, zi, zb
-    graphs, rings, k_idx = _update_graphs(cfg, graphs, est, is_key, scans,
-                                          rings)
-    cand, cand_found = PG.loop_candidate(cfg.loop, graphs, k_idx)
+    g, rings, k_idx = _update_graphs(
+        cfg, PG.PoseGraph(*(_flat(x, lead) for x in graphs)),
+        _flat(est, lead), _flat(is_key, lead), _flat(scans, lead),
+        _flat(rings, lead))
+    cand, cand_found = PG.loop_candidate(cfg.loop, g, k_idx)
+    graphs = PG.PoseGraph(*(_unflat(x, lead) for x in g))
+    rings, k_idx, cand, cand_found = (_unflat(x, lead) for x in
+                                      (rings, k_idx, cand, cand_found))
     attempt = is_key & cand_found & bool(cfg.loop.enabled)
     xrobot, xcand, xfound = _cross_candidates(cfg, graphs, est)
     xattempt = is_key & ~accepted & xfound & ~attempt & \
@@ -327,24 +377,23 @@ def _tick_graph(cfg: SlamConfig, graphs: PG.PoseGraph, rings: torch.Tensor,
 def _tick_pre(cfg: SlamConfig, state: FleetState, world_res_m: float,
               world: torch.Tensor, wheel_normals=None,
               generator=None) -> _TickPre:
-    mv = _tick_move(cfg, state, world_res_m, world, wheel_normals,
-                    generator)
-    est = _tick_est(cfg, state.est_poses, mv.measured)
-    res, est, is_key, grid = _tick_map(cfg, state, est, mv.scans)
+    sense = _tick_sense(cfg, state, world_res_m, world, wheel_normals,
+                        generator)
     (graphs, rings, k_idx, cand, attempt, xrobot, xcand,
-     xattempt) = _tick_graph(cfg, state.graphs, state.scan_rings, est,
-                             is_key, mv.scans, res.accepted)
-    return _TickPre(sim2=mv.sim2, pol=mv.pol, fr=mv.fr,
-                    match_response=res.response, est=est, is_key=is_key,
-                    grid=grid, graphs=graphs, rings=rings, k_idx=k_idx,
-                    scans=mv.scans, cand=cand, attempt=attempt,
-                    xrobot=xrobot, xcand=xcand, xattempt=xattempt)
+     xattempt) = _tick_graph(cfg, state.graphs, state.scan_rings, sense.est,
+                             sense.is_key, sense.scans, sense.res.accepted)
+    return _TickPre(sim2=sense.sim2, pol=sense.pol, fr=sense.fr,
+                    match_response=sense.res.response, est=sense.est,
+                    is_key=sense.is_key, grid=sense.grid, graphs=graphs,
+                    rings=rings, k_idx=k_idx, scans=sense.scans, cand=cand,
+                    attempt=attempt, xrobot=xrobot, xcand=xcand,
+                    xattempt=xattempt)
 
 
 def _tick_finish(cfg: SlamConfig, state: FleetState, pre: _TickPre,
                  grid: torch.Tensor, graphs: PG.PoseGraph, est: torch.Tensor,
                  closed: torch.Tensor):
-    last_key = torch.where(pre.is_key[:, None], est, state.last_key_poses)
+    last_key = torch.where(pre.is_key[..., None], est, state.last_key_poses)
     state2 = FleetState(sim=pre.sim2, est_poses=est, grid=grid,
                         exploring=state.exploring, last_key_poses=last_key,
                         graphs=graphs, scan_rings=pre.rings,
@@ -352,7 +401,7 @@ def _tick_finish(cfg: SlamConfig, state: FleetState, pre: _TickPre,
                         t=state.t + 1)
     diag = FleetDiag(policy=pre.pol, frontiers=pre.fr,
                      match_response=pre.match_response,
-                     pose_err=_norm2(est[:, :2] - pre.sim2.poses[:, :2]),
+                     pose_err=_norm2(est[..., :2] - pre.sim2.poses[..., :2]),
                      is_key=pre.is_key, loop_closed=closed)
     return state2, diag
 

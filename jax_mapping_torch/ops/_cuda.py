@@ -89,9 +89,10 @@ _VOXEL_ARGS = [_P, _P, _P, _P, _I, _I, _I,           # buffers, B, ny, nx
 _SIGNATURES = {
     "sensor_model": {"sensor_model_launch":
                      [_I, _P, _P, _P, _P, _I, _I, _I, *_SENSOR_ARGS, _P]},
-    "label_prop": {"label_prop_launch": [_P, _P, _P, _P, _I, _I, _IP, _P]},
+    "label_prop": {"label_prop_launch":
+                   [_P, _P, _P, _P, _I, _I, _I, _IP, _P]},
     "costfield_relax": {"costfield_relax_launch":
-                        [_P, _P, _P, _P, _I, _I, _I, _IP, _P]},
+                        [_P, _P, _P, _P, _I, _I, _I, _I, _IP, _P]},
     "window_fuse": {"window_delta_launch": [*_WINDOW_ARGS, _P],
                     "window_apply_launch": [*_WINDOW_ARGS, _F, _F, _P]},
     "voxel_model": {"voxel_image_launch": [*_VOXEL_ARGS, _P],

@@ -11,6 +11,11 @@ Kernel K3 (`csrc/costfield_relax.cu`, wrapped by `relax_level`) replaces
 the Pallas kernel `_relax_level_pallas`. The JAX package's VMEM robot
 chunking (`_chunk_robots` and its padding) is TPU bookkeeping and has no
 counterpart here. `_relax_level_xla` is the plain PyTorch version.
+
+A batch of T blocked masks (the tenant megabatch's, one a mission) takes
+(T, n, n) masks and T * G fields, field f under mask f // G: every
+tenant's robots relax in the same launch (`cost_fields` with a (T, n, n)
+mask and (T, R, 2) cells).
 """
 
 from __future__ import annotations
@@ -37,7 +42,14 @@ def _relax_once(d: torch.Tensor, blocked: torch.Tensor) -> torch.Tensor:
 
 def _relax_sweeps_plain(blocked: torch.Tensor, init: torch.Tensor,
                         n_sweeps: int) -> torch.Tensor:
-    """Plain version of K3: `n_sweeps` sweeps of (..., n, n) fields."""
+    """Plain version of K3: `n_sweeps` sweeps of (..., n, n) fields under
+    an (n, n) mask, or of (T * G, n, n) fields under (T, n, n) masks,
+    field f under mask f // G."""
+    if blocked.dim() == 3:
+        T, n = blocked.shape[0], blocked.shape[-1]
+        d = _relax_sweeps_plain(blocked[:, None],
+                                init.reshape(T, -1, n, n), n_sweeps)
+        return d.reshape(init.shape)
     d = init
     for _ in range(n_sweeps):
         d = _relax_once(d, blocked)
@@ -47,14 +59,16 @@ def _relax_sweeps_plain(blocked: torch.Tensor, init: torch.Tensor,
 def _relax_level_xla(blocked: torch.Tensor, init: torch.Tensor,
                      iters: int) -> torch.Tensor:
     """Plain version of K3: (R, n, n) init -> fields after `iters`
-    doubled sweeps."""
+    doubled sweeps (masks as in `_relax_sweeps_plain`)."""
     return _relax_sweeps_plain(blocked, init, 2 * iters)
 
 
 def sweeps(blocked: torch.Tensor, init: torch.Tensor,
            n_sweeps: int) -> torch.Tensor:
-    """`n_sweeps` sweeps of (R, n, n) fields (any count, odd included):
-    the plain version on a CPU tensor, kernel K3 on a CUDA tensor."""
+    """`n_sweeps` sweeps of (R, n, n) fields (any count, odd included)
+    under an (n, n) mask or (T, n, n) masks (field f under mask
+    f // (R / T)): the plain version on a CPU tensor, kernel K3 on a CUDA
+    tensor."""
     if init.device.type == "cpu":
         return _relax_sweeps_plain(blocked, init, n_sweeps)
     return relax_sweeps(blocked, init, n_sweeps)[0]
@@ -77,40 +91,51 @@ def relax_level(blocked: torch.Tensor, init: torch.Tensor,
 
 
 def relax_sweeps(blocked: torch.Tensor, init: torch.Tensor, n_sweeps: int):
-    """Kernel K3 on CUDA tensors: `n_sweeps` sweeps -> (fields, how it
-    ran). The launcher chooses the route and cluster size by size; the
-    route and counts are `_cuda.sweep_call`'s."""
+    """Kernel K3 on CUDA tensors: `n_sweeps` sweeps of (R, n, n) fields
+    under an (n, n) mask, or under (T, n, n) masks with R a multiple of T
+    (field f under mask f // (R / T); one launch for every tenant) ->
+    (fields, how it ran). The launcher chooses the route and cluster size
+    by size; the route and counts are `_cuda.sweep_call`'s."""
     R, n, _ = init.shape
+    T = blocked.shape[0] if blocked.dim() == 3 else 1
+    if R % T:
+        raise ValueError(f"{R} fields do not split over {T} masks")
     blk = _cuda.mask_bytes(blocked)
     init = init.contiguous()
-    _cuda.check_cuda(blk, "blocked", torch.uint8, (n, n))
+    _cuda.check_cuda(blk, "blocked", torch.uint8,
+                     (T, n, n) if blocked.dim() == 3 else (n, n))
     _cuda.check_cuda(init, "init", torch.float32, (R, n, n))
     out, scratch = torch.empty((2, R, n, n), dtype=torch.float32,
                                device=init.device)              # one alloc
     ran = _cuda.sweep_call("costfield_relax", _cuda.ptr(blk), _cuda.ptr(init),
                            _cuda.ptr(out), _cuda.ptr(scratch), R, n,
-                           n_sweeps)
+                           n_sweeps, R // T)
     return out, ran
 
 
 def _pool_blocked(blocked: torch.Tensor) -> torch.Tensor:
-    """2x conservative pooling: a parent is blocked if ANY child is."""
-    n0, n1 = blocked.shape
-    return blocked.reshape(n0 // 2, 2, n1 // 2, 2).any(dim=3).any(dim=1)
+    """2x conservative pooling of (..., n, n) masks: a parent is blocked
+    if ANY child is."""
+    *lead, n0, n1 = blocked.shape
+    return blocked.reshape(*lead, n0 // 2, 2, n1 // 2, 2).any(
+        dim=-1).any(dim=-2)
 
 
 def _seed(init: torch.Tensor, robot_rc: torch.Tensor, blocked: torch.Tensor,
           neighbours: bool) -> torch.Tensor:
     """Seed each robot's own field: 0 at its cell where that cell is open;
     at the finest level also its open 8-neighbours with their step cost.
-    Seeds only lower values (a scatter-min)."""
+    Seeds only lower values (a scatter-min). `blocked` is one (n, n) mask
+    or (T, n, n) masks, field f reading mask f // (R / T)."""
     R, n = init.shape[0], init.shape[-1]
     dev = init.device
+    blk = blocked if blocked.dim() == 3 else blocked[None]
     rr = robot_rc[:, 0].clamp(0, n - 1).long()
     cc = robot_rc[:, 1].clamp(0, n - 1).long()
     ar = torch.arange(R, device=dev)
+    tf = torch.div(ar, R // blk.shape[0], rounding_mode="floor")
     out = init.clone()
-    seed_open = ~blocked[rr, cc]
+    seed_open = ~blk[tf, rr, cc]
     val = torch.where(seed_open, 0.0, _BIG)
     out[ar, rr, cc] = torch.minimum(out[ar, rr, cc], val)
     if neighbours:
@@ -120,7 +145,7 @@ def _seed(init: torch.Tensor, robot_rc: torch.Tensor, blocked: torch.Tensor,
             inb = (r2 >= 0) & (r2 < n) & (c2 >= 0) & (c2 < n)
             r2c = r2.clamp(0, n - 1)
             c2c = c2.clamp(0, n - 1)
-            v = torch.where(inb & ~blocked[r2c, c2c], w, _BIG)
+            v = torch.where(inb & ~blk[tf, r2c, c2c], w, _BIG)
             out[ar, r2c, c2c] = torch.minimum(out[ar, r2c, c2c], v)
     return out
 
@@ -128,44 +153,56 @@ def _seed(init: torch.Tensor, robot_rc: torch.Tensor, blocked: torch.Tensor,
 def cost_fields(blocked: torch.Tensor, robot_rc: torch.Tensor,
                 levels: int = 3, refine_iters: int = 8,
                 relax=relax_level) -> torch.Tensor:
-    """(n, n) blocked mask + (R, 2) robot cells -> (R, n, n) cost fields.
+    """(n, n) blocked mask + (R, 2) robot cells -> (R, n, n) cost fields;
+    or (T, n, n) masks + (T, R, 2) cells -> (T, R, n, n), tenant t's
+    robots under mask t, each level one `relax` call over all T * R
+    fields.
 
     `relax` runs each level's sweeps; the default is kernel K3 on a CUDA
     tensor. Passing `_relax_level_xla` runs the plain version on any
     device, which is how a check on the card holds the kernel against it."""
-    n = blocked.shape[0]
-    R = robot_rc.shape[0]
+    batched = blocked.dim() == 3
+    blk3 = blocked if batched else blocked[None]
+    T, n = blk3.shape[0], blk3.shape[-1]
+    rc = robot_rc.reshape(-1, 2)
+    F = rc.shape[0]
+    G = F // T
     dev = blocked.device
     max_levels = 1
     while n % (1 << max_levels) == 0 and (n >> max_levels) >= 8:
         max_levels += 1
     levels = max(1, min(levels, 6, max_levels))
 
-    blocked_pyr = [blocked]
+    def arg(b):
+        return b if batched else b[0]
+
+    blocked_pyr = [blk3]
     for _ in range(levels - 1):
         blocked_pyr.append(_pool_blocked(blocked_pyr[-1]))
-    rc_pyr = [torch.div(robot_rc, 1 << lv, rounding_mode="floor")
+    rc_pyr = [torch.div(rc, 1 << lv, rounding_mode="floor")
               for lv in range(levels)]
 
     n_c = n >> (levels - 1)
     blk_c = blocked_pyr[-1]
-    init = _seed(torch.full((R, n_c, n_c), _BIG, device=dev), rc_pyr[-1],
+    init = _seed(torch.full((F, n_c, n_c), _BIG, device=dev), rc_pyr[-1],
                  blk_c, neighbours=(levels == 1))
-    d = relax(blk_c, init, iters=max(1, n_c // 2))
+    d = relax(arg(blk_c), init, iters=max(1, n_c // 2))
 
     for lv in range(levels - 2, -1, -1):
         d = d.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
         d = torch.where(d >= _BIG, _BIG, d * 2.0 + 2.0)
         blk = blocked_pyr[lv]
-        d = torch.where(blk[None], _BIG, d)
+        m = blk.shape[-1]
+        d = torch.where(blk[:, None], _BIG, d.reshape(T, G, m, m)
+                        ).reshape(F, m, m)
         d = _seed(d, rc_pyr[lv], blk, neighbours=(lv == 0))
-        d = relax(blk, d, iters=refine_iters)
+        d = relax(arg(blk), d, iters=refine_iters)
 
-    rr = robot_rc[:, 0].clamp(0, n - 1).long()
-    cc = robot_rc[:, 1].clamp(0, n - 1).long()
+    rr = rc[:, 0].clamp(0, n - 1).long()
+    cc = rc[:, 1].clamp(0, n - 1).long()
     d = d.clone()
-    d[torch.arange(R, device=dev), rr, cc] = 0.0
-    return d
+    d[torch.arange(F, device=dev), rr, cc] = 0.0
+    return d.reshape(T, G, n, n) if batched else d
 
 
 def warm_cost_fields(blocked: torch.Tensor, robot_rc: torch.Tensor,

@@ -13,6 +13,12 @@ Pallas kernel `_label_prop_pallas`; `_label_prop_plain` (sweeps of
 `_neighbor_max_sweep`) is its plain PyTorch version. `cost_to_go` runs
 its sweeps on kernel K3 (`costfield.relax_sweeps`) on a CUDA tensor and
 on `costfield._relax_once` on the CPU.
+
+The tenant megabatch runs the pipeline over T grids at once: (T, N, N)
+log-odds and (T, R, 3) poses give a `FrontierResult` whose every field
+has a leading T, with one K2 launch and one K3 launch a level for all
+tenants, and the auction run for every tenant in lockstep. Only the
+default options run batched (`_refuse_batched`).
 """
 
 from __future__ import annotations
@@ -46,25 +52,25 @@ class FrontierResult(NamedTuple):
 # ---------------------------------------------------------------------------
 
 def _check_pool_divisible(x: torch.Tensor, c: int) -> None:
-    if x.shape[0] % c or x.shape[1] % c:
+    if x.shape[-2] % c or x.shape[-1] % c:
         raise ValueError(f"shape {tuple(x.shape)} not divisible by pool "
                          f"factor {c}")
 
 
 def _blocks(x: torch.Tensor, c: int) -> torch.Tensor:
-    n0, n1 = x.shape
-    return x.reshape(n0 // c, c, n1 // c, c)
+    *lead, n0, n1 = x.shape
+    return x.reshape(*lead, n0 // c, c, n1 // c, c)
 
 
 def coarsen(cfg: FrontierConfig, grid_cfg: GridConfig, logodds: torch.Tensor):
-    """Full-res log-odds -> coarse (free, occupied, unknown) masks: a
-    coarse cell is occupied if any child is, free if any child is free
-    and none occupied, else unknown."""
+    """Full-res (..., N, N) log-odds -> coarse (free, occupied, unknown)
+    masks: a coarse cell is occupied if any child is, free if any child
+    is free and none occupied, else unknown."""
     d = cfg.downsample
     _check_pool_divisible(logodds, d)
     blk = _blocks(logodds, d)
-    any_occ = blk.amax(dim=(1, 3)) > grid_cfg.occ_threshold
-    any_free = blk.amin(dim=(1, 3)) < grid_cfg.free_threshold
+    any_occ = blk.amax(dim=(-3, -1)) > grid_cfg.occ_threshold
+    any_free = blk.amin(dim=(-3, -1)) < grid_cfg.free_threshold
     free = any_free & ~any_occ
     unknown = ~any_occ & ~any_free
     return free, any_occ, unknown
@@ -90,9 +96,9 @@ def stale_mask(cfg: FrontierConfig, grid_cfg: GridConfig,
     d = cfg.downsample
     _check_pool_divisible(logodds, d)
     blk = _blocks(logodds, d)
-    unknown = ~(blk.amax(dim=(1, 3)) > grid_cfg.occ_threshold) \
-        & ~(blk.amin(dim=(1, 3)) < grid_cfg.free_threshold)
-    return unknown & (blk.abs().amax(dim=(1, 3)) > _STALE_EPS)
+    unknown = ~(blk.amax(dim=(-3, -1)) > grid_cfg.occ_threshold) \
+        & ~(blk.amin(dim=(-3, -1)) < grid_cfg.free_threshold)
+    return unknown & (blk.abs().amax(dim=(-3, -1)) > _STALE_EPS)
 
 
 # ---------------------------------------------------------------------------
@@ -121,8 +127,9 @@ def _label_prop_plain(mask: torch.Tensor, seed: torch.Tensor,
 
 def label_prop(mask: torch.Tensor, seed: torch.Tensor,
                iters: int) -> torch.Tensor:
-    """2 * iters + 1 label sweeps of an (n, n) grid: the plain version on
-    a CPU tensor, kernel K2 on a CUDA tensor.
+    """2 * iters + 1 label sweeps of an (n, n) grid, or of T grids
+    (T, n, n) each under its own mask: the plain version on a CPU tensor,
+    kernel K2 on a CUDA tensor (one launch for all T grids).
 
     K2 replaces `jax_mapping/ops/frontier.py::_label_prop_pallas`. Every
     sweep reads the whole previous one, so the chain of sweeps and the
@@ -139,25 +146,33 @@ def label_prop(mask: torch.Tensor, seed: torch.Tensor,
 
 
 def label_sweeps(mask: torch.Tensor, seed: torch.Tensor, n_sweeps: int):
-    """Kernel K2 on CUDA tensors: `n_sweeps` sweeps -> (labels, how it
-    ran). The launcher chooses the route and cluster size by size; the
-    route and counts are `_cuda.sweep_call`'s."""
-    n = mask.shape[0]
+    """Kernel K2 on CUDA tensors: `n_sweeps` sweeps of an (n, n) grid or
+    of (T, n, n) grids, grid t under mask t, in one launch -> (labels,
+    how it ran). The launcher chooses the route and cluster size by size;
+    the route and counts are `_cuda.sweep_call`'s."""
+    if mask.dim() not in (2, 3):
+        raise ValueError(f"mask must be (n, n) or (T, n, n), got "
+                         f"{tuple(mask.shape)}")
+    shape = tuple(mask.shape)
+    T = shape[0] if mask.dim() == 3 else 1
+    n = shape[-1]
     m = _cuda.mask_bytes(mask)
     seed = seed.to(torch.int32).contiguous()
-    _cuda.check_cuda(m, "mask", torch.uint8, (n, n))
-    _cuda.check_cuda(seed, "seed", torch.int32, (n, n))
-    out, scratch = torch.empty((2, n, n), dtype=torch.int32,
+    _cuda.check_cuda(m, "mask", torch.uint8, shape)
+    _cuda.check_cuda(seed, "seed", torch.int32, shape)
+    out, scratch = torch.empty((2, *shape), dtype=torch.int32,
                                device=seed.device)              # one alloc
     ran = _cuda.sweep_call("label_prop", _cuda.ptr(m), _cuda.ptr(seed),
-                           _cuda.ptr(out), _cuda.ptr(scratch), n, n_sweeps)
+                           _cuda.ptr(out), _cuda.ptr(scratch), T, n,
+                           n_sweeps)
     return out, ran
 
 
 def label_components(cfg: FrontierConfig, mask: torch.Tensor) -> torch.Tensor:
-    """8-connected components: every mask cell takes the max linear index
-    reachable within `2 * label_prop_iters + 1` sweeps."""
-    n = mask.shape[0]
+    """8-connected components of an (..., n, n) mask: every mask cell
+    takes the max linear index of its grid reachable within
+    `2 * label_prop_iters + 1` sweeps."""
+    n = mask.shape[-1]
     lin = torch.arange(n * n, dtype=torch.int32,
                        device=mask.device).reshape(n, n)
     seed = torch.where(mask, lin, -1).to(torch.int32)
@@ -169,10 +184,11 @@ def label_components(cfg: FrontierConfig, mask: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _top_k(x: torch.Tensor, k: int):
-    """jax.lax.top_k order: descending, the lower index first among equal
-    values (a stable sort; torch.topk promises no order on ties)."""
-    vals, idx = torch.sort(x, descending=True, stable=True)
-    return vals[:k], idx[:k]
+    """jax.lax.top_k order along the last axis: descending, the lower
+    index first among equal values (a stable sort; torch.topk promises no
+    order on ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
 
 
 def summarize_clusters(cfg: FrontierConfig, grid_cfg: GridConfig,
@@ -180,14 +196,16 @@ def summarize_clusters(cfg: FrontierConfig, grid_cfg: GridConfig,
     """Top-K clusters of `labels` by size -> (centroids (K, 2), targets
     (K, 2), sizes (K,), slot_of_cell (n, n)); empty slots have size 0
     and centroid and target at _BIG. `origin_rc` as in `_summarize`."""
-    return _summarize(cfg, grid_cfg, labels, weights=None, scale=1,
-                      origin_rc=origin_rc)[:4]
+    return tuple(x[0] for x in _summarize(cfg, grid_cfg, labels[None],
+                                          weights=None, scale=1,
+                                          origin_rc=origin_rc)[:4])
 
 
 def _summarize(cfg: FrontierConfig, grid_cfg: GridConfig,
                labels: torch.Tensor, weights, scale: int, origin_rc=None):
-    """Top-K clusters of `labels` -> (centroids, targets, sizes,
-    slot_of_cell, rep_rc).
+    """Top-K clusters of each of T label grids (T, n, n) -> (centroids
+    (T, K, 2), targets (T, K, 2), sizes (T, K), slot_of_cell (T, n, n),
+    rep_rc (T, K, 2)).
 
     `origin_rc`: the (row, col) of `labels`' first-level coarse cell
     [0, 0] in the full coarse grid (a crop), a multiple of `scale`, as
@@ -198,19 +216,24 @@ def _summarize(cfg: FrontierConfig, grid_cfg: GridConfig,
 
     Per-slot sums are segment sums, accumulated in float64: they are sums
     of integers, so they are exact in any order and equal the JAX
-    package's dense HIGHEST-precision product wherever that is exact."""
-    n = labels.shape[0]
+    package's dense HIGHEST-precision product wherever that is exact.
+    Grid t's segments are offset by t, so one index_add serves all."""
+    T, n = labels.shape[0], labels.shape[-1]
+    nn = n * n
     K = cfg.max_clusters
     dev = labels.device
-    flat = labels.reshape(-1).to(torch.int64)
+    flat = labels.reshape(T, nn).to(torch.int64)
     present = flat >= 0
     w = (present.to(torch.int64) if weights is None
-         else torch.where(present, weights.reshape(-1).to(torch.int64), 0))
-    lin = torch.arange(n * n, device=dev)
+         else torch.where(present, weights.reshape(T, nn).to(torch.int64),
+                          0))
+    lin = torch.arange(nn, device=dev)
+    t_off = torch.arange(T, device=dev)[:, None]
     is_rep = present & (flat == lin)
     seg_all = flat.clamp_min(0)
-    sizes_by_cell = torch.zeros(n * n, dtype=torch.int64,
-                                device=dev).index_add_(0, seg_all, w)
+    sizes_by_cell = torch.zeros(T * nn, dtype=torch.int64,
+                                device=dev).index_add_(
+        0, (seg_all + t_off * nn).reshape(-1), w.reshape(-1)).reshape(T, nn)
     rep_sizes = torch.where(is_rep, sizes_by_cell, 0)
     rep_sizes = torch.where(rep_sizes >= cfg.min_cluster_cells, rep_sizes, 0)
 
@@ -225,18 +248,19 @@ def _summarize(cfg: FrontierConfig, grid_cfg: GridConfig,
         col_off = origin_rc[1] // scale
     rows_g = rows + row_off
     cols_g = cols + col_off
-    slot_of_label = torch.full((n * n,), -1, dtype=torch.int64, device=dev)
-    slot_of_label[top_idx] = torch.where(
-        slot_valid, torch.arange(K, device=dev), -1)
-    slot_of_cell = torch.where(present, slot_of_label[seg_all], -1)
+    slot_of_label = torch.full((T, nn), -1, dtype=torch.int64, device=dev)
+    slot_of_label.scatter_(1, top_idx, torch.where(
+        slot_valid, torch.arange(K, device=dev), -1))
+    slot_of_cell = torch.where(present, slot_of_label.gather(1, seg_all), -1)
     sel = slot_of_cell >= 0
     seg = slot_of_cell.clamp_min(0)
+    seg_t = (seg + t_off * K).reshape(-1)
     wf = torch.where(sel, w, 0).to(torch.float64)
-    sums = torch.zeros((3, K), dtype=torch.float64, device=dev)
-    sums[0].index_add_(0, seg, wf)
-    sums[1].index_add_(0, seg, wf * rows_g.to(torch.float64))
-    sums[2].index_add_(0, seg, wf * cols_g.to(torch.float64))
-    cnt, sr, sc = sums.to(torch.float32)
+    sums = torch.zeros((3, T * K), dtype=torch.float64, device=dev)
+    sums[0].index_add_(0, seg_t, wf.reshape(-1))
+    sums[1].index_add_(0, seg_t, (wf * rows_g.to(torch.float64)).reshape(-1))
+    sums[2].index_add_(0, seg_t, (wf * cols_g.to(torch.float64)).reshape(-1))
+    cnt, sr, sc = sums.to(torch.float32).reshape(3, T, K)
     cnt_safe = torch.clamp_min(cnt, 1.0)
     c_row = sr / cnt_safe
     c_col = sc / cnt_safe
@@ -245,56 +269,58 @@ def _summarize(cfg: FrontierConfig, grid_cfg: GridConfig,
     ox, oy = grid_cfg.origin_m
     cx = (c_col + 0.5) * res + ox
     cy = (c_row + 0.5) * res + oy
-    centroids = torch.where(slot_valid[:, None], torch.stack([cx, cy], -1),
-                            _BIG)
+    centroids = torch.where(slot_valid[..., None],
+                            torch.stack([cx, cy], -1), _BIG)
 
     rows_f = rows_g.to(torch.float32)
     cols_f = cols_g.to(torch.float32)
-    dr = rows_f - c_row[seg]
-    dc = cols_f - c_col[seg]
+    dr = rows_f - c_row.gather(1, seg)
+    dc = cols_f - c_col.gather(1, seg)
     d2 = dr * dr + dc * dc
-    inf = torch.full((K,), float("inf"), device=dev)
-    min_d2 = inf.scatter_reduce(0, seg, torch.where(sel, d2, float("inf")),
+    inf = torch.full((T, K), float("inf"), device=dev)
+    min_d2 = inf.scatter_reduce(1, seg, torch.where(sel, d2, float("inf")),
                                 reduce="amin", include_self=True)
-    is_best = sel & (d2 <= min_d2[seg] + 0.5)
-    rep_lin = torch.full((K,), n * n, dtype=torch.int64, device=dev
-                         ).scatter_reduce(0, seg,
-                                          torch.where(is_best, lin, n * n),
+    is_best = sel & (d2 <= min_d2.gather(1, seg) + 0.5)
+    rep_lin = torch.full((T, K), nn, dtype=torch.int64, device=dev
+                         ).scatter_reduce(1, seg,
+                                          torch.where(is_best, lin, nn),
                                           reduce="amin", include_self=True)
-    has_rep = rep_lin < n * n
-    rep_lin = rep_lin.clamp(0, n * n - 1)
+    has_rep = rep_lin < nn
+    rep_lin = rep_lin.clamp(0, nn - 1)
     rep_row = torch.div(rep_lin, n, rounding_mode="floor")
     rep_col = rep_lin - rep_row * n
     tx = ((rep_col + col_off).to(torch.float32) + 0.5) * res + ox
     ty = ((rep_row + row_off).to(torch.float32) + 0.5) * res + oy
-    targets = torch.where((slot_valid & has_rep)[:, None],
+    targets = torch.where((slot_valid & has_rep)[..., None],
                           torch.stack([tx, ty], -1), _BIG)
     rep_rc = torch.stack([rep_row, rep_col], -1)
     return (centroids, targets, top_sizes.to(torch.int32),
-            slot_of_cell.reshape(n, n).to(torch.int32), rep_rc)
+            slot_of_cell.reshape(T, n, n).to(torch.int32), rep_rc)
 
 
 def _pool_any(x: torch.Tensor, c: int) -> torch.Tensor:
     _check_pool_divisible(x, c)
-    return _blocks(x, c).any(dim=3).any(dim=1)
+    return _blocks(x, c).any(dim=-1).any(dim=-2)
 
 
 def _pool_sum(x: torch.Tensor, c: int) -> torch.Tensor:
     _check_pool_divisible(x, c)
-    return _blocks(x.to(torch.int32), c).sum(dim=(1, 3), dtype=torch.int32)
+    return _blocks(x.to(torch.int32), c).sum(dim=(-3, -1),
+                                              dtype=torch.int32)
 
 
 def _upsample(x: torch.Tensor, c: int) -> torch.Tensor:
-    return x.repeat_interleave(c, dim=0).repeat_interleave(c, dim=1)
+    return x.repeat_interleave(c, dim=-2).repeat_interleave(c, dim=-1)
 
 
 def _cluster_hierarchical(cfg: FrontierConfig, grid_cfg: GridConfig,
                           mask: torch.Tensor, origin_rc=None):
-    """Components and slots at `cluster_downsample`x coarser resolution,
-    weighted by fine frontier-cell counts; each slot's target refined to
-    a real fine frontier cell inside its representative block.
-    `origin_rc` as in `_summarize`."""
+    """Components and slots of T (T, n, n) masks at `cluster_downsample`x
+    coarser resolution, weighted by fine frontier-cell counts; each slot's
+    target refined to a real fine frontier cell inside its representative
+    block. `origin_rc` as in `_summarize`."""
     c = cfg.cluster_downsample
+    T = mask.shape[0]
     mask2 = _pool_any(mask, c)
     w2 = _pool_sum(mask, c)
     cfg_c = dataclasses.replace(
@@ -306,20 +332,22 @@ def _cluster_hierarchical(cfg: FrontierConfig, grid_cfg: GridConfig,
     res1 = grid_cfg.resolution_m * cfg.downsample
     ox, oy = grid_cfg.origin_m
     ar = torch.arange(c, device=mask.device)
-    rr = rep_rc[:, 0, None] * c + ar                           # (K, c)
-    cc = rep_rc[:, 1, None] * c + ar
-    win = mask[rr[:, :, None], cc[:, None, :]].reshape(-1, c * c)
-    idx = torch.argmax(win.to(torch.uint8), dim=1)             # first True
-    any_fine = win.any(dim=1)
-    fr = rep_rc[:, 0] * c + torch.div(idx, c, rounding_mode="floor")
-    fc = rep_rc[:, 1] * c + idx % c
+    tt = torch.arange(T, device=mask.device)[:, None, None, None]
+    rr = rep_rc[..., 0, None] * c + ar                         # (T, K, c)
+    cc = rep_rc[..., 1, None] * c + ar
+    win = mask[tt, rr[..., :, None], cc[..., None, :]].reshape(
+        T, -1, c * c)
+    idx = torch.argmax(win.to(torch.uint8), dim=-1)            # first True
+    any_fine = win.any(dim=-1)
+    fr = rep_rc[..., 0] * c + torch.div(idx, c, rounding_mode="floor")
+    fc = rep_rc[..., 1] * c + idx % c
     if origin_rc is not None:
         fr = fr + origin_rc[0]
         fc = fc + origin_rc[1]
     fine = torch.stack([(fc.to(torch.float32) + 0.5) * res1 + ox,
                         (fr.to(torch.float32) + 0.5) * res1 + oy], -1)
-    targets = torch.where(any_fine[:, None], fine, targets2)
-    targets = torch.where((sizes > 0)[:, None], targets, _BIG)
+    targets = torch.where(any_fine[..., None], fine, targets2)
+    targets = torch.where((sizes > 0)[..., None], targets, _BIG)
 
     labels = torch.where(mask, _upsample(labels2, c), -1)
     slots = torch.where(mask, _upsample(slots2, c), -1)
@@ -403,17 +431,22 @@ def descent_step(padded_field: torch.Tensor, rc: torch.Tensor,
 
 def assign_frontiers(costs: torch.Tensor) -> torch.Tensor:
     """Greedy auction in robot order: each robot claims its cheapest
-    untaken cluster (taken ones cost +1e6), -1 when nothing is reachable."""
-    R, K = costs.shape
-    taken = torch.zeros(K, dtype=torch.bool, device=costs.device)
+    untaken cluster (taken ones cost +1e6), -1 when nothing is reachable.
+    (R, K) costs give (R,); (T, R, K) give (T, R), every tenant's robot r
+    claiming in the same step. Indices stay on the device: no host
+    sync."""
+    c3 = costs if costs.dim() == 3 else costs[None]
+    T, R, K = c3.shape
+    taken = torch.zeros((T, K), dtype=torch.bool, device=costs.device)
     out = []
     for r in range(R):
-        c = torch.where(taken, costs[r] + 1e6, costs[r])
-        best = torch.argmin(c)
-        ok = c[best] < _BIG
-        taken[best] = taken[best] | ok
-        out.append(torch.where(ok, best, -1))
-    return torch.stack(out).to(torch.int32)
+        c = torch.where(taken, c3[:, r] + 1e6, c3[:, r])
+        best = torch.argmin(c, dim=1, keepdim=True)            # (T, 1)
+        ok = c.gather(1, best) < _BIG
+        taken.scatter_(1, best, taken.gather(1, best) | ok)
+        out.append(torch.where(ok, best, -1)[:, 0])
+    a = torch.stack(out, 1).to(torch.int32)
+    return a if costs.dim() == 3 else a[0]
 
 
 def bfs_passability(cfg: FrontierConfig, grid_cfg: GridConfig,
@@ -433,16 +466,44 @@ def bfs_passability(cfg: FrontierConfig, grid_cfg: GridConfig,
 # Full pipeline
 # ---------------------------------------------------------------------------
 
+def _refuse_batched(cfg: FrontierConfig, **args) -> None:
+    """The frontier options the tenant megabatch does not run batched
+    yet (ROADMAP A.6): raise a ValueError that names the first one set."""
+    for name in ("exact_bfs", "decay_aware", "planned_goals"):
+        if getattr(cfg, name):
+            raise ValueError(f"FrontierConfig.{name} is not supported over "
+                             "a batch of grids (the tenant megabatch)")
+    for name, value in args.items():
+        if value is not None and value is not False:
+            raise ValueError(f"compute_frontiers_from_masks: `{name}` is "
+                             "not supported over a batch of grids (the "
+                             "tenant megabatch)")
+
+
 def compute_frontiers(cfg: FrontierConfig, grid_cfg: GridConfig,
                       logodds: torch.Tensor,
                       robot_poses: torch.Tensor) -> FrontierResult:
-    """(N, N) log-odds + (R, 3) poses -> frontiers, clusters, assignment.
+    """(N, N) log-odds + (R, 3) poses -> frontiers, clusters, assignment;
+    (T, N, N) + (T, R, 3) -> the same with a leading T on every field.
     With `decay_aware` the stale mask comes from the raw log-odds (the
     masks alone cannot tell healed from fresh unknown)."""
+    if logodds.dim() == 3:
+        _refuse_batched(cfg)
     free, _occ, unknown = coarsen(cfg, grid_cfg, logodds)
     stale = stale_mask(cfg, grid_cfg, logodds) if cfg.decay_aware else None
     return compute_frontiers_from_masks(cfg, grid_cfg, free, unknown,
                                         robot_poses, stale=stale)
+
+
+def _gather_costs(fields: torch.Tensor, tgt_r: torch.Tensor,
+                  tgt_c: torch.Tensor) -> torch.Tensor:
+    """(T, R, n, n) fields at each tenant's (T, K) target cells ->
+    (T, R, K)."""
+    T, R = fields.shape[:2]
+    dev = fields.device
+    return fields[torch.arange(T, device=dev)[:, None, None],
+                  torch.arange(R, device=dev)[None, :, None],
+                  tgt_r[:, None, :], tgt_c[:, None, :]]
 
 
 def compute_frontiers_from_masks(cfg: FrontierConfig, grid_cfg: GridConfig,
@@ -469,12 +530,21 @@ def compute_frontiers_from_masks(cfg: FrontierConfig, grid_cfg: GridConfig,
     each slot's finite cost is scaled by 1 - stale_bonus x the stale
     share of its target's 3 x 3 clustering-cell neighbourhood.
     With every argument at its default this is the plain full-grid
-    computation."""
+    computation. (T, n, n) masks and (T, R, 3) poses run T grids at once
+    (the tenant megabatch) with the default options only."""
+    batched = free.dim() == 3
+    if batched:
+        _refuse_batched(cfg, origin_rc=origin_rc, warm_fields=warm_fields,
+                        warm_iters=warm_iters, return_fields=return_fields,
+                        stale=stale)
+    else:
+        free, unknown, robot_poses = free[None], unknown[None], \
+            robot_poses[None]
     mask = frontier_mask(free, unknown)
     c = cfg.cluster_downsample
     res = grid_cfg.resolution_m * cfg.downsample
     ox, oy = grid_cfg.origin_m
-    n = free.shape[0]
+    n = free.shape[-1]
     bfs_passable, bfs_res = bfs_passability(cfg, grid_cfg, free, unknown,
                                             mask)
     if c == 1:
@@ -482,8 +552,8 @@ def compute_frontiers_from_masks(cfg: FrontierConfig, grid_cfg: GridConfig,
         centroids, targets, sizes, slots, _ = _summarize(
             cfg, grid_cfg, labels, weights=None, scale=1,
             origin_rc=origin_rc)
-        tgt_r = _to_int32(div(targets[:, 1] - oy, res))
-        tgt_c = _to_int32(div(targets[:, 0] - ox, res))
+        tgt_r = _to_int32(div(targets[..., 1] - oy, res))
+        tgt_c = _to_int32(div(targets[..., 0] - ox, res))
         if origin_rc is not None:
             tgt_r = tgt_r - origin_rc[0]
             tgt_c = tgt_c - origin_rc[1]
@@ -493,9 +563,9 @@ def compute_frontiers_from_masks(cfg: FrontierConfig, grid_cfg: GridConfig,
     else:
         labels, slots, centroids, targets, sizes, rep_rc, _ = \
             _cluster_hierarchical(cfg, grid_cfg, mask, origin_rc=origin_rc)
-        tgt_r, tgt_c = rep_rc[:, 0], rep_rc[:, 1]
+        tgt_r, tgt_c = rep_rc[..., 0], rep_rc[..., 1]
         bfs_scale = float(c)
-    tgt_r, tgt_c = tgt_r.long(), tgt_c.long()
+    tgt_r, tgt_c = tgt_r.long(), tgt_c.long()                  # (T, K)
 
     def to_bfs_rc(y, x):
         rr = div(y, bfs_res).to(torch.int32)
@@ -507,31 +577,36 @@ def compute_frontiers_from_masks(cfg: FrontierConfig, grid_cfg: GridConfig,
 
     fields = None
     if cfg.obstacle_aware:
-        rr, cc = to_bfs_rc(robot_poses[:, 1] - oy, robot_poses[:, 0] - ox)
+        rr, cc = to_bfs_rc(robot_poses[..., 1] - oy,
+                           robot_poses[..., 0] - ox)           # (T, R)
         if cfg.exact_bfs:
             # One K3 call per robot: each field unblocks its own seed.
             bfs_cfg = (cfg if c == 1 else dataclasses.replace(
                 cfg, bfs_iters=max(1, -(-cfg.bfs_iters // c))))
             valid = torch.ones(1, dtype=torch.bool, device=free.device)
             costs = torch.stack([
-                cost_to_go(bfs_cfg, bfs_passable,
-                           torch.stack([rr[r], cc[r]])[None], valid
-                           )[tgt_r, tgt_c] * bfs_scale
-                for r in range(robot_poses.shape[0])])
+                cost_to_go(bfs_cfg, bfs_passable[0],
+                           torch.stack([rr[0, r], cc[0, r]])[None], valid
+                           )[tgt_r[0], tgt_c[0]] * bfs_scale
+                for r in range(robot_poses.shape[1])])[None]
         else:
-            robot_rc = torch.stack([rr, cc], dim=1)
+            robot_rc = torch.stack([rr, cc], dim=-1)           # (T, R, 2)
             if warm_fields is not None:
                 fields = CF.warm_cost_fields(
-                    ~bfs_passable, robot_rc, warm_fields,
+                    ~bfs_passable[0], robot_rc[0], warm_fields,
                     cfg.warm_extra_iters if warm_iters is None
-                    else warm_iters)
-            else:
+                    else warm_iters)[None]
+            elif batched:
                 fields = CF.cost_fields(~bfs_passable, robot_rc,
                                         cfg.mg_levels, cfg.mg_refine_iters)
-            costs = fields[:, tgt_r, tgt_c] * bfs_scale
+            else:
+                fields = CF.cost_fields(~bfs_passable[0], robot_rc[0],
+                                        cfg.mg_levels,
+                                        cfg.mg_refine_iters)[None]
+            costs = _gather_costs(fields, tgt_r, tgt_c) * bfs_scale
         costs = torch.clamp_max(costs, _BIG)
     else:
-        diff = targets[None, :, :] - robot_poses[:, None, :2]
+        diff = targets[:, None, :, :] - robot_poses[:, :, None, :2]
         costs = div(torch.linalg.vector_norm(diff, dim=-1), res)
         costs = torch.where(torch.isfinite(costs), costs, _BIG)
         costs = torch.clamp_max(costs, _BIG)
@@ -539,20 +614,24 @@ def compute_frontiers_from_masks(cfg: FrontierConfig, grid_cfg: GridConfig,
         sb = (_pool_sum(stale, c).to(torch.float32) / float(c * c)
               if c > 1 else stale.to(torch.float32))
         padded = torch.nn.functional.pad(sb, (1, 1, 1, 1))
-        frac = _patch3(padded, torch.stack([tgt_r, tgt_c], 1)
+        frac = _patch3(padded, torch.stack([tgt_r[0], tgt_c[0]], 1)
                        ).sum(dim=(1, 2)) / 9.0
         bonus = frac.new_full((), cfg.stale_bonus)
-        scale = (1.0 - bonus * frac.clamp(0.0, 1.0))[None, :]
+        scale = (1.0 - bonus * frac.clamp(0.0, 1.0))[None, None, :]
         # Only finite costs discount: a scaled _BIG would pass the
         # auction's `< _BIG` gate.
         costs = torch.where(costs < _BIG, costs * scale, costs)
-    costs = torch.where((sizes > 0)[None, :], costs, _BIG)
+    costs = torch.where((sizes > 0)[:, None, :], costs, _BIG)
     assignment = assign_frontiers(costs)
     result = FrontierResult(mask=mask, labels=labels, slots=slots,
                             centroids=centroids, targets=targets,
                             sizes=sizes, assignment=assignment, costs=costs)
+    if batched:
+        return result
+    result = FrontierResult(*(x[0] for x in result))
     if return_fields:
-        return result, fields, ~bfs_passable
+        return result, None if fields is None else fields[0], \
+            ~bfs_passable[0]
     return result
 
 

@@ -12,6 +12,9 @@ order as the kernel, and are what the CPU path uses.
 
 The fuse entry points return a new grid and leave their input unchanged,
 as the JAX functions do; inside, the fold updates that copy in place.
+`fuse_scans_masked` with a per-scan `tenant` index folds into a (T, N, N)
+stack of grids (the tenant megabatch): every tenant's key scans go
+through one K1 delta launch a sub-batch and one host read of the origins.
 A shared-patch window (`fuse_scans_window`) goes through kernel K5 or K4
 (`ops/fuse_kernel.py`, `ops/sensor_kernel.py`). The map-side functions
 (`decay_grid`, `merge_delta`, `to_occupancy`, `to_gray`,
@@ -214,20 +217,28 @@ def _classify_batch(grid_cfg: GridConfig, scan_cfg: ScanConfig,
 
 def _fold(grid_cfg: GridConfig, grid_arr: torch.Tensor,
           deltas: torch.Tensor, origins: torch.Tensor,
-          mask_b: Optional[torch.Tensor], clamp: bool = True) -> None:
-    """Apply patches in b order, in place (exact under overlap).
+          mask_b: Optional[torch.Tensor], clamp: bool = True,
+          tenant: Optional[torch.Tensor] = None) -> None:
+    """Apply patches in b order, in place (exact under overlap); with
+    `tenant`, scan b into grid tenant[b] of a (T, N, N) stack.
 
-    The patch origins and the mask come to the host once per call (one
-    device sync) because slicing needs Python integers. A scan whose
-    mask is False is skipped: the JAX fold adds its delta times 0, which
-    leaves an in-range cell unchanged, so skipping is exact."""
+    The patch origins, the mask and the tenant index come to the host
+    once per call (one device sync) because slicing needs Python
+    integers. A scan whose mask is False is skipped: the JAX fold adds
+    its delta times 0, which leaves an in-range cell unchanged, so
+    skipping is exact."""
     B = deltas.shape[0]
-    m = (torch.ones(B, dtype=torch.int32, device=origins.device)
-         if mask_b is None else mask_b.to(torch.int32))
-    host = torch.cat([origins.to(torch.int32), m[:, None]], dim=1).tolist()
-    for b, (r0, c0, keep) in enumerate(host):
-        if keep:
-            apply_patch(grid_cfg, grid_arr, deltas[b], r0, c0, clamp)
+    cols = [origins.to(torch.int32),
+            torch.ones((B, 1), dtype=torch.int32, device=origins.device)
+            if mask_b is None else mask_b.to(torch.int32)[:, None]]
+    if tenant is not None:
+        cols.append(tenant.to(torch.int32)[:, None])
+    host = torch.cat(cols, dim=1).tolist()
+    for b, row in enumerate(host):
+        if row[2]:
+            apply_patch(grid_cfg, grid_arr if tenant is None
+                        else grid_arr[row[3]], deltas[b], row[0], row[1],
+                        clamp)
 
 
 # Scans per fold chunk; the fused engine streams each chunk in
@@ -265,7 +276,8 @@ def _pad_batch_to(bucket: int, ranges_b: torch.Tensor, poses_b: torch.Tensor,
 def _classify_fold(grid_cfg: GridConfig, scan_cfg: ScanConfig,
                    grid_arr: torch.Tensor, ranges_b: torch.Tensor,
                    poses_b: torch.Tensor, mask_b: Optional[torch.Tensor],
-                   clamp: bool = True) -> None:
+                   clamp: bool = True,
+                   tenant: Optional[torch.Tensor] = None) -> None:
     """Chunked classify -> fold over the batch, in place on `grid_arr`.
 
     Chunks of `_FUSE_CHUNK` scans; the remainder is padded to its
@@ -274,38 +286,47 @@ def _classify_fold(grid_cfg: GridConfig, scan_cfg: ScanConfig,
     deltas are live at once. This is the JAX package's `fused_fusion`
     engine; its other engine classifies a whole chunk before folding the
     same deltas in the same order, so it gives the same grid and the port
-    has only the streaming one."""
+    has only the streaming one. `tenant` as in `_fold`."""
     from jax_mapping_torch.ops import fuse_kernel as FK
     B = ranges_b.shape[0]
     if B == 0:
         return
+
+    def part(x, sl):
+        return None if x is None else x[sl]
 
     CB = min(_FUSE_CHUNK, B)
     nc, rem = B // CB, B % CB
     for k in range(nc):
         sl = slice(k * CB, (k + 1) * CB)
         FK.stream_fold(grid_cfg, scan_cfg, grid_arr, ranges_b[sl],
-                       poses_b[sl], None if mask_b is None else mask_b[sl],
-                       clamp)
+                       poses_b[sl], part(mask_b, sl), clamp,
+                       part(tenant, sl))
     if rem:
         bucket = min(_batch_bucket(rem), CB)
-        r, p, m = _pad_batch_to(
-            bucket, ranges_b[B - rem:], poses_b[B - rem:],
-            None if mask_b is None else mask_b[B - rem:])
+        sl = slice(B - rem, B)
+        r, p, m = _pad_batch_to(bucket, ranges_b[sl], poses_b[sl],
+                                part(mask_b, sl))
         if bucket == rem and mask_b is None:
             m = None
-        FK.stream_fold(grid_cfg, scan_cfg, grid_arr, r, p, m, clamp)
+        t = part(tenant, sl)
+        if t is not None and bucket > rem:        # padded rows are masked
+            t = torch.cat([t, t[-1:].expand(bucket - rem)])
+        FK.stream_fold(grid_cfg, scan_cfg, grid_arr, r, p, m, clamp, t)
 
 
 def fuse_scans_masked(grid_cfg: GridConfig, scan_cfg: ScanConfig,
                       grid_arr: torch.Tensor, ranges_b: torch.Tensor,
-                      poses_b: torch.Tensor,
-                      mask_b: torch.Tensor) -> torch.Tensor:
+                      poses_b: torch.Tensor, mask_b: torch.Tensor,
+                      tenant: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
     """Fuse (B, beams) scans at (B, 3) poses into a copy of the grid;
-    scan b contributes iff mask_b[b]. Returns the new grid."""
+    scan b contributes iff mask_b[b]. With `tenant` (B,), `grid_arr` is a
+    (T, N, N) stack and scan b folds into grid tenant[b]. Returns the new
+    grid."""
     out = grid_arr.clone()
     _classify_fold(grid_cfg, scan_cfg, out, ranges_b, poses_b,
-                   mask_b.to(torch.bool))
+                   mask_b.to(torch.bool), tenant=tenant)
     return out
 
 

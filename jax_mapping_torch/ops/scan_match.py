@@ -8,7 +8,14 @@ translations. With `MatcherConfig.pruned` (the default) the coarse stage
 is branch and bound over an admissible max-pyramid of the field.
 
 Every function carries a leading robot axis R where the JAX package
-vmaps. The correlation is a grouped `conv1d` in full f32 (TF32 off);
+vmaps. The tenant megabatch matches T missions' scans in one call
+(`match_batch` with a `tenant` index into a (T, N, N) stack of maps): K1
+rasterises every row at once, while the float reductions and the
+correlations run one mission's rows at a time (`_per_lane`), at the solo
+call's shapes. Run whole, the batch sums some responses in another order
+than the solo calls (1.8e-7 apart on the H100 at 3 and 6 missions, the
+chip smoke's tenancy phase). The correlation is a grouped `conv1d` in
+full f32 (TF32 off);
 `coarse_bf16` is a TPU-only knob and is ignored, as on the JAX CPU path.
 Top-k keeps jax.lax.top_k's order (the lower index first among equal
 values) through a stable sort. The cached entry points at the end
@@ -19,6 +26,8 @@ buffers to XLA, which has no counterpart here.
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import NamedTuple
 
 import torch
@@ -56,6 +65,34 @@ def scan_points(scan_cfg: ScanConfig, ranges: torch.Tensor):
 
 def _rows(R: int, dev) -> torch.Tensor:
     return torch.arange(R, device=dev)
+
+
+#: Rows of one mission while a tenant megabatch is matching, else None.
+_LANE = threading.local()
+
+
+@contextlib.contextmanager
+def _lanes(rows):
+    prev = getattr(_LANE, "rows", None)
+    _LANE.rows = rows
+    try:
+        yield
+    finally:
+        _LANE.rows = prev
+
+
+def _per_lane(fn, *xs):
+    """fn(*xs) over the leading axis, one mission's rows at a time while a
+    tenant megabatch is matching (else one call); the results, tensors or
+    tuples of tensors, are concatenated on axis 0."""
+    rows = getattr(_LANE, "rows", None)
+    B = xs[0].shape[0]
+    if rows is None or B <= rows:
+        return fn(*xs)
+    outs = [fn(*(x[s:s + rows] for x in xs)) for s in range(0, B, rows)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.cat(o) for o in zip(*outs))
+    return torch.cat(outs)
 
 
 # ---------------------------------------------------------------------------
@@ -135,7 +172,8 @@ def _raster_batch(grid_cfg: GridConfig, scan_cfg: ScanConfig,
     rasters = SK.scan_rasters(grid_cfg, scan_cfg, ranges_b,
                               poses.reshape(R * A, 3).contiguous(), origins)
     rasters = rasters.reshape(R, A, P, P)
-    mass = torch.clamp_min(rasters.sum(dim=(2, 3)), 1e-6)
+    mass = torch.clamp_min(
+        _per_lane(lambda r: r.sum(dim=(2, 3)), rasters), 1e-6)
     return rasters, mass
 
 
@@ -146,6 +184,14 @@ def _conv_scores_grid(fpad: torch.Tensor, rasters: torch.Tensor,
     mx*stride : +P]> / mass_ref[r], as a grouped 1-D convolution whose
     channels are patch rows. Window starts past the edge clamp, as
     jax.lax.dynamic_slice clamps them."""
+    return _per_lane(lambda f, r, m: _conv_scores_one(f, r, m, n_out,
+                                                      stride),
+                     fpad, rasters, mass_ref)
+
+
+def _conv_scores_one(fpad: torch.Tensor, rasters: torch.Tensor,
+                     mass_ref: torch.Tensor, n_out: int,
+                     stride: int) -> torch.Tensor:
     R, A, P, _ = rasters.shape
     H, W = fpad.shape[-2], fpad.shape[-1]
     dev = fpad.device
@@ -195,9 +241,15 @@ def bnb_num_levels(m_cfg: MatcherConfig, n_steps: int) -> int:
 
 def _block_reduce(x: torch.Tensor, q: int, op: str) -> torch.Tensor:
     """q x q block max/sum over the last two axes, zero-padding the
-    ragged edge."""
+    ragged edge (a sum one mission's rows at a time, `_per_lane`)."""
     if q == 1:
         return x
+    if op == "sum":
+        return _per_lane(lambda v: _block_reduce_one(v, q, op), x)
+    return _block_reduce_one(x, q, op)
+
+
+def _block_reduce_one(x: torch.Tensor, q: int, op: str) -> torch.Tensor:
     h, w = x.shape[-2], x.shape[-1]
     ph, pw = (-h) % q, (-w) % q
     if ph or pw:
@@ -247,6 +299,12 @@ def _bnb_scores(lvl: torch.Tensor, rasters: torch.Tensor, a_idx, oy, ox,
                 mass_ref: torch.Tensor) -> torch.Tensor:
     """(R, K) scores <rasters[r, a_k], lvl[r, oy_k : +P, ox_k : +P]> /
     mass_ref[r]; slice starts clamp like jax.lax.dynamic_slice."""
+    return _per_lane(_bnb_scores_one, lvl, rasters, a_idx, oy, ox,
+                     mass_ref)
+
+
+def _bnb_scores_one(lvl: torch.Tensor, rasters: torch.Tensor, a_idx, oy, ox,
+                    mass_ref: torch.Tensor) -> torch.Tensor:
     R, _, P, _ = rasters.shape
     H, W = lvl.shape[-2], lvl.shape[-1]
     dev = lvl.device
@@ -335,9 +393,12 @@ def _bnb_winner(m_cfg: MatcherConfig, levels, resp_top: torch.Tensor,
 
 def match_batch(grid_cfg: GridConfig, scan_cfg: ScanConfig,
                 m_cfg: MatcherConfig, grid_arr: torch.Tensor,
-                ranges_b: torch.Tensor, guesses_b: torch.Tensor
-                ) -> MatchResult:
-    """Match R scans (R, beams) at guesses (R, 3) against one shared map."""
+                ranges_b: torch.Tensor, guesses_b: torch.Tensor,
+                tenant=None) -> MatchResult:
+    """Match R scans (R, beams) at guesses (R, 3) against one shared map;
+    or, with `tenant` (R,), scan r against map tenant[r] of a (T, N, N)
+    stack, the rows being T missions' R / T each in tenant order (the
+    tenant megabatch: each mission's result is its solo call's)."""
     full_f32()
     R = ranges_b.shape[0]
     P = grid_cfg.patch_cells
@@ -346,16 +407,22 @@ def match_batch(grid_cfg: GridConfig, scan_cfg: ScanConfig,
     ar = torch.arange(P, device=dev)
     rows = (origin[:, 0:1].long() + ar)[:, :, None]
     cols = (origin[:, 1:2].long() + ar)[:, None, :]
-    patch = grid_arr[rows, cols]                                 # (R, P, P)
-    field = likelihood_field(grid_cfg, m_cfg, patch)
-    stride, n_steps = window_params(grid_cfg, m_cfg)
-    n_levels = bnb_num_levels(m_cfg, n_steps) if m_cfg.pruned else 0
-    if n_levels > 0:
-        levels = build_levels(field, n_steps, stride, n_levels)
-        return _match_bnb(grid_cfg, scan_cfg, m_cfg, levels, origin,
-                          ranges_b, guesses_b, n_levels)
-    return _match_exhaustive(grid_cfg, scan_cfg, m_cfg, field, origin,
-                             ranges_b, guesses_b)
+    if tenant is None:
+        patch = grid_arr[rows, cols]                             # (R, P, P)
+        lane_rows = None
+    else:
+        patch = grid_arr[tenant.long()[:, None, None], rows, cols]
+        lane_rows = R // grid_arr.shape[0]
+    with _lanes(lane_rows):
+        field = likelihood_field(grid_cfg, m_cfg, patch)
+        stride, n_steps = window_params(grid_cfg, m_cfg)
+        n_levels = bnb_num_levels(m_cfg, n_steps) if m_cfg.pruned else 0
+        if n_levels > 0:
+            levels = build_levels(field, n_steps, stride, n_levels)
+            return _match_bnb(grid_cfg, scan_cfg, m_cfg, levels, origin,
+                              ranges_b, guesses_b, n_levels)
+        return _match_exhaustive(grid_cfg, scan_cfg, m_cfg, field, origin,
+                                 ranges_b, guesses_b)
 
 
 def match(grid_cfg: GridConfig, scan_cfg: ScanConfig, m_cfg: MatcherConfig,
@@ -375,7 +442,15 @@ def _coarse_poses(guess: torch.Tensor, dth: torch.Tensor) -> torch.Tensor:
 
 def _softmax_moments(surf: torch.Tensor, offs: torch.Tensor):
     """(mean, variance) of offs under exp((surf - max) / 0.05) weights
-    per leading row; surf (R, n) and offs (n,) or (R, n)."""
+    per leading row; surf (R, n) and offs (n,)."""
+    return _per_lane(lambda s: _softmax_moments_one(s, offs), surf)
+
+
+def _softmax_moments_one(surf: torch.Tensor, offs: torch.Tensor):
+    # One memory layout whichever way `surf` came (a lane of a batched
+    # call is contiguous, a solo call's a view): the sums below then
+    # accumulate in one order.
+    surf = surf.contiguous()
     w = torch.exp(div(surf - surf.amax(dim=-1, keepdim=True), 0.05))
     ws = w.sum(dim=-1)
     m = (w * offs).sum(dim=-1) / ws
@@ -385,6 +460,11 @@ def _softmax_moments(surf: torch.Tensor, offs: torch.Tensor):
 
 def _xy_cov(surf: torch.Tensor, offs: torch.Tensor):
     """Softmax second moments of an (R, ny, nx) surface along x and y."""
+    return _per_lane(lambda s: _xy_cov_one(s, offs), surf)
+
+
+def _xy_cov_one(surf: torch.Tensor, offs: torch.Tensor):
+    surf = surf.contiguous()            # as in _softmax_moments_one
     w_t = torch.exp(div(surf - surf.amax(dim=(1, 2), keepdim=True), 0.05))
     wx = w_t.sum(dim=1)
     wy = w_t.sum(dim=2)
@@ -494,7 +574,9 @@ def _fine_stages(grid_cfg: GridConfig, scan_cfg: ScanConfig,
         (guess[:, None, :2] + shift1[:, None, :]) + deltas[None],
         (guess[:, 2] + dth1)[:, None, None].expand(R, S, 1)], dim=-1)
     rasters_s, _ = _raster_batch(grid_cfg, scan_cfg, ranges, poses_s, origin)
-    resp_s = torch.einsum("rbhw,rhw->rb", rasters_s, field) / mass_ref[:, None]
+    resp_s = _per_lane(
+        lambda r, f, m: torch.einsum("rbhw,rhw->rb", r, f) / m[:, None],
+        rasters_s, field, mass_ref)
     e = shift1[:, None, :] + deltas[None]
     d2_s = (e * e).sum(dim=-1)
     si = torch.argmax(resp_s * _pen_dist(m_cfg, d2_s), dim=1)

@@ -53,7 +53,8 @@ def step_fleet(robot: RobotConfig, state: FleetSimState,
 
     Returns (new_state, measured): measured speeds are the actual wheel
     speeds times (1 + speed_noise_frac * n), n the (R, 2) standard normals
-    `wheel_normals` (drawn from `generator` on the CPU when None)."""
+    `wheel_normals` (drawn from `generator` on the CPU when None). The
+    tenant megabatch steps T * R robots at once with (T, R, 2) normals."""
     alpha = 1.0 - math.exp(-dt / robot.motor_lag_tau_s)
     w = state.wheel_speeds
     actual = w + alpha * (targets - w)
@@ -61,7 +62,7 @@ def step_fleet(robot: RobotConfig, state: FleetSimState,
     if wheel_normals is None:
         wheel_normals = torch.randn(actual.shape, generator=generator)
     n = torch.as_tensor(wheel_normals, dtype=torch.float32,
-                        device=actual.device)
+                        device=actual.device).reshape(actual.shape)
     measured = actual * (1.0 + speed_noise_frac * n)
     return FleetSimState(poses=poses, wheel_speeds=actual), measured
 

@@ -22,7 +22,10 @@ and 4 (through the number of fields) and both routes, on paths through
 every slab boundary. Other slab splits are held on the CPU by the plain
 mirror in tests/test_torch_frontier_sweeps.py. The recovery path's cases
 put K1 on the relocalizer's, the bucketed and touched fuses' and the
-rendezvous merge's batches, card against CPU.
+rendezvous merge's batches, card against CPU. The tenant megabatch's
+cases run K2 over T grids under a mask each and K3 over T tenants' fields
+under a mask a tenant (T in 1, 2, 3, 6, both routes), and a tiny megabatch
+against its missions' solo runs on the card.
 """
 
 import dataclasses
@@ -311,6 +314,114 @@ def test_cost_fields_equal_plain(dev):
     got = CF.cost_fields(blocked, rc, 3, 8)
     want = CF.cost_fields(blocked, rc, 3, 8, relax=CF._relax_level_xla)
     assert torch.equal(got, want)
+
+
+TENANTS = [1, 2, 3, 6]
+
+
+@pytest.mark.parametrize("T", TENANTS)
+@pytest.mark.parametrize("n", [256, 1024])
+def test_label_sweeps_batched_equals_plain(dev, n, T):
+    """T grids, each under its own mask (the tenant megabatch's), in one
+    launch on the cluster route (one launch a sweep on the global route
+    at 1024^2): every grid equals its own solo plain sweeps, with the
+    linear-index seeds of each grid starting at 0."""
+    masks = [KI.serpentine_mask(n, seed=n + t) for t in range(T)]
+    mask = torch.as_tensor(np.stack(masks)).to(dev)
+    seed = torch.as_tensor(np.stack([KI.label_seed(m, t % 2 == 1, seed=t)
+                                     for t, m in enumerate(masks)])).to(dev)
+    sweeps = 49 if n <= 512 else 9
+    _cuda.reset_launches()
+    got, ran = F.label_sweeps(mask, seed, sweeps)
+    _check_launches("label_prop", sweeps, n)
+    want = []
+    for t in range(T):
+        w = seed[t]
+        for _ in range(sweeps):
+            w = F._neighbor_max_sweep(w, mask[t])
+        want.append(w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, torch.stack(want))
+    assert ran["launches"] == (1 if n <= 512 else sweeps)
+
+
+@pytest.mark.parametrize("T", TENANTS)
+@pytest.mark.parametrize("n", [256, 1024])
+def test_relax_sweeps_batched_equals_plain(dev, n, T):
+    """T tenants' R = 8 fields each under the tenant's own blocked mask,
+    in one launch on the cluster route (one a sweep at 1024^2): every
+    tenant's fields equal its solo plain sweeps."""
+    R = 8
+    mazes = [KI.corridor_maze(n, seed=n + t) for t in range(T)]
+    blocked = torch.as_tensor(np.stack(mazes)).to(dev)
+    init = torch.as_tensor(np.concatenate(
+        [KI.maze_init(m, R, seed=t, dense=t % 2 == 1)
+         for t, m in enumerate(mazes)])).to(dev)
+    sweeps = 16 if n <= 512 else 4
+    _cuda.reset_launches()
+    got, ran = CF.relax_sweeps(blocked, init, sweeps)
+    _check_launches("costfield_relax", sweeps, n)
+    want = torch.cat([CF._relax_sweeps_plain(blocked[t],
+                                             init[t * R:(t + 1) * R], sweeps)
+                      for t in range(T)])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), int((got != want).sum())
+    assert torch.equal(CF.sweeps(blocked, init, sweeps), want)
+
+
+@pytest.mark.parametrize("T", TENANTS)
+def test_cost_fields_batched_equal_plain(dev, T):
+    """The fleet's three levels over T tenants' masks: three launches for
+    all tenants, each tenant's fields its solo plain solve's."""
+    g = torch.Generator().manual_seed(T)
+    blocked = (torch.rand((T, 256, 256), generator=g) < 0.1).to(dev)
+    rc = torch.randint(0, 256, (T, 8, 2), generator=g).to(dev)
+    _cuda.reset_launches()
+    got = CF.cost_fields(blocked, rc, 3, 8)
+    assert _cuda.LAUNCHES["costfield_relax"] == 3
+    want = torch.stack([CF.cost_fields(blocked[t], rc[t], 3, 8,
+                                       relax=CF._relax_level_xla)
+                        for t in range(T)])
+    assert torch.equal(got, want)
+
+
+def test_megabatch_on_card_equals_solo(dev):
+    """Three tiny missions (bucket 3) and 2 + 1 pad (bucket 3) ticked as a
+    megabatch on the card: every lane equals its solo `fleet_step` run on
+    the card bit for bit, the pad lane stays frozen, and K2 launches once
+    and K3 three times a tick for all lanes."""
+    from jax_mapping_torch.tenancy import megabatch as MB
+    cfg = tiny_config(2)
+    res = cfg.grid.resolution_m
+    worlds = [torch.as_tensor(W.plank_course(256, res, n_planks=8, seed=t),
+                              device=dev) for t in range(3)]
+    for n_active in (3, 2):
+        gen = torch.Generator().manual_seed(n_active)
+        states = [FL.init_fleet_state(cfg, device=dev, generator=gen)
+                  for _ in range(n_active)]
+        b0 = MB.make_tenant_batch(states, worlds[:n_active],
+                                  list(range(n_active)), capacity=3)
+        normals = [torch.randn((3, 2, 2), generator=gen) for _ in range(4)]
+        b = b0
+        _cuda.reset_launches()
+        for nm in normals:
+            b, _d, _h = MB.megabatch_tick(cfg, b, res, wheel_normals=nm)
+        assert _cuda.LAUNCHES["label_prop"] == 4
+        assert _cuda.LAUNCHES["costfield_relax"] == 12
+        for t in range(n_active):
+            st = states[t]
+            for nm in normals:
+                st, _ = FL.fleet_step(cfg, st, res, worlds[t],
+                                      wheel_normals=nm[t])
+            got = MB.lane_state(b, t)
+            MB._tree_map(lambda x, y: _assert_equal(x, y), got, st)
+        for t in range(n_active, 3):
+            MB._tree_map(lambda x, y: _assert_equal(x, y),
+                         MB.lane_state(b, t), MB.lane_state(b0, t))
+
+
+def _assert_equal(x, y):
+    assert torch.equal(x, y)
 
 
 def test_wrappers_check_their_inputs(dev):
