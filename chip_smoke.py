@@ -113,6 +113,32 @@ Phases, each printed as one JSON line:
            accepted and rejected, cells free and occupied, peak memory.
            Then a burst: 16 sim and brain steps with no mapper tick, then
            one mapper tick, which must fuse a window through K5
+  world    slice 11's main path, the bounded-memory world: `MapperNode`
+           on the default SlamConfig with `world.windowed` (an 8-tile
+           2048^2 window of 256-cell tiles over an 8192^2 logical lattice,
+           409.6 m) and a 16-tile host budget with a disk spill tier; 8
+           robots in formation, scripted noise-free odometry and scans
+           raycast on the card in a pillared gallery, a 16-scan window a
+           robot a tick, 130 m east (three shifts), a turn, then west
+           past the start (host and disk rehydrations; two spilled tiles
+           corrupted first). Counts are zeroed before the drive and read
+           after: K1 (both modes), K2, K3 and K5 must launch. Tick p50/p90
+           of shift ticks and of the others, the `mapper.window_shift`
+           stage, host syncs a shift, the store's counters, matches
+           accepted, peak memory through the first shift and after it
+           (it must not grow), the bytes an unwindowed grid would take.
+           Between the second and third shift a checkpoint with its
+           `.world` sidecar (and a copy of the spill file) is restored
+           into a fresh node that replays the rest of the drive: its grid,
+           poses and origin must equal the uninterrupted run's
+  world_parity  (a) the JAX package's store drive (`tests/test_world.py`:
+           shift, poll, `fuse_scan_global`, a decay pass, a pressure
+           hold), scaled to the full window, host-only and with a disk
+           tier: the window bit-equal to a big-grid oracle (K1 deltas at
+           the global origin, clip-added) after every step; (b) a
+           windowed `MapperNode` drive at tiny_config on the card and on
+           the CPU: schedules and origins equal, estimates within 2e-5 m,
+           at most 1e-4 of the cells apart
   window   the bench's window workload: 256 scans on a 0.4 m loop into
            the 4096^2 grid through `fuse_scans_window` (K5), and 1024
            scans (K4 subtotals of 512, then one apply)
@@ -464,24 +490,31 @@ class BatchCount:
     NAMES = {"scan_deltas": "sensor_model_delta",
              "scan_rasters": "sensor_model_raster"}
 
-    def __init__(self, base=None):
+    def __init__(self, base=None, capture: bool = False):
         self.base = base
+        #: With `capture`: (name, key) -> the first such call's (grid
+        #: config, scan config, ranges, poses, origins), cloned.
+        self.inputs = {} if capture else None
 
     def __enter__(self):
         from jax_mapping_torch.ops import sensor_kernel as SK
         self.sk, self.orig = SK, {f: getattr(SK, f) for f in self.NAMES}
         self.n = {k: {} for k in self.NAMES.values()}
         for f, name in self.NAMES.items():
-            setattr(SK, f, self._counted(self.orig[f], self.n[name]))
+            setattr(SK, f, self._counted(self.orig[f], self.n[name], name))
         return self
 
-    def _counted(self, fn, counts):
+    def _counted(self, fn, counts, name):
         def counted(grid_cfg, scan_cfg, ranges_b, *args):
             B = ranges_b.shape[0]
             if ranges_b.device.type == "cuda" and B > 0:
                 key = (str(B) if self.base is None or grid_cfg == self.base
                        else f"{B}@{grid_cfg.resolution_m:g}m")
                 counts[key] = counts.get(key, 0) + 1
+                if self.inputs is not None \
+                        and (name, key) not in self.inputs:
+                    self.inputs[(name, key)] = (grid_cfg, scan_cfg) + tuple(
+                        a.clone() for a in (ranges_b, *args))
             return fn(grid_cfg, scan_cfg, ranges_b, *args)
         return counted
 
@@ -784,7 +817,7 @@ def phase_profile(torch, cfg, st, world, seed: int, ticks: int = 3):
 
 def phase_kernels(torch, cfg, world, mapped, seed: int, fleet: dict,
                   mapper: dict, voxel: tuple, explore: tuple,
-                  new_paths: dict, tenancy: dict, stack_rec):
+                  new_paths: dict, tenancy: dict, stack_rec, world_paths):
     """Each kernel against its plain version at the main path's shapes.
     The scans are taken near walls and the frontier comes from `mapped`,
     the re-fused map, so that every kernel sees non-trivial input; the
@@ -905,6 +938,8 @@ def phase_kernels(torch, cfg, world, mapped, seed: int, fleet: dict,
     rows.update(exploration_kernel_rows(torch, cfg, *explore))
     rows.update(stack_kernel_rows(torch, cfg, world, gen, fleet, mapper,
                                   new_paths, stack_rec, rows))
+    rows.update(world_kernel_rows(torch, cfg, fleet, mapper, new_paths,
+                                  *world_paths, rows))
     emit({"phase": "kernels", "rows": rows})
     for name, r in rows.items():
         check(r["mismatches"] == 0,
@@ -1769,24 +1804,29 @@ class WaypointCount:
 
 
 class SweepRecorder:
-    """Records the inputs of every K2 (`frontier.label_sweeps`) and K3
-    (`costfield.relax_sweeps`) call while the context is open, so the
-    kernels phase can hold those shapes against the plain versions. It
-    keeps references, no copies: no caller writes into those tensors."""
+    """Records the inputs of the first K2 (`frontier.label_sweeps`) and K3
+    (`costfield.relax_sweeps`) call of each (name, shape, sweeps) while
+    the context is open, so the kernels phase can hold those shapes
+    against the plain versions. It keeps references, no copies (no caller
+    writes into those tensors), and only one call a signature, so that a
+    long drive's device memory does not grow with its calls."""
 
     def __enter__(self):
         from jax_mapping_torch.ops import costfield as CF
         from jax_mapping_torch.ops import frontier as F
         self.mods = ((CF, "relax_sweeps"), (F, "label_sweeps"))
         self.orig = [getattr(m, n) for m, n in self.mods]
-        self.calls = []
+        self.calls, self._seen = [], set()
         for (mod, name), fn in zip(self.mods, self.orig):
             setattr(mod, name, self._recorded(name, fn))
         return self
 
     def _recorded(self, name, fn):
         def recorded(mask, init, n_sweeps):
-            self.calls.append((name, mask, init, n_sweeps))
+            sig = (name, tuple(init.shape), n_sweeps)
+            if sig not in self._seen:
+                self._seen.add(sig)
+                self.calls.append((name, mask, init, n_sweeps))
             return fn(mask, init, n_sweeps)
         return recorded
 
@@ -3933,9 +3973,9 @@ def phase_stack(torch, seed: int):
             return mapper_tick()
         marks = []
 
-        def marked_publish(poses=None):
+        def marked_publish(corrections=()):
             marks.append(len(caught))
-            publish(poses)
+            publish(corrections)
             marks.append(len(caught))
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
@@ -4083,6 +4123,14 @@ def stack_kernel_rows(torch, cfg, world, gen, fleet: dict, mapper: dict,
             out[f"{name}_stack_b{key}"] = _k1_row(
                 torch, c, raster, ranges, poses, origins, fleet, mapper,
                 key=key, new_paths=new_paths)
+    out.update(_new_sweep_rows(torch, cfg, stack_rec, {**rows, **out},
+                               "stack"))
+    return out
+
+
+def _new_sweep_rows(torch, cfg, rec, rows: dict, tag: str) -> dict:
+    """A row for each distinct K2/K3 call `rec` recorded that no row of
+    `rows` covers, on the very inputs the path passed."""
     covered = set()
     for r in rows.values():
         if "sweeps" in r and "shape" in r:
@@ -4090,16 +4138,38 @@ def stack_kernel_rows(torch, cfg, world, gen, fleet: dict, mapper: dict,
         for lv in r.get("levels", ()) if isinstance(r, dict) else ():
             covered.add(((cfg.fleet.n_robots, lv["n"], lv["n"]),
                          lv["sweeps"]))
-    seen = set()
-    for name, m, init, s in stack_rec.calls:
+    out, seen = {}, set()
+    for name, m, init, s in rec.calls:
         sig = (tuple(init.shape), s)
         if sig in covered or (name, sig) in seen:
             continue
         seen.add((name, sig))
         key = ("costfield_relax" if name == "relax_sweeps"
-               else "label_prop") + f"_stack_n{init.shape[-1]}_s{s}" + (
+               else "label_prop") + f"_{tag}_n{init.shape[-1]}_s{s}" + (
                    f"_r{init.shape[0]}" if init.dim() == 3 else "")
         out[key] = _sweep_row(torch, name, m, init, s)
+    return out
+
+
+def world_kernel_rows(torch, cfg, fleet: dict, mapper: dict,
+                      new_paths: dict, world_rec, k1_inputs: dict,
+                      rows: dict) -> dict:
+    """K1 on the first inputs of each batch the world phases launched
+    (`k1_inputs`: ((name, key), inputs) pairs of BatchCount captures; the
+    window's grid, the coarse view of the window's loop verification, and
+    the store's `fuse_scan_global` on the logical grid), each against its
+    plain version; K2/K3 at any call of the world phase that no row
+    covers."""
+    out = {}
+    for (name, key), (g, sc, ranges, poses, origins) in k1_inputs:
+        tag = "global" if g.size_cells == WORLD_LOGICAL_CELLS else "window"
+        row = _k1_row(torch, cfg.replace(grid=g, scan=sc),
+                      name == "sensor_model_raster", ranges, poses, origins,
+                      fleet, mapper, key=key, new_paths=new_paths)
+        row["grid_cells"] = g.size_cells
+        out[f"{name}_world_{tag}_b{key}"] = row
+    out.update(_new_sweep_rows(torch, cfg, world_rec, {**rows, **out},
+                               "world"))
     return out
 
 
@@ -4161,6 +4231,518 @@ def phase_stack_parity(torch, seed: int, steps: int = STACK_PARITY_STEPS):
     check(out["cells_differ"] <= 1e-4 * out["cells_total"],
           f"stack parity: {out['cells_differ']} grid cells differ")
     return out
+
+
+WORLD_ROBOTS = 8
+WORLD_LOGICAL_CELLS = 8192          # 32 x 32 tiles of 256 cells, 409.6 m
+WORLD_HOST_BUDGET = 16
+WORLD_SCANS = 16                    # a window a robot a tick: K5
+WORLD_STEP_M = 0.25                 # between a robot's scans
+WORLD_DT_S = 2.0                    # between a robot's scan stamps
+WORLD_EAST_M = 130.0                # three shifts east
+WORLD_WEST_M = -6.0                 # back past the start
+#: The formation's offsets from the lead robot, metres.
+WORLD_FORMATION = [(-1.5 * (i // 2), 1.5 if i % 2 else -1.5)
+                   for i in range(WORLD_ROBOTS)]
+
+
+def _world_config(base, logical: int, **world_kw):
+    """`base` with a `logical`-cell lattice and `world.windowed`."""
+    import dataclasses
+    from jax_mapping_torch.config import WorldConfig
+    return base.replace(
+        grid=dataclasses.replace(base.grid, size_cells=logical),
+        world=WorldConfig(windowed=True, **world_kw))
+
+
+def _gallery(n: int, res: float, x0: float, x1: float, half_w: float,
+             pillar_m: float, seed: int):
+    """An n x n occupancy map at `res` centred on the origin: an east-west
+    gallery between walls at y = +-half_w from x0 to x1 m, closed at both
+    ends, with 0.4 m pillars every `pillar_m` metres alternately at
+    y = +-half_w / 2 and seeded boxes against the walls, so that scans
+    constrain every direction along the route."""
+    import numpy as np
+    w = np.zeros((n, n), bool)
+    o = -n * res / 2
+
+    def rect(xa, xb, ya, yb):
+        c0, c1 = int((xa - o) / res), int(math.ceil((xb - o) / res))
+        r0, r1 = int((ya - o) / res), int(math.ceil((yb - o) / res))
+        w[max(r0, 0):r1, max(c0, 0):c1] = True
+    t = 0.2
+    rect(x0, x1, half_w, half_w + t)
+    rect(x0, x1, -half_w - t, -half_w)
+    rect(x0 - t, x0, -half_w, half_w)
+    rect(x1, x1 + t, -half_w, half_w)
+    k, x = 0, x0 + pillar_m
+    while x < x1:
+        y = half_w / 2 if k % 2 == 0 else -half_w / 2
+        rect(x - 0.2, x + 0.2, y - 0.2, y + 0.2)
+        k, x = k + 1, x + pillar_m
+    rng = np.random.default_rng(seed)
+    for _ in range(int((x1 - x0) / 3)):
+        x, d = rng.uniform(x0, x1), rng.uniform(0.3, 1.2)
+        ya = half_w - d if rng.random() < 0.5 else -half_w
+        rect(x - d / 2, x + d / 2, ya, ya + d)
+    return w
+
+
+def _course_ticks(east_m: float, west_m: float, step: float, scans: int):
+    """The lead robot's (x, heading) at every scan, in ticks of `scans`:
+    east from 0, a turn in place to heading pi (one tick), then west to
+    `west_m`, the west leg's first scan repeating the turn's last pose (a
+    stationary scan). Returns (ticks, the index of the turn tick)."""
+    n_e = int(math.ceil(east_m / (scans * step)))
+    east = [(k * step, 0.0) for k in range(n_e * scans)]
+    x = east[-1][0]
+    turn = [(x, math.pi * (j + 1) / scans) for j in range(scans)]
+    n_w = int(math.ceil((x - west_m) / (scans * step)))
+    west = [(x - k * step, math.pi) for k in range(n_w * scans)]
+    flat = east + turn + west
+    ticks = [flat[i:i + scans] for i in range(0, len(flat), scans)]
+    return ticks, n_e
+
+
+class _WorldCourse:
+    """Scripted, noise-free messages for R robots in formation: per tick
+    each robot's scans (raycast on `dev` in one call, read in one copy)
+    and the odometry at each scan's pose, with stamps WORLD_DT_S apart."""
+
+    def __init__(self, torch, cfg, world_np, dev, formation, lead_ticks):
+        self.torch, self.cfg = torch, cfg
+        self.world = torch.as_tensor(world_np, device=dev)
+        self.formation = formation
+        self.lead = lead_ticks
+        res = cfg.grid.resolution_m
+        self.n_samples = int(cfg.scan.range_max_m / (res * 0.5))
+        self.k = 0                        # scans so far, for the stamps
+
+    def poses(self, t: int):
+        """(R, n, 3) float32 poses of tick t."""
+        import numpy as np
+        return np.array([[(x + dx, dy, th) for x, th in self.lead[t]]
+                         for dx, dy in self.formation], np.float32)
+
+    def tick(self, t: int):
+        """(poses (R, n, 3), ranges (R, n, beams), stamps (n,)) of tick t,
+        all host arrays."""
+        import numpy as np
+        from jax_mapping_torch.sim import lidar
+        torch = self.torch
+        poses = self.poses(t)
+        R, n, _ = poses.shape
+        ranges = lidar.simulate_scans(
+            self.cfg.scan, self.world, self.cfg.grid.resolution_m,
+            self.n_samples, torch.as_tensor(poses.reshape(R * n, 3),
+                                            device=self.world.device)
+        ).reshape(R, n, -1).cpu().numpy()
+        stamps = (self.k + 1 + np.arange(n)) * WORLD_DT_S
+        self.k += n
+        return poses, ranges, stamps
+
+
+def _world_publish(bus, R: int, cfg, poses, ranges, stamps) -> None:
+    """Each robot's odometry and scan at every stamp of a tick, in the
+    JAX stack's order (odometry first)."""
+    from jax_mapping_torch.bridge.brain import robot_ns
+    from jax_mapping_torch.bridge.messages import (Header, LaserScan,
+                                                   Odometry, Pose2D, Twist)
+    for i in range(R):
+        ns = robot_ns(i, R)
+        odom, scan = bus.publisher(f"{ns}odom"), bus.publisher(f"{ns}scan")
+        for k, stamp in enumerate(stamps):
+            x, y, th = (float(v) for v in poses[i, k])
+            odom.publish(Odometry(header=Header(stamp=float(stamp),
+                                                frame_id="odom"),
+                                  pose=Pose2D(x, y, th),
+                                  twist=Twist(linear_x=0.0, angular_z=0.0)))
+            scan.publish(LaserScan(
+                header=Header(stamp=float(stamp), frame_id="base_laser"),
+                angle_increment=cfg.scan.angle_increment_rad,
+                ranges=ranges[i, k, :cfg.scan.n_beams]))
+
+
+def _world_mapper(torch, cfg, R: int, spill_dir, device, start):
+    """A windowed MapperNode on its own bus, every chain at its row of
+    `start` (R, 3)."""
+    from jax_mapping_torch.bridge.bus import Bus
+    from jax_mapping_torch.bridge.mapper import MapperNode
+    bus = Bus()
+    m = MapperNode(cfg, bus, n_robots=R, device=device, spill_dir=spill_dir)
+    poses = torch.as_tensor(start, device=m.device)
+    for i, st in enumerate(m.states):
+        m.states[i] = st._replace(pose=poses[i])
+    return m, bus
+
+
+def phase_world(torch, seed: int):
+    """Slice 11's main path: the windowed mapper over a logical world 4x
+    its window's edge, with a checkpoint restored mid-drive (see the
+    module docstring)."""
+    import shutil
+    import numpy as np
+    from jax_mapping_torch.config import SlamConfig
+    from jax_mapping_torch.io.checkpoint import (
+        load_checkpoint, load_world_sidecar, save_checkpoint,
+        save_world_sidecar)
+    from jax_mapping_torch.ops import _cuda
+    cfg = _world_config(SlamConfig(), WORLD_LOGICAL_CELLS,
+                        host_tile_budget=WORLD_HOST_BUDGET)
+    R = WORLD_ROBOTS
+    res = cfg.grid.resolution_m
+    world = _gallery(WORLD_LOGICAL_CELLS, res, -12.0, 150.0, 8.0, 4.0,
+                     seed + 11)
+    lead, _turn = _course_ticks(WORLD_EAST_M, WORLD_WEST_M, WORLD_STEP_M,
+                                WORLD_SCANS)
+    course = _WorldCourse(torch, cfg, world, DEV, WORLD_FORMATION, lead)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_world_")
+    nodes = []
+    try:
+        m, bus = _world_mapper(torch, cfg, R, os.path.join(tmp, "spill"),
+                               DEV, course.poses(0)[:, 0])
+        nodes.append(m)
+        check(m.shared_grid.is_cuda and m.shared_grid.shape[0]
+              == cfg.world.window_tiles * cfg.serving.tile_cells,
+              "the window is not on the card at its size")
+        reads = _stack_step_reads(m)
+        shift_syncs, upkeep_syncs = [], []
+        orig_upkeep = m._maybe_shift_window
+
+        def counted_upkeep():
+            n0 = m.world.n_shifts
+            _, k = _count_syncs(torch, orig_upkeep)
+            (shift_syncs if m.world.n_shifts > n0
+             else upkeep_syncs).append(k)
+        m._maybe_shift_window = counted_upkeep
+        ck = os.path.join(tmp, "mid.npz")
+        replay, tick_ms, shifted, live = [], [], [], []
+        peak_first = ck_tick = None
+        corrupted = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launches()
+        with BatchCount(m.cfg.grid, capture=True) as bc, \
+                SweepRecorder() as rec, \
+                StageSamples("mapper.window_shift") as shift_ms:
+            t = -1
+            while t + 1 < len(lead):
+                t += 1
+                msgs = course.tick(t)
+                _world_publish(bus, R, cfg, *msgs)
+                n0 = m.world.n_shifts
+                t0 = time.perf_counter()
+                m.tick()
+                torch.cuda.synchronize()
+                tick_ms.append((time.perf_counter() - t0) * 1e3)
+                shifted.append(m.world.n_shifts > n0)
+                if shifted[-1]:
+                    live.append(torch.cuda.memory_allocated())
+                    if peak_first is None:
+                        peak_first = torch.cuda.max_memory_allocated()
+                        torch.cuda.reset_peak_memory_stats()
+                if ck_tick is not None:
+                    replay.append(msgs)
+                elif m.world.n_shifts >= 2 and not shifted[-1]:
+                    # Between the second and the third shift, with no
+                    # prefetch in flight: checkpoint the states and the
+                    # window manifest (which flushes the host tier to the
+                    # spill file), corrupt two spilled tiles, and copy the
+                    # spill file for the resumed node. Tiles evicted after
+                    # this come back from the host on the way west.
+                    ck_tick = t
+                    # The resumed node's odometry pairing starts empty, as
+                    # after any restart: the next tick holds still (its
+                    # first scan has no motion to pair on either node).
+                    lead.insert(t + 1, [lead[t][-1]] * WORLD_SCANS)
+                    save_checkpoint(ck, m.snapshot_states(),
+                                    config_json=cfg.to_json())
+                    save_world_sidecar(ck, m.world.checkpoint_payload(),
+                                       config_json=cfg.to_json())
+                    corrupted = m.world.corrupt_spill(2)
+                    shutil.copytree(os.path.join(tmp, "spill"),
+                                    os.path.join(tmp, "spill_resumed"))
+            launches = dict(_cuda.LAUNCHES)
+        peak_rest = torch.cuda.max_memory_allocated()
+        status = m.world.status()
+        grid_a = m.shared_grid
+        poses_a = m._read_poses()
+        keys = [r for r in reads if r.key_added]
+
+        # The resumed node: the checkpoint, its manifest and the spill
+        # copy; the same messages after the turn.
+        states, _ = load_checkpoint(ck, m.checkpoint_template())
+        payload = load_world_sidecar(ck, running_config_json=cfg.to_json())
+        b, bus_b = _world_mapper(torch, cfg, R,
+                                 os.path.join(tmp, "spill_resumed"), DEV,
+                                 np.zeros((R, 3), np.float32))
+        nodes.append(b)
+        b.resume(states, payload)
+        for msgs in replay:
+            _world_publish(bus_b, R, cfg, *msgs)
+            b.tick()
+        torch.cuda.synchronize()
+        poses_b = b._read_poses()
+        shift_ticks = [x for x, s_ in zip(tick_ms, shifted) if s_]
+        other = [x for x, s_ in zip(tick_ms, shifted) if not s_]
+        out = {"phase": "world", "config": "SlamConfig(), grid 8192^2, "
+               "world.windowed (8 tiles of 256), host_tile_budget 16, "
+               "a disk tier",
+               "world": "gallery x -12..150 m, walls y +-8 m, pillars 4 m",
+               "robots": R, "ticks": len(lead),
+               "scans_per_robot_tick": WORLD_SCANS,
+               "route_m": [0.0, max(x for tk in lead for x, _ in tk),
+                           lead[-1][-1][0]],
+               "shift_tick_ms": {**_p50_p90(shift_ticks),
+                                 "n": len(shift_ticks)},
+               "other_tick_ms": {**_p50_p90(other[1:]),
+                                 "n": len(other) - 1,
+                                 "first": other[0]},
+               "window_shift_stage_ms": {**_p50_p90(shift_ms.ms),
+                                         "n": len(shift_ms.ms)},
+               "host_syncs_per_shift": shift_syncs,
+               "host_syncs_per_upkeep_without_shift": sorted(
+                   set(upkeep_syncs)),
+               "store": status,
+               "corrupted_tiles": [list(x) for x in corrupted],
+               "key_steps": len(keys),
+               "matches_accepted": sum(r.matched for r in keys),
+               "scans_fused": m.n_scans_fused,
+               "windows_fused": m.n_windows_fused,
+               "loops_closed": m.n_loops_closed,
+               "launches": launches,
+               "k1_launches_by_batch": bc.n,
+               "sweep_calls": sorted({f"{n}_n{i.shape[-1]}_s{s}"
+                                      + (f"_r{i.shape[0]}" if i.dim() == 3
+                                         else "")
+                                      for n, _m, i, s in rec.calls}),
+               "peak_bytes_through_first_shift": peak_first,
+               "peak_bytes_after_first_shift": peak_rest,
+               "live_bytes_after_each_shift": live,
+               "window_bytes": m.shared_grid.numel() * 4,
+               "unwindowed_grid_bytes": WORLD_LOGICAL_CELLS ** 2 * 4,
+               "cells_free": int((grid_a < cfg.grid.free_threshold).sum()),
+               "cells_occupied": int((grid_a > cfg.grid.occ_threshold)
+                                     .sum()),
+               "resumed": {
+                   "checkpoint_tick": ck_tick,
+                   "ticks_replayed": len(replay),
+                   "grid_equal": bool(torch.equal(grid_a, b.shared_grid)),
+                   "cells_differ": int((grid_a != b.shared_grid).sum()),
+                   "pose_max_diff_m": float(np.abs(poses_a[:, :2]
+                                                   - poses_b[:, :2]).max()),
+                   "pose_max_diff_rad": float(np.abs(poses_a[:, 2]
+                                                     - poses_b[:, 2]).max()),
+                   "origin": list(b.world.origin_tile)}}
+        emit(out)
+        check(bool(torch.isfinite(grid_a).all()), "world grid non-finite")
+        check(status["shifts"] >= 3, f"{status['shifts']} shifts, < 3")
+        check(status["rehydrated_host"] > 0 and status["rehydrated_disk"] > 0,
+              f"no host or no disk rehydration: {status}")
+        check(out["matches_accepted"] > 0, "no match accepted")
+        check(peak_rest <= 1.1 * peak_first,
+              f"peak memory grew with distance: {peak_first} -> "
+              f"{peak_rest}")
+        for name in FLEET_KERNELS + ("window_apply",):
+            check(launches[name] > 0,
+                  f"kernel {name} never launched on the world path")
+        r_ = out["resumed"]
+        check(ck_tick is not None and len(corrupted) == 2,
+              f"no checkpoint or no corrupted tiles: {ck_tick}, {corrupted}")
+        check(r_["grid_equal"] and r_["pose_max_diff_m"] == 0.0
+              and r_["pose_max_diff_rad"] == 0.0
+              and tuple(r_["origin"]) == tuple(status["origin_tile"]),
+              f"the resumed run differs from the continuous one: {r_}")
+        return ({"per": f"{len(lead)} world ticks",
+                 "k1_launches_by_batch": bc.n}, out, rec, bc.inputs)
+    finally:
+        for nd in nodes:
+            nd.destroy()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+#: The JAX package's store walk (`tests/test_world.py::_WALK`, metres at
+#: a 4-tile window of 64-cell tiles), scaled to the 8-tile window of
+#: 256-cell tiles: 8x.
+WORLD_WALK = [8.0 * x for x in (0.0, 1.6, 3.3, 6.6, 9.9, 6.6, 3.3, 0.0)]
+
+
+def _store_walk(torch, cfg, spill_dir, decay_at=(), pressure_at=()):
+    """One robot along y = 0, a scan a pose, through the store as the
+    mapper drives it (poll, recentre, fuse), with a big-grid oracle (K1's
+    deltas at the global origin, clip-added) beside it; the window must
+    equal the oracle's region after every step. Returns (store,
+    bit-equal steps)."""
+    import numpy as np
+    from jax_mapping_torch.ops import grid as G
+    from jax_mapping_torch.ops import sensor_kernel as SK
+    from jax_mapping_torch.world.store import WorldStore
+    store = WorldStore(cfg, spill_dir=spill_dir)
+    win = G.empty_grid(store.cfg.grid, DEV)
+    big = G.empty_grid(cfg.grid, DEV)
+    g = cfg.grid
+    ranges = np.random.default_rng(0).uniform(
+        1.0, 11.0, cfg.scan.padded_beams).astype(np.float32)
+    r_dev = torch.as_tensor(ranges, device=DEV).reshape(1, -1)
+    t, w, p = store.tile_cells, store.window_cells, g.patch_cells
+    equal = 0
+    for i, x in enumerate(WORLD_WALK):
+        pose_w = np.array([x, 0.0, 0.0], np.float32)
+        win, _ = store.poll_prefetch(win)
+        off = store.offset_xy()
+        dr, dc = store.desired_shift(
+            [pose_w - np.array([off[0], off[1], 0.0], np.float32)])
+        if (dr, dc) != (0, 0):
+            win = store.shift(win, dr, dc)
+            win, _ = store.poll_prefetch(win)
+        win = store.fuse_scan_global(win, ranges, pose_w)
+        pose = torch.as_tensor(pose_w, device=DEV).reshape(1, 3)
+        og = G.patch_origin(g, torch.as_tensor(pose_w[:2])).numpy()
+        delta = SK.scan_deltas(g, cfg.scan, r_dev, pose, torch.as_tensor(
+            og.astype(np.int32), device=DEV).reshape(1, 2))[0]
+        r, c = int(og[0]), int(og[1])
+        big[r:r + p, c:c + p] = torch.clamp(big[r:r + p, c:c + p] + delta,
+                                            g.logodds_min, g.logodds_max)
+        if i in decay_at:
+            d = cfg.decay
+            win = G.decay_grid(win, d.factor, d.evidence_cap)
+            store.note_decay_pass()
+            big = G.decay_grid(big, d.factor, d.evidence_cap)
+        if i in pressure_at:
+            store.hold_pressure(f"walk@{i}", 0.5)
+        r0, c0 = store.origin_tile
+        equal += bool(torch.equal(win, big[r0 * t:r0 * t + w,
+                                           c0 * t:c0 * t + w]))
+    return store, equal
+
+
+def _tiny_world_drive(torch, dev: str, cfg, msgs, start):
+    """A windowed MapperNode at tiny config on `dev` fed `msgs`: ((R, n,
+    3) poses, ranges, stamps) a tick. Returns its schedule, origins,
+    estimates a tick and final grid (host)."""
+    import numpy as np
+    R = start.shape[0]
+    m, bus = _world_mapper(torch, cfg, R, None, dev, start)
+    try:
+        origins, est = [], []
+        for poses, ranges, stamps in msgs:
+            _world_publish(bus, R, cfg, poses, ranges, stamps)
+            m.tick()
+            origins.append(m.world.origin_tile)
+            est.append(m._read_poses() + np.array(
+                [*m.world.offset_xy(), 0.0], np.float32))
+        return {"schedule": list(m.world.schedule), "origins": origins,
+                "est": np.stack(est), "grid": m.shared_grid.cpu().numpy(),
+                "shifts": m.world.n_shifts,
+                "rehydrated_host": m.world.n_rehydrated_host}
+    finally:
+        m.destroy()
+
+
+#: Card against CPU on the tiny windowed drive, metres and radians. The
+#: estimates agree exactly through the shifts and part at the drive's
+#: first loop closures, whose pose-graph solve rounds differently on the
+#: card: an H100 run of this phase read 4.1e-6 m, 4.3 float32 spacings at
+#: the drive's largest world coordinate (8.9 m, spacing 9.5e-7 m). The
+#: bound is ~5x that reading.
+WORLD_PARITY_EST = 2e-5
+
+
+def phase_world_parity(torch, seed: int):
+    """(a) the store walk at the full window, host-only and with a disk
+    tier, bit-equal to its oracle at every step; (b) a windowed tiny
+    MapperNode drive on the card and on the CPU from the same messages:
+    schedules and origins equal, estimates within WORLD_PARITY_EST, at
+    most 1e-4 of the cells apart."""
+    import shutil
+    import numpy as np
+    from jax_mapping_torch.config import SlamConfig, tiny_config
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_world_parity_")
+    out = {"phase": "world_parity", "walk_m": WORLD_WALK, "store": {}}
+    bc = BatchCount(capture=True)
+    try:
+        bc.__enter__()
+        for name, kw, spill, decay_at, pressure_at in (
+                ("host", {}, None, (4,), ()),
+                ("disk", dict(host_tile_budget=1, retention_coarsen=1),
+                 os.path.join(tmp, "spill"), (4,), (3,))):
+            cfg = _world_config(SlamConfig(), WORLD_LOGICAL_CELLS, **kw)
+            store, equal = _store_walk(torch, cfg, spill, decay_at,
+                                       pressure_at)
+            st = store.status()
+            out["store"][name] = {
+                "steps_bit_equal": equal, "steps": len(WORLD_WALK),
+                **{k: st[k] for k in ("shifts", "evictions",
+                                      "rehydrated_host",
+                                      "rehydrated_disk", "lost_tiles",
+                                      "decay_epoch")}}
+            store.close()
+    finally:
+        bc.__exit__(None, None, None)
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["k1_launches_by_batch"] = bc.n
+
+    # (b): tiny_config(2) over a 768-cell lattice with a 4-tile window; a
+    # gallery walk east past two shifts and back, 4 scans a robot a tick
+    # (tiny_config's window).
+    base = tiny_config(2)
+    cfg = _world_config(base, 768, window_tiles=4, margin_tiles=1,
+                        host_tile_budget=64)
+    world = _gallery(768, cfg.grid.resolution_m, -3.0, 15.0, 1.6, 1.0,
+                     seed + 12)
+    n = base.fleet.batch_scans
+    lead, _turn = _course_ticks(9.0, -0.5, 0.1, n)
+    form = [(0.0, 0.4), (-0.6, -0.4)]
+    course = _WorldCourse(torch, cfg, world, "cpu", form, lead)
+    msgs = [course.tick(t) for t in range(len(lead))]
+    start = course.poses(0)[:, 0]
+    a = _tiny_world_drive(torch, DEV, cfg, msgs, start)
+    c = _tiny_world_drive(torch, "cpu", cfg, msgs, start)
+    # The estimates' gap a tick, split at the first shift: the world
+    # frame's coordinates there are several metres, whose float32 spacing
+    # is ~1e-6 m.
+    gap = np.abs(a["est"][..., :2] - c["est"][..., :2]).reshape(
+        len(msgs), -1).max(1)
+    first_shift = next((k for k, o in enumerate(a["origins"])
+                        if o != a["origins"][0]), len(msgs))
+    out["mapper"] = {
+        "config": "tiny_config(2), 768^2 logical, 4-tile window",
+        "ticks": len(msgs), "shifts": a["shifts"],
+        "rehydrated_host": a["rehydrated_host"],
+        "schedules_equal": a["schedule"] == c["schedule"],
+        "origins_equal": a["origins"] == c["origins"],
+        "est_m": float(gap.max()),
+        "est_rad": float(np.abs(a["est"][..., 2] - c["est"][..., 2]).max()),
+        "first_shift_tick": first_shift,
+        "est_m_before_first_shift": float(gap[:first_shift].max(
+            initial=0.0)),
+        "est_m_after_first_shift": float(gap[first_shift:].max(
+            initial=0.0)),
+        "first_gap_tick": int(np.argmax(gap > 0)) if (gap > 0).any()
+        else None,
+        "max_abs_coord_m": float(np.abs(a["est"][..., :2]).max()),
+        "f32_spacing_at_max_m": float(np.spacing(np.float32(
+            np.abs(a["est"][..., :2]).max()))),
+        "cells_differ": int((a["grid"] != c["grid"]).sum()),
+        "cells_total": int(a["grid"].size)}
+    emit(out)
+    for name, r in out["store"].items():
+        check(r["steps_bit_equal"] == r["steps"],
+              f"world store ({name}) differs from its oracle: {r}")
+        check(r["shifts"] >= 2 and r["rehydrated_host"]
+              + r["rehydrated_disk"] > 0, f"world store ({name}): {r}")
+    check(out["store"]["disk"]["rehydrated_disk"] > 0,
+          "the disk walk rehydrated nothing from disk")
+    mp = out["mapper"]
+    check(mp["shifts"] >= 2, f"the tiny windowed drive: {mp}")
+    check(mp["schedules_equal"] and mp["origins_equal"],
+          f"the windowed mapper's schedule differs card / CPU: {mp}")
+    check(mp["est_m"] <= WORLD_PARITY_EST and
+          mp["est_rad"] <= WORLD_PARITY_EST,
+          f"windowed mapper estimates card / CPU: {mp}")
+    check(mp["cells_differ"] <= 1e-4 * mp["cells_total"],
+          f"windowed mapper grids card / CPU: {mp}")
+    return out, bc.inputs
 
 
 def phase_ab(parent: str, seed: int) -> dict:
@@ -4287,6 +4869,12 @@ def main(argv=None) -> int:
             torch, cfg, args.seed)
         new_paths["stack"], stack_out, stack_rec = phase_stack(
             torch, args.seed)
+        new_paths["world"], world_out, world_rec, world_k1 = phase_world(
+            torch, args.seed)
+        world_par, world_k1_global = phase_world_parity(torch, args.seed)
+        new_paths["world_parity"] = {
+            "per": "two store walks",
+            "k1_launches_by_batch": world_par["k1_launches_by_batch"]}
         phase_window(torch, cfg)
         vstate = phase_voxel(torch, cfg)
         bench = phase_voxel_bench(torch, cfg)
@@ -4294,11 +4882,13 @@ def main(argv=None) -> int:
         rows = phase_kernels(torch, cfg, world, mapped, args.seed, fleet,
                              mapper, (vstate, bench, vstate["out"]),
                              (publisher.grid, publisher, planned), new_paths,
-                             tenancy, stack_rec)
+                             tenancy, stack_rec,
+                             (world_rec, list(world_k1.items())
+                              + list(world_k1_global.items())))
         voxel_launches = vstate["out"]["launches"]
         voxel_summed_launches = bench["launches"]["voxel_summed"]
         del mapped, world, st, vstate, bench, publisher, planned, tenancy
-        del stack_rec
+        del stack_rec, world_rec, world_k1, world_k1_global
         phase_parity(torch, args.seed)
         phase_slam_parity(torch, args.seed)
         phase_voxel_parity(torch, args.seed)
@@ -4340,6 +4930,7 @@ def main(argv=None) -> int:
         kernels[-1]["launches_stack"] = stack_out["launches"][name]
         kernels[-1]["launches_stack_burst"] = \
             stack_out["burst"]["launches"][name]
+        kernels[-1]["launches_world"] = world_out["launches"][name]
     emit({"seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -10,20 +10,30 @@ stack's device work (sim physics and raycasts, the brain tick, every
 SLAM step, the frontier publish and the planner) runs on `device`: the
 CUDA card unless the caller asks for another.
 
-Not ported yet, and refused with NotImplementedError rather than
-silently dropped: the HTTP API (`http_port`), the depth-camera stack
-(`depth_cam`), checkpointing (`checkpoint_dir`), the bounded-memory world
-(`cfg.world.windowed`), the observability tier (`cfg.obs.enabled`,
-`cfg.obs.devprof.enabled`), the warm-restart tier
+`checkpoint_dir` arms the supervisor's auto-checkpoint cadence
+(`Stack.save_auto_checkpoint`, `io/checkpoint.py`) and the mapper's
+resume from it after a restart; with `cfg.world.windowed` the mapper
+keeps the bounded-memory world (`world/store.py`), whose evicted tiles
+spill under `checkpoint_dir/world_spill` and whose window manifest rides
+beside each checkpoint.
+
+Not ported yet, and refused with NotImplementedError naming the ROADMAP
+item rather than silently dropped: the HTTP API (`http_port`), the
+depth-camera stack (`depth_cam`), the observability tier
+(`cfg.obs.enabled`, `cfg.obs.devprof.enabled`), the warm-restart tier
 (`cfg.cold_start.enabled`) and the tenancy control plane
 (`cfg.tenancy.enabled`). So is the staged warm-up ladder of a mapper
 restart, which pre-warms compiled entry points: the port's restart
-rebuilds the mapper at once (`Stack.restart_mapper`).
+rebuilds and resumes the mapper at once (`Stack.restart_mapper`).
+A windowed stack with the planner is refused too: the JAX package's
+planner plans with the logical grid config on the mapper's window-sized
+grid, in the wrong frame (ROADMAP re-anchor note).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Set
 
 import numpy as np
@@ -67,6 +77,12 @@ class Stack:
     health: Optional[FleetHealth] = None     # shared degraded-mode registry
     supervisor: Optional[Supervisor] = None  # heartbeat watch + restarts
     recovery: Optional[RecoveryManager] = None   # estimator guardrails
+    #: Auto-checkpoint file the supervisor saves to and the mapper
+    #: resumes from ("" = no checkpoint_dir, no auto-checkpointing).
+    auto_checkpoint_path: str = ""
+    #: Where the windowed world's evicted tiles spill ("" = host LRU
+    #: only); a restarted mapper reopens the same spill file.
+    world_spill_dir: str = ""
     _killed: Set[str] = dataclasses.field(default_factory=set)
     _steps_run: int = 0
 
@@ -101,22 +117,88 @@ class Stack:
         self._killed.add(name)
         node.destroy()
 
+    def save_auto_checkpoint(self) -> None:
+        """The supervisor's checkpoint hook: snapshot the mapper to
+        `auto_checkpoint_path` (the previous generation rotates to
+        `.prev`). A windowed mapper's `.world` manifest rotates in
+        LOCKSTEP: a fallback to the `.prev` states must re-anchor from
+        the manifest saved with them."""
+        from jax_mapping_torch.io.checkpoint import (
+            clear_world_sidecar, previous_checkpoint_path, save_checkpoint,
+            save_world_sidecar, world_sidecar_path)
+        os.makedirs(os.path.dirname(self.auto_checkpoint_path),
+                    exist_ok=True)
+        world = self.mapper.world
+        if world is not None:
+            wp = world_sidecar_path(self.auto_checkpoint_path)
+            if os.path.exists(wp):
+                os.replace(wp, world_sidecar_path(
+                    previous_checkpoint_path(self.auto_checkpoint_path)))
+        save_checkpoint(
+            self.auto_checkpoint_path, self.mapper.snapshot_states(),
+            config_json=self.cfg.to_json(),
+            retain_generations=self.cfg.resilience
+            .checkpoint_retain_generations)
+        if world is not None:
+            save_world_sidecar(self.auto_checkpoint_path,
+                               world.checkpoint_payload(),
+                               config_json=self.cfg.to_json())
+        else:
+            clear_world_sidecar(self.auto_checkpoint_path)
+
     def restart_mapper(self) -> None:
-        """The supervisor's mapper restarter: rebuild the MapperNode with a
-        blank map, each robot's chain anchored at the BRAIN's live pose
-        (odometry kept integrating while the mapper was down), and swap it
-        into the executor and the planner."""
+        """The supervisor's mapper restarter: rebuild the MapperNode,
+        resume it from the newest intact auto-checkpoint generation
+        (`load_checkpoint_with_fallback`), re-anchor each robot's chain at
+        the BRAIN's live pose (odometry kept integrating while the mapper
+        was down), and swap it into the executor and the planner. With no
+        intact checkpoint the map restarts blank at the same anchors.
+
+        Windowed, the window re-anchors from the checkpoint's `.world`
+        manifest before the states install, and the brain's world-frame
+        anchors move into the window frame; a missing, corrupt or drifted
+        manifest degrades to the boot origin with a
+        `world_sidecar_degraded` flight event. The JAX package's staged
+        warm-up (pre-warming compiled entry points while serving the old
+        epoch) is not ported (ROADMAP A.9g): the restart is immediate."""
         n = self.mapper.n_robots
         old = self.mapper
         old.destroy()
+        states, used_path = None, None
+        if self.auto_checkpoint_path:
+            from jax_mapping_torch.io.checkpoint import (
+                CheckpointCorrupt, load_checkpoint_with_fallback)
+            try:
+                states, _cfg_json, used_path = \
+                    load_checkpoint_with_fallback(
+                        self.auto_checkpoint_path,
+                        old.checkpoint_template())
+            except (FileNotFoundError, CheckpointCorrupt):
+                states = None                # no intact generation: blank
         new = MapperNode(self.cfg, self.bus, tf=self.tf, n_robots=n,
                          health=self.health, recovery=self.recovery,
-                         device=self.device)
+                         device=self.device,
+                         spill_dir=self.world_spill_dir or None)
         new.restart_epoch = old.restart_epoch + 1
         flight_recorder.record("restart_epoch", node="jax_mapper",
                                epoch=new.restart_epoch,
-                               resumed_from_checkpoint=False)
-        _anchor(new, self.brain.poses)
+                               resumed_from_checkpoint=states is not None)
+        anchors = np.array(self.brain.poses, np.float32)
+        if states is not None:
+            payload = None
+            if new.world is not None:
+                from jax_mapping_torch.io.checkpoint import \
+                    load_world_sidecar
+                try:
+                    payload = load_world_sidecar(
+                        used_path, running_config_json=self.cfg.to_json())
+                except Exception as e:       # noqa: BLE001
+                    flight_recorder.record(
+                        "world_sidecar_degraded", node="jax_mapper",
+                        error=f"{type(e).__name__}: {e}")
+            new.resume(states, payload, anchors)
+        else:
+            _anchor(new, anchors)
         self.mapper = new
         self.executor.nodes = [new if nd is old else nd
                                for nd in self.executor.nodes]
@@ -137,17 +219,17 @@ def _anchor(mapper: MapperNode, poses: np.ndarray) -> None:
         mapper.states[i] = st._replace(pose=dev_poses[i])
 
 
-def _refuse_unported(cfg: SlamConfig, http_port, depth_cam,
-                     checkpoint_dir) -> None:
+def _refuse_unported(cfg: SlamConfig, http_port, depth_cam) -> None:
     refused = [
         (http_port is not None, "http_port: the HTTP API "
          "(bridge/http_api.py) is not ported yet (ROADMAP A.9)"),
         (depth_cam, "depth_cam=True: the voxel mapper node "
          "(bridge/voxel_mapper.py) is not ported yet (ROADMAP A.9)"),
-        (checkpoint_dir is not None, "checkpoint_dir: io/checkpoint.py "
-         "is not ported yet (ROADMAP A.9)"),
-        (cfg.world.windowed, "cfg.world.windowed: the bounded-memory "
-         "world store (world/store.py) is not ported yet (ROADMAP A.7)"),
+        (cfg.world.windowed and cfg.planner.enabled, "cfg.world.windowed "
+         "with cfg.planner.enabled: the JAX package's planner plans with "
+         "the logical grid config on the mapper's window-sized grid, in "
+         "the wrong frame (ROADMAP re-anchor note); disable the planner "
+         "for a windowed stack"),
         (cfg.obs.enabled, "cfg.obs.enabled: causal tracing and the "
          "pipeline ledger (obs/) are not ported yet (ROADMAP A.9)"),
         (cfg.obs.devprof.enabled, "cfg.obs.devprof.enabled: the dispatch "
@@ -177,13 +259,15 @@ def launch_sim_stack(cfg: SlamConfig, world: np.ndarray,
     realtime=True spins the executor thread. `seed` seeds the bus's loss
     weather, the fleet's spawn radii and wheel noise, and the
     supervisor's jitter."""
-    _refuse_unported(cfg, http_port, depth_cam, checkpoint_dir)
+    _refuse_unported(cfg, http_port, depth_cam)
     dev = resolve_device(device)
     res = world_res_m if world_res_m is not None else cfg.grid.resolution_m
-    # The always-on flight recorder follows the newest stack (events
-    # only: no checkpoint dir to dump into).
-    flight_recorder.configure(dump_dir=None, tracer=None,
-                              capacity=cfg.obs.recorder_ring)
+    # The always-on flight recorder follows the newest stack; its dumps
+    # go to the checkpoint dir's `postmortem/` (None: events only).
+    flight_recorder.configure(
+        dump_dir=(os.path.join(checkpoint_dir, "postmortem")
+                  if checkpoint_dir else None),
+        tracer=None, capacity=cfg.obs.recorder_ring)
     bus = Bus(domain_id=cfg.domain_id, drop_prob=drop_prob, seed=seed)
     tf = TfTree()
     for i in range(n_robots):
@@ -208,8 +292,13 @@ def launch_sim_stack(cfg: SlamConfig, world: np.ndarray,
     # Start calibrated: the odom frame origin is the boot pose, so the
     # robots' maps line up from the first scan.
     brain.poses = sim.truth_poses().copy()
+    # The windowed world's spill tier lives under the checkpoint dir, so
+    # tiles evicted before a mapper restart rehydrate after it.
+    world_spill_dir = (os.path.join(checkpoint_dir, "world_spill")
+                       if checkpoint_dir and cfg.world.windowed else "")
     mapper = MapperNode(cfg, bus, tf=tf, n_robots=n_robots, health=health,
-                        recovery=recovery, device=dev)
+                        recovery=recovery, device=dev,
+                        spill_dir=world_spill_dir or None)
     _anchor(mapper, brain.poses)
 
     planner = None
@@ -231,12 +320,16 @@ def launch_sim_stack(cfg: SlamConfig, world: np.ndarray,
     stack = Stack(cfg=cfg, bus=bus, tf=tf, driver=driver, sim=sim,
                   brain=brain, mapper=mapper, executor=executor, device=dev,
                   planner=planner, health=health, supervisor=supervisor,
-                  recovery=recovery)
+                  recovery=recovery, world_spill_dir=world_spill_dir)
     if supervisor is not None:
         # The brain has no restarter: its driver link and poses cannot be
         # rebuilt; its death is declared and exported.
         supervisor.register("thymio_brain")
         supervisor.register("jax_mapper", stack.restart_mapper)
+        if checkpoint_dir is not None:
+            stack.auto_checkpoint_path = os.path.join(
+                checkpoint_dir, "auto_checkpoint.npz")
+            supervisor.attach_checkpointer(stack.save_auto_checkpoint)
     if realtime:
         executor.spin_thread()
     return stack

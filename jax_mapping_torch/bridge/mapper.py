@@ -27,17 +27,26 @@ host:
   and for a single step the sub-gate `scan_agreement` — comes back in ONE
   copy (`_read_step`), computed on the device first (the box's host
   inputs are filled in on the device, never copied up);
-* the fleet's poses are stacked on the device and read once a tick, for
-  the correction TFs and the frontier publish together.
+* the frontier publish stacks the fleet's poses on the device in the
+  same lock section that takes the grid, the map revision and the tile
+  revisions (so a pose never pairs with a map no writer produced), and
+  reads them in one copy that the tick's correction TFs reuse.
 
 So a tick's host syncs are the steps' own (`models/slam.py`: one a
 non-key step, a few a key step) plus one a step, one for the scans'
 upload, one for the poses, and the publish's.
 
-Not ported (refused at launch): the bounded-memory world store
-(`cfg.world.windowed`, ROADMAP A.7), causal tracing and the pipeline /
-SLO ledgers (`cfg.obs.enabled`), and the voxel overlay of the frontier
-basis (the depth-camera stack).
+With `cfg.world.windowed` the node keeps the bounded-memory world
+(`world/store.py`): its device config is the window-sized
+`window_slam_config`, poses live in the robocentric window frame, and
+`_maybe_shift_window` recentres the window at the top of a tick (one
+more read of the poses). Every publish boundary adds `world.offset_xy()`
+back (world = window + offset); the dirty-tile and revision lattices
+cover the logical extent.
+
+Not ported: causal tracing and the pipeline / SLO ledgers
+(`cfg.obs.enabled`, refused at launch), and the voxel overlay of the
+frontier basis (the depth-camera stack).
 """
 
 from __future__ import annotations
@@ -100,15 +109,21 @@ class MapperNode(Node):
     def __init__(self, cfg: SlamConfig, bus: Bus,
                  tf: Optional[TfTree] = None, n_robots: int = 1,
                  tick_period_s: Optional[float] = None, health=None,
-                 recovery=None, device=None):
+                 recovery=None, device=None,
+                 spill_dir: Optional[str] = None):
         super().__init__("jax_mapper", bus, tf)
+        self.device = resolve_device(device)
+        #: Bounded-memory world (world/store.py) or None. Windowed, the
+        #: node's device config is the window-sized one, and `full_cfg`
+        #: keeps the logical extent (the tile lattice, the /map origin).
+        self.full_cfg = cfg
+        self.world = None
         if cfg.world.windowed:
-            raise NotImplementedError(
-                "MapperNode: cfg.world.windowed (the bounded-memory world "
-                "store) is not ported yet (ROADMAP A.7)")
+            from jax_mapping_torch.world.store import WorldStore
+            self.world = WorldStore(cfg, spill_dir=spill_dir)
+            cfg = self.world.cfg
         self.cfg = cfg
         self.n_robots = n_robots
-        self.device = resolve_device(device)
         self._tick_no = 0
         self._state_lock = threading.Lock()
         # One grid for the fleet; every state's .grid aliases it.
@@ -172,12 +187,14 @@ class MapperNode(Node):
         self._dirty_tiles: Optional[np.ndarray] = None
         self._tile_rev: Optional[np.ndarray] = None
         if self._serving_enabled:
-            if cfg.grid.size_cells % cfg.serving.tile_cells:
+            # The lattice is the LOGICAL extent: windowed, the markers
+            # translate window tiles through the store's origin.
+            size = self.full_cfg.grid.size_cells
+            if size % cfg.serving.tile_cells:
                 raise ValueError(
                     f"ServingConfig.tile_cells={cfg.serving.tile_cells} "
-                    f"does not divide grid.size_cells="
-                    f"{cfg.grid.size_cells}")
-            nt = cfg.grid.size_cells // cfg.serving.tile_cells
+                    f"does not divide grid.size_cells={size}")
+            nt = size // cfg.serving.tile_cells
             self._dirty_tiles = np.zeros((nt, nt), bool)
             self._tile_rev = np.zeros((nt, nt), np.int64)
         self._match_candidates = [0] * n_robots
@@ -223,8 +240,14 @@ class MapperNode(Node):
     # -- callbacks ----------------------------------------------------------
 
     def _initialpose_cb(self, msg) -> None:
-        self.reset_robot_pose(0, [float(msg.x), float(msg.y),
-                                  float(msg.theta)])
+        pose = [float(msg.x), float(msg.y), float(msg.theta)]
+        if self.world is not None:
+            # Asserted poses arrive in world coordinates; the chain lives
+            # in the window frame.
+            off = self.world.offset_xy()
+            pose[0] -= float(off[0])
+            pose[1] -= float(off[1])
+        self.reset_robot_pose(0, pose)
         M.counters.inc("mapper.initialpose_resets")
 
     def reset_robot_pose(self, i: int, pose) -> None:
@@ -257,10 +280,11 @@ class MapperNode(Node):
         row = (xy[1] - g.origin_m[1]) / g.resolution_m
         t = self.cfg.serving.tile_cells
         nt = self._dirty_tiles.shape[0]
-        r0 = min(nt - 1, max(0, int((row - half) // t)))
-        r1 = min(nt - 1, max(0, int((row + half) // t)))
-        c0 = min(nt - 1, max(0, int((col - half) // t)))
-        c1 = min(nt - 1, max(0, int((col + half) // t)))
+        off_r, off_c = self._window_origin()
+        r0 = min(nt - 1, max(0, int((row - half) // t) + off_r))
+        r1 = min(nt - 1, max(0, int((row + half) // t) + off_r))
+        c0 = min(nt - 1, max(0, int((col - half) // t) + off_c))
+        c1 = min(nt - 1, max(0, int((col + half) // t) + off_c))
         with self._dirty_lock:
             self._dirty_tiles[r0:r1 + 1, c0:c1 + 1] = True
             self._tile_rev[r0:r1 + 1, c0:c1 + 1] = self.map_revision
@@ -271,10 +295,26 @@ class MapperNode(Node):
         device by `fuse_kernel.touched_tile_box`)."""
         if self._dirty_tiles is None:
             return
+        # Window tiles -> the logical lattice.
+        off_r, off_c = self._window_origin()
         tr0, tr1, tc0, tc1 = box
+        tr0, tr1, tc0, tc1 = tr0 + off_r, tr1 + off_r, tc0 + off_c, \
+            tc1 + off_c
         with self._dirty_lock:
             self._dirty_tiles[tr0:tr1 + 1, tc0:tc1 + 1] = True
             self._tile_rev[tr0:tr1 + 1, tc0:tc1 + 1] = self.map_revision
+
+    def _window_origin(self) -> tuple:
+        """The window's origin on the logical tile lattice; (0, 0) when
+        not windowed."""
+        return (0, 0) if self.world is None else self.world.origin_tile
+
+    def _world_shift3(self) -> np.ndarray:
+        """(3,) float32 window -> world translation of a pose: the
+        store's offset; zeros when not windowed."""
+        if self.world is None:
+            return np.zeros(3, np.float32)
+        return np.array([*self.world.offset_xy(), 0.0], np.float32)
 
     def _touched_box(self, i: int, state, travel_cells: int):
         """Device-computed touched-tile bounds (4,) of an install of robot
@@ -314,10 +354,13 @@ class MapperNode(Node):
             return None
         t = self.cfg.serving.tile_cells
         nt = self._tile_rev.shape[0]
-        r0 = min(nt - 1, max(0, row0 // t))
-        r1 = min(nt - 1, max(0, (row0 + span_cells - 1) // t))
-        c0 = min(nt - 1, max(0, col0 // t))
-        c1 = min(nt - 1, max(0, (col0 + span_cells - 1) // t))
+        # Callers pass window-local cells (the pyramids are built on the
+        # device grid): translate onto the logical lattice.
+        off_r, off_c = self._window_origin()
+        r0 = min(nt - 1, max(0, row0 // t + off_r))
+        r1 = min(nt - 1, max(0, (row0 + span_cells - 1) // t + off_r))
+        c0 = min(nt - 1, max(0, col0 // t + off_c))
+        c1 = min(nt - 1, max(0, (col0 + span_cells - 1) // t + off_c))
         with self._dirty_lock:
             return int(self._tile_rev[r0:r1 + 1, c0:c1 + 1].max())
 
@@ -337,6 +380,23 @@ class MapperNode(Node):
                     hint = self._dirty_tiles.copy()
                     self._dirty_tiles[:] = False
         return rev, grid, hint
+
+    def world_status(self) -> Optional[dict]:
+        """The bounded-memory world's status with its offset; None when
+        not windowed."""
+        if self.world is None:
+            return None
+        body = self.world.status()
+        off = self.world.offset_xy()
+        body["offset_m"] = [float(off[0]), float(off[1])]
+        return body
+
+    def destroy(self) -> None:
+        super().destroy()
+        if self.world is not None:
+            # Release the spill file: a restarted node reopens the same
+            # file, and two live writers would interleave frames.
+            self.world.close()
 
     def add_revision_listener(self, fn) -> None:
         """Register fn(revision): called from the tick thread after the
@@ -372,6 +432,27 @@ class MapperNode(Node):
                            dtype=torch.float32)
         return [states[0]._replace(grid=shared)] + \
             [st._replace(grid=zero) for st in states[1:]]
+
+    def checkpoint_template(self) -> List:
+        """Fresh states shaped as this node's checkpoints are: the device
+        config's, so window-shaped when windowed."""
+        return [S.init_state(self.cfg, device=self.device)
+                for _ in self.states]
+
+    def resume(self, states, world_payload=None, anchors=None,
+               map_prior=None) -> None:
+        """Resume from checkpointed states. Windowed, the window first
+        re-anchors from the checkpoint's `.world` payload (None: the boot
+        origin). `anchors` (R, 3), in the WORLD frame, re-anchor each
+        robot's chain there (see `restore_states`), moved into the window
+        frame of the restored origin."""
+        if self.world is not None and world_payload is not None:
+            self.world.restore_payload(world_payload)
+        if anchors is not None:
+            anchors = np.array(anchors, np.float32)
+            anchors -= self._world_shift3()[None, :]
+        self.restore_states(states, anchor_poses=anchors,
+                            map_prior=map_prior)
 
     def restore_states(self, states, anchor_poses=None,
                        map_prior=None) -> None:
@@ -422,7 +503,14 @@ class MapperNode(Node):
     def seed_map_prior(self, prior_logodds) -> None:
         """Install an imported map as the fleet's shared grid
         (localization on a known map). Graphs and poses are untouched;
-        per-robot generations bump."""
+        per-robot generations bump. Refused in windowed mode: a
+        logical-extent prior does not fit the device window."""
+        if self.world is not None:
+            raise ValueError(
+                "map priors are not supported in windowed mode "
+                "(world.windowed): a logical-extent prior exceeds the "
+                "device window — import it unwindowed or grow the "
+                "window to the prior's extent")
         g = self.cfg.grid
         prior = torch.as_tensor(prior_logodds, dtype=torch.float32,
                                 device=self.device)
@@ -502,6 +590,7 @@ class MapperNode(Node):
             self._tick_body()
 
     def _tick_body(self) -> None:
+        self._maybe_shift_window()
         with self._state_lock:
             work: List[List] = [[] for _ in range(self.n_robots)]
             for i in range(self.n_robots):
@@ -560,12 +649,6 @@ class MapperNode(Node):
                 # last healthy step.
                 corrections.append((i, items[-1][0], items[-1][1]))
 
-        poses = None
-        if corrections:
-            poses = self._read_poses()
-            for i, scan, od in corrections:
-                self._publish_correction(i, scan, od, poses[i])
-
         decayed = False
         # Localization mode tracks against a frozen map: no healing.
         if self.cfg.decay.enabled and self.cfg.mode == "mapping":
@@ -576,7 +659,9 @@ class MapperNode(Node):
                 decayed = True
 
         if any(work) or decayed:
-            self.publish_frontiers(poses)
+            # The publish reads the poses with the map and publishes the
+            # correction TFs from that one read.
+            self.publish_frontiers(corrections)
         self._notify_revision_listeners()
         self._heartbeater.beat(
             {"scans_fused": self.n_scans_fused,
@@ -584,11 +669,69 @@ class MapperNode(Node):
              "loops_closed": self.n_loops_closed})
 
     def _read_poses(self) -> np.ndarray:
-        """Every robot's current estimate, (R, 3) float32, stacked on the
-        device and read in one copy."""
+        """Every robot's current estimate (window frame), (R, 3) float32,
+        stacked on the device and read in one copy."""
         with self._state_lock:
             stacked = torch.stack([st.pose for st in self.states])
         return stacked.cpu().numpy()
+
+    def _maybe_shift_window(self) -> None:
+        """Windowed-mode world upkeep at the top of a tick (a no-op
+        otherwise): join last tick's disk prefetches into the window, then
+        recentre the window when a robot strays into the margin band.
+
+        A shift translates the whole frame: the grid rolls (evicting and
+        rehydrating through the store) and every pose-like leaf
+        (state.pose, last_key_pose, the graph's poses, the correction
+        basis) moves by the shift; graph edges are relative and scan rings
+        are ranges, so nothing else changes. Every holder of the grid is
+        re-pointed in the same lock section; the generations bump, and the
+        revision bump with the full dirty mark makes the frontier pipeline
+        and the pyramid caches see an ordinary whole-map mutation. It runs
+        between steps, so no step is in flight."""
+        if self.world is None:
+            return
+        with self._state_lock:
+            grid, n_rehydrated = self.world.poll_prefetch(self.shared_grid)
+            if n_rehydrated:
+                self.shared_grid = grid
+                for j in range(self.n_robots):
+                    self.states[j] = self.states[j]._replace(grid=grid)
+                if self._serving_enabled:
+                    self.map_revision += 1
+                    self._mark_dirty_all()
+            poses = torch.stack([st.pose for st in self.states]
+                                ).cpu().numpy()
+            dr, dc = self.world.desired_shift(poses)
+            if (dr, dc) == (0, 0):
+                return
+            with M.stages.stage("mapper.window_shift"):
+                new_grid = self.world.shift(self.shared_grid, dr, dc)
+            delta = self.world.shift_delta_m(dr, dc)
+            shift3_np = np.array([delta[0], delta[1], 0.0], np.float32)
+            # Filled in on the device: a copy from the host would sync.
+            shift3 = torch.stack([new_grid.new_full((), float(v))
+                                  for v in shift3_np])
+            self.shared_grid = new_grid
+            for j in range(self.n_robots):
+                st = self.states[j]
+                graph = st.graph._replace(
+                    poses=st.graph.poses - shift3[None, :])
+                self.states[j] = st._replace(
+                    grid=new_grid,
+                    pose=st.pose - shift3,
+                    last_key_pose=st.last_key_pose - shift3,
+                    graph=graph)
+                self._state_gen[j] += 1
+                if self._correction[j] is not None:
+                    est, odo = self._correction[j]
+                    self._correction[j] = (est - shift3_np, odo)
+            if self._serving_enabled:
+                self.map_revision += 1
+                self._mark_dirty_all()
+        M.counters.inc("mapper.window_shifts")
+        flight_recorder.record("window_shift", dr=dr, dc=dc,
+                               origin=list(self.world.origin_tile))
 
     def _apply_decay(self) -> None:
         """One map-healing pass (DecayConfig) between steps; the revision
@@ -603,6 +746,10 @@ class MapperNode(Node):
             if self._serving_enabled:
                 self.map_revision += 1
                 self._mark_dirty_all()
+        if self.world is not None:
+            # Evicted tiles catch up at rehydration (one clip(x*f) a
+            # missed pass, as the device's).
+            self.world.note_decay_pass()
         self.n_decay_passes += 1
         M.counters.inc("mapper.decay_passes")
         flight_recorder.record("decay_pass", n=self.n_decay_passes,
@@ -990,7 +1137,9 @@ class MapperNode(Node):
     def _publish_correction(self, i: int, scan: LaserScan, od: Odometry,
                             est: np.ndarray) -> None:
         """map->odom correction TF: est ⊖ odom (slam_toolbox's role);
-        `est` is robot i's current estimate, read by the caller."""
+        `est` is robot i's current estimate in the window frame, read by
+        the caller. TF consumers live in the world frame."""
+        est = est + self._world_shift3()
         o = od.pose
         ns = robot_ns(i, self.n_robots)
         c, s = np.cos(est[2] - o.theta), np.sin(est[2] - o.theta)
@@ -1019,11 +1168,15 @@ class MapperNode(Node):
                        st.graph.n_poses.reshape(1).double(),
                        st.n_keyscans.reshape(1).double()]).cpu().numpy()
         n, n_keyscans = int(h[3]), int(h[4])
+        # World frame: the estimate and the graph node move with every
+        # window shift (odometry stays in its own frame).
+        shift3 = self._world_shift3()
+        corr = (np.asarray(corr[0], np.float32) + shift3, corr[1])
         if n == 0:
             # Localization mode never grows the graph: no node to anchor.
             return (gen, corr[0], corr[1], -1, corr[0], n_keyscans)
-        return (gen, corr[0], corr[1], n - 1, h[:3].astype(np.float32),
-                n_keyscans)
+        return (gen, corr[0], corr[1], n - 1,
+                h[:3].astype(np.float32) + shift3, n_keyscans)
 
     def graph_snapshot(self, i: int):
         """(gen, poses (cap, 3) np, pose_valid (cap,) np, n_poses,
@@ -1032,7 +1185,9 @@ class MapperNode(Node):
             st = self.states[i]
             gen = self._state_gen[i]
         cap = self.cfg.loop.max_poses
-        return (gen, st.graph.poses[:cap].cpu().numpy(),
+        # World frame, as depth_anchor: node poses stay shift-invariant.
+        return (gen, st.graph.poses[:cap].cpu().numpy()
+                + self._world_shift3(),
                 st.graph.pose_valid[:cap].cpu().numpy(),
                 int(st.graph.n_poses), int(st.n_keyscans))
 
@@ -1044,8 +1199,13 @@ class MapperNode(Node):
     def publish_map(self) -> None:
         g = self.cfg.grid
         lo = self.merged_grid().cpu().numpy()
+        # Windowed, the published grid is the window: its origin rides
+        # the window.
+        off = self._world_shift3()
+        origin = (float(g.origin_m[0] + off[0]),
+                  float(g.origin_m[1] + off[1]))
         msg = occupancy_from_logodds(lo, g.occ_threshold, g.free_threshold,
-                                     g.resolution_m, g.origin_m)
+                                     g.resolution_m, origin)
         self._last_map_stamp = msg.header.stamp
         self.map_pub.publish(msg)
         self.map_updates_pub.publish(msg)
@@ -1132,31 +1292,47 @@ class MapperNode(Node):
         p = self._frontier_pipeline
         return None if p is None else p.status()
 
-    def publish_frontiers(self, poses: Optional[np.ndarray] = None) -> None:
-        """Publish `/frontiers` and `/pose`. `poses` (R, 3): the fleet's
-        estimates when the caller has just read them (the tick does);
-        None reads them here. Whole-publish latency stage
-        `mapper.publish_frontiers`; the incremental compute alone is
+    def publish_frontiers(self, corrections=()) -> None:
+        """Publish `/frontiers` and `/pose`, and first the map->odom
+        correction TF of each (robot, scan, odom) in `corrections` (the
+        tick's), from the same read of the poses. Whole-publish latency
+        stage `mapper.publish_frontiers`; the incremental compute alone is
         `mapper.frontier_publish`."""
         with M.stages.stage("mapper.publish_frontiers"):
-            self._publish_frontiers_body(poses)
+            self._publish_frontiers_body(corrections)
 
-    def _publish_frontiers_body(self, poses) -> None:
-        if poses is None:
-            poses = self._read_poses()
+    def _publish_frontiers_body(self, corrections) -> None:
         with self._state_lock:
-            # One consistent section: grid, revision and the dirty-tile
-            # snapshot.
+            # ONE section for everything this publish uses: the poses
+            # (stacked on the device), the grid, the revision and the
+            # tile revisions. A writer between two sections would pair a
+            # new map with old poses.
+            stacked = torch.stack([st.pose for st in self.states])
             lo = self.shared_grid
             rev = self.map_revision
             tile_rev = None
             if self._tile_rev is not None:
                 with self._dirty_lock:
                     tile_rev = self._tile_rev.copy()
+        poses = stacked.cpu().numpy()
+        for i, scan, od in corrections:
+            self._publish_correction(i, scan, od, poses[i])
+        extra_key = None
+        if self.world is not None:
+            # The pipeline runs at window scale: its view of the logical
+            # revision lattice is the resident window, and the origin in
+            # its key invalidates every cached tile across a shift.
+            r0, c0 = self.world.origin_tile
+            wt = self.world.window_tiles
+            if tile_rev is not None:
+                tile_rev = np.ascontiguousarray(
+                    tile_rev[r0:r0 + wt, c0:c0 + wt])
+            extra_key = ("worigin", self.world.origin_tile, extra_key)
         pipeline = self._frontier_incremental()
         if pipeline is not None:
             with M.stages.stage("mapper.frontier_publish"):
-                pub = pipeline.compute(lo, poses, tile_rev, rev)
+                pub = pipeline.compute(lo, poses, tile_rev, rev,
+                                       extra_key=extra_key)
             targets = pub.targets
             sizes = pub.sizes
             assignment = pub.assignment
@@ -1165,8 +1341,7 @@ class MapperNode(Node):
                            if pub.recomputed else "mapper.frontier_skips")
         else:
             fr = F.compute_frontiers(self.cfg.frontier, self.cfg.grid, lo,
-                                     torch.as_tensor(poses,
-                                                     device=self.device))
+                                     stacked)
             # Targets, sizes and assignment in one copy (float64 holds
             # every value exactly).
             K = fr.sizes.shape[0]
@@ -1178,6 +1353,16 @@ class MapperNode(Node):
             assignment = h[3 * K:].astype(np.int32)
             stamp_rev = rev if self._serving_enabled else -1
             M.counters.inc("mapper.frontier_recomputes")
+        if self.world is not None:
+            # The publish boundary: targets and poses cross into the world
+            # frame before the post-passes (blacklists are world-frame)
+            # and the wire; copies, since pub.targets may be the
+            # pipeline's cache.
+            off = self.world.offset_xy()
+            if len(targets):
+                targets = np.asarray(targets, np.float32) + off[None, :]
+            poses = poses.copy()
+            poses[:, :2] += off[None, :]
         # Post-passes run fresh even on a skipped recompute (health and
         # blacklists move on their own clocks); they copy on write.
         assignment = self._reassign_dead(assignment, targets, poses)

@@ -19,7 +19,7 @@ import dataclasses
 import json
 import math
 import os
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 
 def _frozen(cls):
@@ -455,10 +455,11 @@ class ServingConfig:
 
 @_frozen
 class WorldConfig:
-    """Bounded-memory robocentric world store. The port has only the
-    window's config derivation (`world.store.window_slam_config`); with
-    `windowed` each tenant lane's grid is the window, not the logical
-    extent."""
+    """Bounded-memory robocentric world store (`world/store.py`). With
+    `windowed` the mapper's device grid is the window
+    (`world.store.window_slam_config`) over a logical lattice of
+    `grid.size_cells`, and each tenant lane's grid is the window, not the
+    logical extent."""
 
     windowed: bool = False
     # Window edge in serving tiles: the device grid is
@@ -665,6 +666,29 @@ def micro_config(n_robots: int = 1) -> SlamConfig:
         serving=ServingConfig(tile_cells=16, pyramid_levels=2,
                               event_wait_max_s=5.0),
     )
+
+
+def configs_equivalent(json_a: Optional[str],
+                       json_b: Optional[str]) -> bool:
+    """Semantic config-drift comparison for checkpoint guards: both sides
+    parsed through `SlamConfig.from_json` (defaults for absent sections
+    and fields) and compared as dataclasses, so a checkpoint written
+    before a section existed still loads. `mode`, `obs`, `cold_start`
+    and `tenancy` shape no state and are left out of the comparison.
+    Unparseable or different configs are not equivalent."""
+    if json_a == json_b:
+        return True
+    if json_a is None or json_b is None:
+        return False
+    try:
+        a = SlamConfig.from_json(json_a)
+        b = SlamConfig.from_json(json_b)
+        neutral = dict(mode="mapping", obs=ObsConfig(),
+                       cold_start=ColdStartConfig(),
+                       tenancy=TenancyConfig())
+        return a.replace(**neutral) == b.replace(**neutral)
+    except (TypeError, ValueError, KeyError, AttributeError):
+        return False
 
 
 def ensure_valid_mode(cfg: SlamConfig) -> None:

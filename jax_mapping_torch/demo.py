@@ -12,6 +12,14 @@ The stack runs on the CUDA card; `--device cpu` runs it on the CPU with
 the kernels' plain PyTorch versions. Without a card and without
 `--device cpu` the launch raises: the demo never falls back to the CPU
 on its own.
+
+`--save-final CKPT` writes the final SLAM state as a checkpoint (with the
+windowed world's `.world` manifest when `world.windowed`), and
+`--resume CKPT` starts from one, re-anchored at the relaunched fleet's
+spawn poses:
+
+    python -m jax_mapping_torch.demo --config windowed.json --save-final f.npz
+    python -m jax_mapping_torch.demo --config windowed.json --resume f.npz
 """
 
 from __future__ import annotations
@@ -22,17 +30,17 @@ import sys
 import time
 
 #: Flags of the JAX package's demo whose modules are not ported yet: the
-#: flag -> what it needs.
+#: flag -> (what it needs, its ROADMAP item).
 REFUSED = {
-    "record": "io/trace.py (trace recording)",
-    "replay": "io/trace.py (trace replay)",
-    "resume": "io/checkpoint.py (checkpoint resume)",
-    "save_final": "io/checkpoint.py (checkpoint save)",
-    "map_prior": "io/rosmap.py (map import)",
-    "serve": "bridge/http_api.py (the HTTP API)",
-    "http_port": "bridge/http_api.py (the HTTP API)",
-    "depth_cam": "bridge/voxel_mapper.py (the depth-camera stack)",
-    "voxel_out": "bridge/voxel_mapper.py (the depth-camera stack)",
+    "record": ("io/trace.py (trace recording)", "A.9c"),
+    "replay": ("io/trace.py (trace replay)", "A.9c"),
+    "map_prior": ("io/rosmap.py (map import)", "A.9c"),
+    "serve": ("bridge/http_api.py (the HTTP API)", "A.9d"),
+    "http_port": ("bridge/http_api.py (the HTTP API)", "A.9d"),
+    "depth_cam": ("bridge/voxel_mapper.py (the depth-camera stack)",
+                  "A.9a"),
+    "voxel_out": ("bridge/voxel_mapper.py (the depth-camera stack)",
+                  "A.9a"),
 }
 
 
@@ -62,11 +70,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="device of the stack (default cuda; cpu runs the "
                         "kernels' plain versions)")
+    p.add_argument("--resume", type=str, default=None, metavar="CKPT",
+                   help="resume the SLAM state from a checkpoint written "
+                        "by --save-final (either package's)")
+    p.add_argument("--save-final", type=str, default=None, metavar="CKPT",
+                   help="write the final SLAM state as a resumable "
+                        "checkpoint")
     # Not ported yet: accepted so that the refusal names what is missing.
     p.add_argument("--http-port", type=int, default=None,
                    help=argparse.SUPPRESS)
-    for flag in ("--record", "--replay", "--resume", "--map-prior",
-                 "--save-final", "--voxel-out"):
+    for flag in ("--record", "--replay", "--map-prior", "--voxel-out"):
         p.add_argument(flag, type=str, default=None, help=argparse.SUPPRESS)
     for flag in ("--serve", "--depth-cam"):
         p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
@@ -87,15 +100,81 @@ def _write_png(path: str, occ) -> None:
     print(f"map written to {path}", file=sys.stderr)
 
 
+def _resume(stack, cfg, path: str) -> int:
+    """Install a checkpoint's states (and its prior and world sidecars),
+    anchored at the relaunched fleet's spawn poses; 0, or 2 with a
+    message on a missing, unreadable or mismatched checkpoint."""
+    from jax_mapping_torch.config import configs_equivalent
+    from jax_mapping_torch.io.checkpoint import (
+        load_checkpoint, load_prior_sidecar, load_world_sidecar)
+    from jax_mapping_torch.ops import grid as G
+    mapper = stack.mapper
+    try:
+        states, ckpt_cfg = load_checkpoint(path,
+                                           mapper.checkpoint_template())
+    except FileNotFoundError:
+        print(f"error: no checkpoint at {path}", file=sys.stderr)
+        return 2
+    except ValueError as e:
+        # Wrong robot count or shape drift raise before the config
+        # comparison below can explain it.
+        print(f"error: cannot resume from {path}: {e}", file=sys.stderr)
+        return 2
+    if ckpt_cfg is not None and \
+            not configs_equivalent(ckpt_cfg, cfg.to_json()):
+        print("error: checkpoint config differs from the running "
+              "config; pass the matching --config", file=sys.stderr)
+        return 2
+    try:
+        prior = load_prior_sidecar(
+            path, G.empty_grid(mapper.cfg.grid, stack.device),
+            running_config_json=cfg.to_json())
+        payload = (load_world_sidecar(path,
+                                      running_config_json=cfg.to_json())
+                   if mapper.world is not None else None)
+    except ValueError as e:
+        print(f"error: cannot resume a sidecar: {e}", file=sys.stderr)
+        return 2
+    # The map is inherited, but the robots respawned: anchor the chains
+    # at the spawn poses.
+    mapper.resume(states, payload, stack.brain.poses, map_prior=prior)
+    print(f"resumed {len(states)} robot state(s) from {path}",
+          file=sys.stderr)
+    return 0
+
+
+def _save_final(stack, cfg, path: str) -> None:
+    """Write the mapper's states as a checkpoint, with the prior and
+    world sidecars it needs (stale ones from an earlier save under this
+    name removed)."""
+    from jax_mapping_torch.io.checkpoint import (
+        clear_prior_sidecar, clear_world_sidecar, save_checkpoint,
+        save_prior_sidecar, save_world_sidecar)
+    mapper = stack.mapper
+    save_checkpoint(path, mapper.snapshot_states(),
+                    config_json=cfg.to_json())
+    print(f"checkpoint written to {path}", file=sys.stderr)
+    prior = mapper.map_prior()
+    if prior is not None:
+        save_prior_sidecar(path, prior, config_json=cfg.to_json())
+    else:
+        clear_prior_sidecar(path)
+    if mapper.world is not None:
+        save_world_sidecar(path, mapper.world.checkpoint_payload(),
+                           config_json=cfg.to_json())
+    else:
+        clear_world_sidecar(path)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     args.robots = max(1, args.robots)
-    for name, needs in REFUSED.items():
+    for name, (needs, item) in REFUSED.items():
         value = getattr(args, name)
         if value is not None and value is not False:
             flag = "--" + name.replace("_", "-")
             print(f"error: {flag} needs {needs}, which jax_mapping_torch "
-                  "does not port yet (ROADMAP A.9)", file=sys.stderr)
+                  f"does not port yet (ROADMAP {item})", file=sys.stderr)
             return 2
 
     from jax_mapping_torch.bridge.launch import launch_sim_stack
@@ -120,6 +199,10 @@ def main(argv=None) -> int:
                              drop_prob=args.drop_prob, seed=args.seed,
                              device=args.device)
     try:
+        if args.resume:
+            rc = _resume(stack, cfg, args.resume)
+            if rc:
+                return rc
         stack.brain.start_exploring()
         t0 = time.time()
         report_every = max(1, args.steps // 5)
@@ -147,6 +230,8 @@ def main(argv=None) -> int:
         print(json.dumps(summary, indent=2))
         if args.out:
             _write_png(args.out, occ)
+        if args.save_final:
+            _save_final(stack, cfg, args.save_final)
         return 0
     finally:
         stack.shutdown()

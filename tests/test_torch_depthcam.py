@@ -26,6 +26,7 @@ from jax_mapping_torch.ops import voxel as V
 from jax_mapping_torch.sim import depthcam as D
 from jax_mapping_torch.sim import world as W
 from tests.torch_jaxref import run_reference
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 CFG = tiny_config(2)
 VOX, CAM = CFG.voxel, CFG.depthcam

@@ -21,6 +21,7 @@ from jax_mapping_torch.sim import lidar
 from jax_mapping_torch.sim import world as W
 from tests.test_torch_sensor_model import boundary_cells
 from tests.torch_jaxref import run_reference, state_tree
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 TINY = tiny_config(2)
 TICKS = 12

@@ -16,6 +16,7 @@ from jax_mapping_torch.config import micro_config, tiny_config
 from jax_mapping_torch.ops import costfield as CF
 from jax_mapping_torch.ops import frontier as F
 from tests.torch_jaxref import run_reference
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _variants():

@@ -31,6 +31,7 @@ from torch_kernel_inputs import MISSIONS, WorldSim
 from torch_kernel_inputs import mission_frontier as _fcfg
 from torch_kernel_inputs import mission_grid as _gcfg
 from torch_kernel_inputs import mission_steps as _mission_steps
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _allowed_span(v):

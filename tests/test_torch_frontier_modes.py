@@ -20,6 +20,7 @@ import torch
 from jax_mapping_torch.config import micro_config, tiny_config
 from jax_mapping_torch.ops import frontier as F
 from tests.torch_jaxref import run_reference
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _variants():

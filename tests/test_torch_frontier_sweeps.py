@@ -28,6 +28,7 @@ from jax_mapping_torch.ops import frontier as F
 
 from torch_kernel_inputs import (corridor_maze, label_seed, maze_init,
                                  serpentine_mask)
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _t(a):

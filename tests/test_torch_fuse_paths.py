@@ -14,6 +14,7 @@ from jax_mapping_torch.ops import fuse_kernel as FK
 from jax_mapping_torch.ops import grid as G
 from tests.test_torch_sensor_model import boundary_cells
 from tests.torch_jaxref import run_reference
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 CFG = tiny_config(2)
 BATCHES = (0, 1, 5, 37)

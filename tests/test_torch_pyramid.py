@@ -19,6 +19,7 @@ from jax_mapping_torch.ops import grid as G
 from jax_mapping_torch.ops import pyramid as PYR
 from jax_mapping_torch.ops import scan_match as M
 from tests.torch_jaxref import run_reference
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 CFG = tiny_config(2)
 

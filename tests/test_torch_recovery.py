@@ -21,6 +21,7 @@ from jax_mapping_torch.config import RecoveryConfig, tiny_config
 from jax_mapping_torch.ops import scan_match as M
 from tests import torch_kernel_inputs as KI
 from tests.torch_jaxref import run_reference
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 CFG = tiny_config(2)
 

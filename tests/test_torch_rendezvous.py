@@ -21,6 +21,7 @@ from jax_mapping_torch.scenarios import rendezvous as RV
 from tests.test_torch_sensor_model import boundary_cells
 from tests.torch_jaxref import run_reference
 from tests.torch_kernel_inputs import StandInMapper
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 CFG = tiny_config(2)
 #: B's frame -> A's frame.

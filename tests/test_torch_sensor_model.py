@@ -17,6 +17,7 @@ from jax_mapping_torch.config import micro_config, tiny_config
 from jax_mapping_torch.ops import grid as G
 from jax_mapping_torch.ops import sensor_kernel as SK
 from tests.torch_jaxref import run_reference
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 CONFIGS = {"tiny": tiny_config(2), "micro": micro_config()}
 

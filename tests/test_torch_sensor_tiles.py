@@ -23,6 +23,8 @@ from jax_mapping_torch.ops import grid as G
 from jax_mapping_torch.ops import sensor_kernel as SK
 from jax_mapping_torch.sim import lidar
 from jax_mapping_torch.sim import world as W
+# Imported as a sibling, as the card's test file imports this one.
+from torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _fov_config():

@@ -37,6 +37,7 @@ from jax_mapping_torch.ops import scan_match as M
 from jax_mapping_torch.ops.odometry import rk2_step
 from tests.test_torch_sensor_model import boundary_cells
 from tests.torch_jaxref import run_reference
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 TINY = tiny_config()
 STEPS_A = 12

@@ -46,6 +46,7 @@ from jax_mapping_torch.recovery import RecoveryManager
 from jax_mapping_torch.resilience.health import FleetHealth
 from jax_mapping_torch.sim import world as W
 from tests.torch_jaxref import REPO, run_reference
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 EXPLORE_STEPS = 30
 BURST = 5
@@ -173,18 +174,6 @@ OUT["odom_pose"] = np.array([[o.pose.x, o.pose.y, o.pose.theta]
 OUT["odom_twist"] = np.array([[o.twist.linear_x, o.twist.angular_z]
                               for o in odoms])
 '''
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """The stack's tensors are small: one intra-op thread keeps this file
-    from oversubscribing the cores that the suite's parallel workers
-    share (with a thread per core in every worker, a tiny stack step ran
-    ~50x slower than alone)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -396,23 +385,30 @@ def test_demo_runs_and_writes_png(tmp_path):
     assert set(np.unique(img)) <= {0, 127, 255} and (img == 255).any()
 
 
-DEMO_REFUSED = [["--record", "b"], ["--replay", "b"], ["--resume", "c"],
-                ["--save-final", "c"], ["--map-prior", "m.yaml"],
-                ["--serve"], ["--http-port", "0"], ["--depth-cam"],
-                ["--voxel-out", "v.png"]]
+#: (flags, what the refusal says): the flags whose modules are not ported
+#: name them; --resume and --save-final are ported and refuse, as the JAX
+#: demo does, a checkpoint that is not there.
+DEMO_REFUSED = [(["--record", "b"], "not port"), (["--replay", "b"], "not port"),
+                (["--resume", "c"], "no checkpoint at c"),
+                (["--save-final", "c", "--resume", "missing.npz"],
+                 "no checkpoint at missing.npz"),
+                (["--map-prior", "m.yaml"], "not port"),
+                (["--serve"], "not port"), (["--http-port", "0"], "not port"),
+                (["--depth-cam"], "not port"),
+                (["--voxel-out", "v.png"], "not port")]
 
 
-@pytest.mark.parametrize("flag", DEMO_REFUSED, ids=lambda f: f[0])
-def test_demo_refuses_unported_flags(flag, capsys):
+@pytest.mark.parametrize("flag,says", DEMO_REFUSED,
+                         ids=[f[0] for f, _ in DEMO_REFUSED])
+def test_demo_refuses_unported_flags(flag, says, capsys):
     from jax_mapping_torch import demo
     assert demo.main(["--device", "cpu", "--steps", "1"] + flag) == 2
-    assert "not port" in capsys.readouterr().err
+    assert says in capsys.readouterr().err
 
 
 LAUNCH_REFUSED = {
     "http_port": dict(http_port=0),
     "depth_cam": dict(depth_cam=True),
-    "checkpoint_dir": dict(checkpoint_dir="ckpt"),
     "world.windowed": dict(cfg="world", windowed=True),
     "obs.enabled": dict(cfg="obs", enabled=True),
     "obs.devprof.enabled": dict(cfg="devprof"),

@@ -25,6 +25,7 @@ from jax_mapping_torch.sim import lidar
 from jax_mapping_torch.sim import world as W
 from tests import torch_kernel_inputs as KI
 from tests.torch_jaxref import run_reference
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 TENANTS = [1, 2, 3, 6]
 

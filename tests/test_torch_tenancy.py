@@ -34,6 +34,7 @@ from jax_mapping_torch.tenancy import megabatch as MB
 from jax_mapping_torch.world.store import window_slam_config
 from tests.test_torch_fleet import _check_grid
 from tests.torch_jaxref import run_reference, state_tree
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 CFG = micro_config().replace(tenancy=TenancyConfig(enabled=True))
 RES = CFG.grid.resolution_m

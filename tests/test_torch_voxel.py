@@ -20,6 +20,7 @@ from jax_mapping_torch.ops import voxel as V
 from jax_mapping_torch.ops import voxel_kernel as VK
 from tests.test_torch_voxel_kernel import BATCH_HELPERS, voxel_boundary
 from tests.torch_jaxref import run_reference
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 CFG = tiny_config()
 VOX, CAM = CFG.voxel, CFG.depthcam

@@ -28,6 +28,7 @@ from jax_mapping_torch.config import tiny_config
 from jax_mapping_torch.ops import voxel as V
 from jax_mapping_torch.ops import voxel_kernel as VK
 from tests.torch_jaxref import run_reference
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 CFG = tiny_config()
 VOX, CAM = CFG.voxel, CFG.depthcam

@@ -35,6 +35,7 @@ from torch_kernel_inputs import VOXEL_EDGES as EDGES
 from torch_kernel_inputs import VOXEL_REGIONS, cameras_around_region
 from torch_kernel_inputs import voxel_depths as _depths
 from torch_kernel_inputs import voxel_edge_case as edge_case
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 CONFIGS = {"tiny": lambda: tiny_config(2), "default": SlamConfig}
 

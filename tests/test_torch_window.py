@@ -20,6 +20,7 @@ from jax_mapping_torch.ops import grid as G
 from jax_mapping_torch.ops import sensor_kernel as SK
 from tests.test_torch_sensor_model import boundary_cells
 from tests.torch_jaxref import run_reference
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 CONFIGS = {"tiny": tiny_config(2), "micro": micro_config()}
 TILE = 64
