@@ -61,7 +61,9 @@ Phases, each printed as one JSON line:
   fleet_modes  fleet_step with planned_goals, decay_aware (the map
            decayed x 0.5) and exact_bfs on in turn, 10 ticks each, 8
            robots where the mapper drive starts them, its map as their
-           map: tick p50/p90, host syncs, K2/K3 launches by route
+           map: tick p50/p90, host syncs, K2/K3 launches by route; K3 a
+           tick: planned_goals 6, decay_aware 3, exact_bfs 1 (all 8
+           robots' fields under a mask each, counted apart)
   recovery the recovery path for one robot, on the mapper drive's
            scans fused at their true poses: `slam_step` a scan on a
            1.2 m circle round robot 0's circle centre, the divergence
@@ -98,12 +100,18 @@ Phases, each printed as one JSON line:
            matches per tenant (all robots, and key robots), and the
            megabatch's matcher with and without its per-lane split
            against solo calls (mismatches, ms; the split must match).
+           Then each frontier option alone at 3 tenants (K3 a tick:
+           exact_bfs 1 for all 24 fields, decay_aware 3, planned_goals
+           6) and the default options at 12 tenants (bucket 12), every
+           lane again against its solo run
            Then one lane's grid poisoned with a NaN:
            only its word sets HEALTH_NONFINITE, the co-tenants stay on
            their solo runs, and the words fold through LaneHealthLadder
   stack    slice 10's main path, the way users start the system:
            `launch_sim_stack` of the default SlamConfig, 8 robots on
-           rooms_world(1024, 0.05, seed=1), `brain.start_exploring()`, 150
+           rooms_world(1024, 0.05, seed=1) with its doors widened to 2 m
+           (the default frontier cells seal 0.5 m doors),
+           `brain.start_exploring()`, 150
            `run_steps` (sim, brain, the mapper's steps and frontier
            publish, the planner every 10 steps). Counts are zeroed before
            the steps and read after: K1 (both modes), K2 and K3 must
@@ -113,6 +121,16 @@ Phases, each printed as one JSON line:
            accepted and rejected, cells free and occupied, peak memory.
            Then a burst: 16 sim and brain steps with no mapper tick, then
            one mapper tick, which must fuse a window through K5
+  stack_depth  the same stack with `depth_cam=True`: a depth image per
+           robot a step, the voxel mapper (K6) at the mapper's corrected
+           poses, the planner and the frontier auction on the voxel
+           overlay; 150 steps with a mapper restart after 100 (the voxel
+           map must survive it, an auto-checkpoint's voxel and keyframe
+           sidecars must read back bit-equal), then a re-fuse of the held
+           keyframes. K1, K2, K3 and K6 must launch, every image must be
+           fused or counted as dropped, the auction must assign. Steps/s,
+           tick p50/p90 and host syncs by node, overlay rebuilds and
+           reuses, keyframes, voxels, peak memory
   world    slice 11's main path, the bounded-memory world: `MapperNode`
            on the default SlamConfig with `world.windowed` (an 8-tile
            2048^2 window of 256-cell tiles over an 8192^2 logical lattice,
@@ -171,8 +189,11 @@ Phases, each printed as one JSON line:
            megabatch's batches (3 x 8 deltas, 3 x 168 and 3 x 392
            rasters), K2 over 3 tenants' masks in one launch and K3 over
            their 24 fields under a mask each. K1 at any batch, and K2/K3 at any
-           call, that the stack launched and no row above covers, and
-           every K1 row with its launches on the stack
+           call, that the stacks launched and no row above covers, and
+           every K1 row with its launches on the stacks. K3 with a mask
+           per field (exact_bfs' 8 fields, and 3 tenants' 24, 256^2 x
+           257 sweeps in one launch), planned_goals' target fields over
+           3 tenants, and K6 at the depth stack's 8 images
   parity   a tiny mission, each tick run on the card and on the CPU from
            the same state with the same wheel noise; then with each
            frontier option on (the assignment must agree exactly); one
@@ -817,14 +838,19 @@ def phase_profile(torch, cfg, st, world, seed: int, ticks: int = 3):
 
 def phase_kernels(torch, cfg, world, mapped, seed: int, fleet: dict,
                   mapper: dict, voxel: tuple, explore: tuple,
-                  new_paths: dict, tenancy: dict, stack_rec, world_paths):
+                  new_paths: dict, tenancy: dict, stack_rec, world_paths,
+                  options: dict):
     """Each kernel against its plain version at the main path's shapes.
     The scans are taken near walls and the frontier comes from `mapped`,
     the re-fused map, so that every kernel sees non-trivial input; the
     voxel kernels take the voxel phases' images (`voxel`: their states).
     Every K1 row also carries its batch's launches on the recovery path's
     phases (`new_paths`), and the batches only those paths launch get rows
-    of their own."""
+    of their own. `options` holds the K2/K3 calls of the frontier
+    options (`recs`, by tag: exact_bfs' 8 fields under 8 masks in one
+    launch, 3 tenants' 24, the depth-camera stack's) and the depth stack's
+    K6 batch (`k6`, with its launches a step); planned_goals' fields over
+    the megabatch's grids are made here."""
     from jax_mapping_torch.ops import costfield as CF
     from jax_mapping_torch.ops import frontier as F
     from jax_mapping_torch.ops import grid as G
@@ -940,6 +966,27 @@ def phase_kernels(torch, cfg, world, mapped, seed: int, fleet: dict,
                                   new_paths, stack_rec, rows))
     rows.update(world_kernel_rows(torch, cfg, fleet, mapper, new_paths,
                                   *world_paths, rows))
+    for tag, rec in options["recs"].items():
+        rows.update(_new_sweep_rows(torch, cfg, rec, rows, tag))
+    # planned_goals' target-seeded fields over the megabatch's grids: one
+    # K3 launch a level for every tenant's robots.
+    import dataclasses
+    pg = dataclasses.replace(fcfg, planned_goals=True)
+    fr_t = F.compute_frontiers(pg, cfg.grid, tenancy["grids"],
+                               tenancy["poses"])
+    with SweepRecorder() as rec:
+        F.assigned_waypoints(pg, cfg.grid, tenancy["grids"],
+                             tenancy["poses"], fr_t.targets,
+                             fr_t.assignment)
+    T = tenancy["grids"].shape[0]
+    for name, m, init, s in rec.calls:
+        rows[f"costfield_relax_planned_goals_tenant_t{T}_n{init.shape[-1]}"
+             f"_s{s}"] = _sweep_row(torch, name, m, init, s)
+    del fr_t, rec
+    d, p, o = options["k6"]
+    rows[f"voxel_image_stack_depth_b{int(d.shape[0])}"] = _k6_row(
+        torch, cfg, d, p, o,
+        launches_per_stack_step=options["k6_launches_per_step"])
     emit({"phase": "kernels", "rows": rows})
     for name, r in rows.items():
         check(r["mismatches"] == 0,
@@ -1772,10 +1819,11 @@ FLEET_OPTIONS = {"planned_goals": {"planned_goals": True},
                  "decay_aware": {"decay_aware": True},
                  "exact_bfs": {"exact_bfs": True}}
 
-#: K3 launches a tick of 8 robots under each option: the assignment's
-#: three multigrid levels, three more for planned_goals' target-seeded
-#: fields; exact_bfs runs one 256^2 field a robot instead.
-OPTION_K3_PER_TICK = {"planned_goals": 6, "decay_aware": 3, "exact_bfs": 8}
+#: K3 launches a tick under each option: the assignment's three
+#: multigrid levels, three more for planned_goals' target-seeded fields;
+#: exact_bfs runs one 256^2 field a robot instead, every robot's (and
+#: every tenant's) in one launch with a blocked mask per field.
+OPTION_K3_PER_TICK = {"planned_goals": 6, "decay_aware": 3, "exact_bfs": 1}
 
 #: JAX's default ServingConfig.tile_cells: the publish's tile.
 PUBLISH_TILE = 256
@@ -1801,6 +1849,26 @@ class WaypointCount:
 
     def n_valid(self) -> int:
         return sum(int(v.sum()) for v in self.valid)
+
+
+class K3MaskCount:
+    """Counts the K3 calls (`costfield.relax_sweeps`) with a blocked mask
+    per field, more than one field (`exact_bfs`' one launch for every
+    robot), while the context is open."""
+
+    def __enter__(self):
+        from jax_mapping_torch.ops import costfield as CF
+        self.cf, self.orig, self.n = CF, CF.relax_sweeps, 0
+
+        def counted(blocked, init, n_sweeps):
+            if blocked.dim() == 3 and blocked.shape[0] == init.shape[0] > 1:
+                self.n += 1
+            return self.orig(blocked, init, n_sweeps)
+        CF.relax_sweeps = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cf.relax_sweeps = self.orig
 
 
 class SweepRecorder:
@@ -2118,7 +2186,9 @@ def phase_fleet_modes(torch, cfg, grid, seed: int, ticks: int = 10):
     """`fleet_step` with each frontier option on in turn, 8 robots where
     the mapper drive placed them on rooms_world(4096, 0.05, seed=1), its
     map as their starting map (decayed x 0.5, cap 1.5, for decay_aware):
-    tick p50/p90, host syncs of ticks 1-3, K2/K3 launches by route."""
+    tick p50/p90, host syncs of ticks 1-3, K2/K3 launches by route, and
+    the K3 launches with a mask per field (exact_bfs: one a tick for the
+    8 robots). Returns (the line, the K2/K3 calls exact_bfs made)."""
     import dataclasses
     from jax_mapping_torch.models import fleet as FL
     from jax_mapping_torch.ops import _cuda
@@ -2138,7 +2208,8 @@ def phase_fleet_modes(torch, cfg, grid, seed: int, ticks: int = 10):
         torch.cuda.synchronize()
         _cuda.reset_launches()
         tick_ms, syncs, assigned = [], [], 0
-        with WaypointCount() as wc:
+        with WaypointCount() as wc, K3MaskCount() as km, \
+                SweepRecorder() as rec:
             for i in range(ticks):
                 t0 = time.perf_counter()
                 if 1 <= i <= 3:
@@ -2161,8 +2232,14 @@ def phase_fleet_modes(torch, cfg, grid, seed: int, ticks: int = 10):
                "launches_per_tick": {k: v / ticks for k, v in launches.items()},
                "routes": routes, "assigned_robot_ticks": assigned,
                "clusters_last_tick": int((diag.frontiers.sizes > 0).sum()),
-               "valid_waypoints": wc.n_valid()}
+               "valid_waypoints": wc.n_valid(),
+               "k3_per_field_mask_launches": km.n,
+               "k3_launches_per_tick": launches["costfield_relax"] / ticks}
         out["options"][name] = row
+        if name == "exact_bfs":
+            exact_rec = rec
+            check(km.n == ticks, f"fleet_modes exact_bfs: {km.n} K3 "
+                  f"launches with a mask per field in {ticks} ticks")
         check(bool(torch.isfinite(st.grid).all())
               and bool(torch.isfinite(st.est_poses).all()),
               f"fleet_modes {name}: non-finite state")
@@ -2179,7 +2256,7 @@ def phase_fleet_modes(torch, cfg, grid, seed: int, ticks: int = 10):
             check(row["valid_waypoints"] > 0,
                   "fleet_modes: no planned waypoint was valid")
     emit(out)
-    return out
+    return out, exact_rec
 
 
 def exploration_kernel_rows(torch, cfg, grid, publisher, planner) -> dict:
@@ -2235,8 +2312,9 @@ def _sweep_row(torch, name: str, m, init, s: int) -> dict:
         times = _sweep_times(lambda: CF.relax_sweeps(m, init, s),
                              lambda: CF._relax_sweeps_plain(m, init, s),
                              "relax", s)
-        b = bound(n * n * (1 + 2 * 4 * R), 17 * R * s * n * n)
-        extra = {"fields": R, "reachable_cells": int(
+        masks = m.shape[0] if m.dim() == 3 else 1
+        b = bound(n * n * (masks + 2 * 4 * R), 17 * R * s * n * n)
+        extra = {"fields": R, "masks": masks, "reachable_cells": int(
             (want < CF._BIG).sum())}
     else:
         got, ran = F.label_sweeps(m, init, s)
@@ -2531,6 +2609,31 @@ def _voxel_cull(vox, cam, poses, origins, ny: int, nx: int,
         + c["model_voxels"] * per_voxel)
 
 
+def _k6_row(torch, cfg, d, p, o, **extra) -> dict:
+    """K6 (`image_deltas`) on B images at their patch origins against its
+    plain version: exact comparison, the cull's counts, times, bound."""
+    from jax_mapping_torch.ops import voxel_kernel as VK
+    vox, cam = cfg.voxel, cfg.depthcam
+    Z, P = vox.size_z_cells, vox.patch_cells
+    img_bytes = cam.height_px * cam.width_px * 4 + 16 + 8
+    B = int(d.shape[0])
+    got = VK.image_deltas(vox, cam, d, p, o)
+    want = VK.image_deltas_plain(vox, cam, d, VK.pose_table(p), o)
+    cmp = compare(got, want)
+    cmp["nonzero_voxels"] = int((want != 0).sum())
+    del got, want
+    cull, ops = _voxel_cull(vox, cam, p, o, P, P, group=1)
+
+    def kernel():
+        return VK.image_deltas(vox, cam, d, p, o)
+    return dict(
+        cmp, shape=[B, Z, P, P], **cull, **extra, library_ms=None,
+        ms=cuda_ms(kernel), device_ms=device_ms(kernel, "voxel_image"),
+        plain_ms=cuda_ms(lambda: VK.image_deltas_plain(
+            vox, cam, d, VK.pose_table(p), o), reps=5, warmup=1),
+        **bound(B * (Z * P * P * 4 + img_bytes), ops))
+
+
 def voxel_kernel_rows(torch, cfg, vstate, bench, voxel_out) -> dict:
     """K6 at B = 8 (one voxel tick) and 32 (the bench batch), K7 through
     the bench's 32-image window and through the region at B = 8, each
@@ -2551,24 +2654,8 @@ def voxel_kernel_rows(torch, cfg, vstate, bench, voxel_out) -> dict:
              vstate["origins"]),
             ("voxel_image_b32", bench["depths"], bench["vposes"],
              bench["vorigins"])):
-        B = int(d.shape[0])
-        table = VK.pose_table(p)
-        got = VK.image_deltas(vox, cam, d, p, o)
-        want = VK.image_deltas_plain(vox, cam, d, table, o)
-        cmp = compare(got, want)
-        cmp["nonzero_voxels"] = int((want != 0).sum())
-        del got, want
-        cull, ops = _voxel_cull(vox, cam, p, o, P, P, group=1)
-
-        def kernel(d=d, p=p, o=o):
-            return VK.image_deltas(vox, cam, d, p, o)
-        rows[name] = dict(
-            cmp, shape=[B, Z, P, P], **cull,
-            launches_per_voxel_tick=per_tick, library_ms=None,
-            ms=cuda_ms(kernel), device_ms=device_ms(kernel, "voxel_image"),
-            plain_ms=cuda_ms(lambda: VK.image_deltas_plain(
-                vox, cam, d, VK.pose_table(p), o), reps=5, warmup=1),
-            **bound(B * (Z * P * P * 4 + img_bytes), ops))
+        rows[name] = _k6_row(torch, cfg, d, p, o,
+                             launches_per_voxel_tick=per_tick)
 
     Y, X = vox.size_y_cells, vox.size_x_cells
     wo = bench["worigin"]
@@ -2722,7 +2809,8 @@ def frontier_inputs(torch, seed: int) -> dict:
 
 def kernel_times(torch, seed: int) -> dict:
     """Device times of K1, K4 and K5 at the main paths' batches, of K2 at
-    the fleet's 256^2 x 49 sweeps, of K3 at each of its three levels, of
+    the fleet's 256^2 x 49 sweeps, of K3 at each of its three levels and
+    in `compute_frontiers` with exact_bfs for 8 robots, of
     K6 at a voxel tick's 8 images and of K7 at the bench's 32-image window
     and the tick's images over the whole grid, and the host-clock times of
     the voxel tick's fuse and the bench window, on fixed inputs (seeded), through the wrappers of whichever
@@ -2770,6 +2858,35 @@ def kernel_times(torch, seed: int) -> dict:
         vals = [d[k] for k in k3]
         d["costfield_relax_levels"] = None if None in vals else sum(vals)
     del fr
+
+    # exact_bfs' frontier costs of the fleet's 8 robots on the world's
+    # planks (the west eighth unknown): a tree that batches the fields
+    # launches K3 once, an older one once a robot.
+    import dataclasses
+    n = cfg.grid.size_cells
+    lo = torch.where(world, 3.0, -1.0)
+    lo[:, : n // 8] = 0.0
+    exact = dataclasses.replace(cfg.frontier, exact_bfs=True)
+    robots = _poses_near_walls(torch, cfg, world, cfg.fleet.n_robots, gen)
+    timed("exact_bfs_frontiers_r8", lambda: F.compute_frontiers(
+        exact, cfg.grid, lo, robots), "relax", per_call=True)
+    del lo
+
+    # 30 steps of the mission stack on STACK_WORLD after 5 to warm up
+    # (host clock, synchronised): the stack path's cost in either tree.
+    from jax_mapping_torch.bridge.launch import launch_sim_stack
+    st = launch_sim_stack(cfg, _stack_world(res), n_robots=STACK_ROBOTS,
+                          seed=seed)
+    st.brain.start_exploring()
+    st.run_steps(5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st.run_steps(30)
+    torch.cuda.synchronize()
+    ms["stack_step_30"] = (time.perf_counter() - t0) * 1e3 / 30
+    dev_ms["stack_step_30"] = None
+    st.shutdown()
+    del st
 
     guess = _poses_near_walls(torch, cfg, world, cfg.fleet.n_robots, gen)
     scans = lidar.simulate_scans(cfg.scan, world, res, n_samples, guess)
@@ -3413,6 +3530,10 @@ def _parity_recovery(torch) -> dict:
 #: then 5 tenants in bucket 6 (one pad lane).
 TENANT_RUNS = ((3, 3), (5, 6))
 TENANT_TICKS = 10
+#: The frontier options' megabatch runs, each at 3 tenants in bucket 3.
+TENANT_OPTIONS = ("exact_bfs", "decay_aware", "planned_goals")
+#: The default options at the top of the exact ladder.
+TENANT_WIDE = (12, 12)
 
 
 class HopCount:
@@ -3497,7 +3618,11 @@ def _solo_runs(torch, cfg, states, worlds, normals, ticks: int):
     return finals, ms, syncs, torch.cuda.max_memory_allocated()
 
 
-def _tenant_run(torch, cfg, n_active: int, bucket: int, seed: int) -> dict:
+def _tenant_run(torch, cfg, n_active: int, bucket: int, seed: int,
+                masks: "K3MaskCount" = None) -> dict:
+    """One megabatch run of TENANT_TICKS ticks and each mission's solo
+    run; `masks`, an open K3MaskCount, is read after the megabatch ticks
+    (before the solo runs)."""
     from jax_mapping_torch.ops import _cuda
     from jax_mapping_torch.tenancy import megabatch as MB
     res = cfg.grid.resolution_m
@@ -3534,6 +3659,7 @@ def _tenant_run(torch, cfg, n_active: int, bucket: int, seed: int) -> dict:
             accepted_key += (ok & diag.is_key).sum(dim=1).cpu()
     launches = dict(_cuda.LAUNCHES)
     routes = {k: dict(v) for k, v in _cuda.ROUTES.items()}
+    per_field_masks = None if masks is None else masks.n
     peak = torch.cuda.max_memory_allocated()
     occ = (b.states.grid > cfg.grid.occ_threshold).flatten(1).sum(1).cpu()
 
@@ -3570,7 +3696,8 @@ def _tenant_run(torch, cfg, n_active: int, bucket: int, seed: int) -> dict:
         "occupied_cells": occ[:n_active].tolist(),
         "accepted_matches": accepted[:n_active].tolist(),
         "accepted_key_matches": accepted_key[:n_active].tolist(),
-        "key_robots_per_tick": keys, "health_words": words}
+        "key_robots_per_tick": keys, "health_words": words,
+        "k3_per_field_mask_launches": per_field_masks}
     return out, b, solo, worlds
 
 
@@ -3618,7 +3745,7 @@ def _matcher_split(torch, cfg, b) -> dict:
     return out
 
 
-def _check_tenant_run(out: dict) -> None:
+def _check_tenant_run(out: dict, k3_per_tick: int = 3) -> None:
     from jax_mapping_torch.tenancy import megabatch as MB
     n_active, words = out["tenants"], out["health_words"]
     launches, routes = out["launches"], out["routes"]
@@ -3627,7 +3754,8 @@ def _check_tenant_run(out: dict) -> None:
     for name in FLEET_KERNELS:
         check(launches[name] > 0,
               f"tenancy: kernel {name} never launched on the megabatch path")
-    for name, per_tick in FLEET_SWEEP_LAUNCHES.items():
+    for name, per_tick in dict(FLEET_SWEEP_LAUNCHES,
+                               costfield_relax=k3_per_tick).items():
         check(launches[name] == per_tick * TENANT_TICKS,
               f"tenancy T={n_active}: {name} launched {launches[name]} "
               f"times in {TENANT_TICKS} ticks, not {per_tick} a tick")
@@ -3639,9 +3767,10 @@ def _check_tenant_run(out: dict) -> None:
           f"tenancy T={n_active}: a tenant mapped no wall")
     check(all(a > 0 for a in out["accepted_matches"]),
           f"tenancy T={n_active}: a tenant accepted no match")
-    check(not any(v["mismatches"] for v in
-                  out["matcher_split"]["split_mismatches"].values()),
-          f"tenancy T={n_active}: the split matcher differs from solo")
+    check("matcher_split" not in out or not any(
+        v["mismatches"] for v in
+        out["matcher_split"]["split_mismatches"].values()),
+        f"tenancy T={n_active}: the split matcher differs from solo")
     if out["bucket"] in MB.EXACT_BUCKETS:
         check(all(out["lanes_bit_equal_solo"]),
               f"tenancy: bucket {out['bucket']} is on the exact ladder but "
@@ -3707,7 +3836,14 @@ def phase_tenancy(torch, cfg, seed: int):
     Launch counts are zeroed before each run's ticks and read after; K2
     must launch once and K3 three times a tick for all tenants. Every lane
     is held against the mission's solo `fleet_step` run on the card from
-    the same state with the same normals; then the NaN-poisoned lane."""
+    the same state with the same normals; then the NaN-poisoned lane.
+    Then each frontier option of TENANT_OPTIONS alone at 3 tenants (K3 a
+    tick: exact_bfs 1, all 24 fields under a mask each; decay_aware 3;
+    planned_goals 6), and the default options at 12 tenants (bucket 12),
+    each lane again against its solo run. Returns (the path's K1
+    counts, the first run's grids and poses, the line, the option runs'
+    K2/K3 calls)."""
+    import dataclasses
     from jax_mapping_torch.config import TenancyConfig
     cfg = cfg.replace(tenancy=TenancyConfig(enabled=True, lane_health=True))
     runs, k1, keep = {}, [], None
@@ -3724,15 +3860,38 @@ def phase_tenancy(torch, cfg, seed: int):
     grids, poses = b.states.grid.clone(), b.states.est_poses.clone()
     health = _tenant_health(torch, cfg, b, solo, worlds, seed)
     del keep, b, solo, worlds
+    k3_per_tick, recs = {}, {}
+    for name in TENANT_OPTIONS:
+        c = cfg.replace(frontier=dataclasses.replace(cfg.frontier,
+                                                     **{name: True}))
+        with K3MaskCount() as km, SweepRecorder() as rec:
+            run, b, solo, worlds = _tenant_run(torch, c, 3, 3, seed, km)
+        del b, solo, worlds
+        run["option"] = name
+        key = f"T3_in_3_{name}"
+        runs[key], recs[name] = run, rec
+        k3_per_tick[key] = OPTION_K3_PER_TICK[name]
+        k1.append(run.pop("k1_launches_by_batch"))
+    n_active, bucket = TENANT_WIDE
+    with K3MaskCount() as km:
+        run, b, solo, worlds = _tenant_run(torch, cfg, n_active, bucket,
+                                           seed, km)
+    del b, solo, worlds
+    runs[f"T{n_active}_in_{bucket}"] = run
+    k1.append(run.pop("k1_launches_by_batch"))
     out = {"phase": "tenancy", "config": "SlamConfig(), lane_health",
            "runs": runs, "health": health}
     emit(out)
-    for run in runs.values():
-        _check_tenant_run(run)
+    for key, run in runs.items():
+        _check_tenant_run(run, k3_per_tick.get(key, 3))
+    check(runs["T3_in_3_exact_bfs"]["k3_per_field_mask_launches"]
+          == TENANT_TICKS, "tenancy: exact_bfs did not make one K3 launch "
+          "with a mask per field a tick")
     _check_tenant_health(health, TENANT_RUNS[0][1])
-    return ({"per": f"{len(TENANT_RUNS)} runs of {TENANT_TICKS} ticks",
+    n_runs = len(TENANT_RUNS) + len(TENANT_OPTIONS) + 1
+    return ({"per": f"{n_runs} runs of {TENANT_TICKS} ticks",
              "k1_launches_by_batch": _k1_sum(k1)},
-            {"grids": grids, "poses": poses}, out)
+            {"grids": grids, "poses": poses}, out, recs)
 
 
 def tenancy_kernel_rows(torch, cfg, world, gen, fleet: dict, mapper: dict,
@@ -3871,6 +4030,20 @@ STACK_SYNC_TICKS = (10, 11, 12)
 STACK_PARITY_STEPS = 40
 #: Robot 0's navigation goal (x, y, theta) in the stack's room.
 STACK_GOAL = (4.0, 2.0, 0.0)
+#: The stack's world: rooms_world(1024, 0.05, seed=1) with 2 m doors. The
+#: default frontier config plans on 0.8 m cells pooled conservatively,
+#: which seal the generated 0.5 m doors, so in rooms_world itself every
+#: frontier the fleet sees through a door costs 1e9 in both packages
+#: (ROADMAP C.3, tests/test_torch_frontier_scene.py).
+STACK_WORLD = "rooms_wide_doors(1024, 0.05, door_m=2.0, seed=1)"
+#: The depth-camera stack's mapper restart, after this many steps.
+STACK_DEPTH_RESTART = 100
+
+
+def _stack_world(res: float):
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import torch_kernel_inputs as KI
+    return KI.rooms_wide_doors(1024, res, door_m=2.0, seed=1)
 
 
 def _timed(fn, ms: list):
@@ -3923,13 +4096,14 @@ def _stack_step_reads(mapper) -> list:
 def phase_stack(torch, seed: int):
     """Slice 10's main path, the way users start the system:
     `launch_sim_stack` of the default SlamConfig with 8 robots on
-    rooms_world(1024, 0.05, seed=1), `brain.start_exploring()`, 150
+    STACK_WORLD, `brain.start_exploring()`, 150
     `run_steps` (sim physics and raycasts, the brain tick, the mapper's
     SLAM steps and frontier publish, the planner every 10 steps, with an
     operator's `/goal_pose` for robot 0). Counts are zeroed before the
     steps and read after: K1 (both modes), K2 and K3 must launch, and the
-    planner must plan. Host syncs of mapper ticks 10-12 (and of their
-    frontier publishes), host time by node. Then a burst: 16 sim and brain
+    planner must plan, and the auction must assign a frontier. Host syncs
+    of mapper ticks 10-12 (and of their frontier publishes), host time by
+    node. Then a burst: 16 sim and brain
     steps with no mapper tick, and one mapper tick, which must take
     `_step_window` and launch K5."""
     import warnings
@@ -3938,9 +4112,8 @@ def phase_stack(torch, seed: int):
     from jax_mapping_torch.bridge.messages import Pose2D
     from jax_mapping_torch.config import SlamConfig
     from jax_mapping_torch.ops import _cuda
-    from jax_mapping_torch.sim import world as W
     cfg = SlamConfig()
-    world = W.rooms_world(1024, cfg.grid.resolution_m, seed=1)
+    world = _stack_world(cfg.grid.resolution_m)
     t0 = time.perf_counter()
     st = launch_sim_stack(cfg, world, n_robots=STACK_ROBOTS, seed=seed)
     torch.cuda.synchronize()
@@ -4009,7 +4182,7 @@ def phase_stack(torch, seed: int):
     keys = [r for r in reads if r.key_added]
     steady = ticks.ms[1:]
     out = {"phase": "stack", "config": "SlamConfig()",
-           "world": "rooms_world(1024, 0.05, seed=1)",
+           "world": STACK_WORLD,
            "robots": STACK_ROBOTS, "steps": STACK_STEPS,
            "launch_s": launch_s, "wall_s": wall,
            "steps_per_s": STACK_STEPS / wall,
@@ -4075,6 +4248,8 @@ def phase_stack(torch, seed: int):
               f"kernel {name} never launched on the stack path")
     check(out["planner"]["plans"] > 0,
           "the planner made no plan for the operator's goal")
+    check(out["robot_assignments"] > 0,
+          "the stack's auction assigned no frontier")
     check(out["burst"]["windows_fused"] >= 1
           and out["burst"]["launches"]["window_apply"] >= 1,
           f"the burst did not go through K5: {out['burst']}")
@@ -4082,6 +4257,214 @@ def phase_stack(torch, seed: int):
     return ({"per": f"{STACK_STEPS} stack steps",
              "k1_launches_by_batch": bc.n},
             out, rec)
+
+
+class K6Capture:
+    """Keeps the first `voxel_kernel.image_deltas` call's inputs of each
+    batch size while the context is open (references: no caller writes
+    into them)."""
+
+    def __enter__(self):
+        from jax_mapping_torch.ops import voxel_kernel as VK
+        self.vk, self.orig, self.inputs = VK, VK.image_deltas, {}
+
+        def captured(vox, cam, d, p, o):
+            self.inputs.setdefault(int(d.shape[0]), (d, p, o))
+            return self.orig(vox, cam, d, p, o)
+        VK.image_deltas = captured
+        return self
+
+    def __exit__(self, *exc):
+        self.vk.image_deltas = self.orig
+
+
+def phase_stack_depth(torch, seed: int):
+    """The depth-camera stack's main path, as users start it:
+    `launch_sim_stack(SlamConfig(), STACK_WORLD, n_robots=8,
+    depth_cam=True)` with `planner.use_voxel_obstacles` (the default):
+    the sim renders a depth image per robot a step, the voxel mapper fuses
+    them at the mapper's corrected poses (K6), the planner plans and the
+    mapper's frontier auction runs on the voxel-overlaid map.
+    `brain.start_exploring()`, STACK_STEPS `run_steps`, with
+    `restart_mapper` after STACK_DEPTH_RESTART of them: the voxel node and
+    its map must survive it, and the voxel and keyframe sidecars of an
+    auto-checkpoint just before must load back bit-equal. Last, the ring
+    of keyframes the drive holds is re-fused once (a closure's repair). Counts are
+    zeroed before the steps and read after: K1, K2, K3 and K6 must launch;
+    images fused must be 8 a step less those the pairer dropped; the
+    auction must assign. Steps/s, the mapper's and the voxel mapper's
+    tick p50/p90, host syncs a step by node (steps 10-12), the overlay's
+    rebuilds and reuses, keyframes stored and re-fuses, voxels occupied,
+    peak memory."""
+    import numpy as np
+    from jax_mapping_torch.bridge.launch import launch_sim_stack
+    from jax_mapping_torch.config import SlamConfig
+    from jax_mapping_torch.io import checkpoint as CK
+    from jax_mapping_torch.ops import _cuda
+    from jax_mapping_torch.ops import voxel as V
+    cfg = SlamConfig()
+    check(cfg.planner.use_voxel_obstacles, "the planner's overlay is off")
+    world = _stack_world(cfg.grid.resolution_m)
+    t0 = time.perf_counter()
+    st = launch_sim_stack(cfg, world, n_robots=STACK_ROBOTS, seed=seed,
+                          depth_cam=True)
+    torch.cuda.synchronize()
+    launch_s = time.perf_counter() - t0
+    vm, pl = st.voxel_mapper, st.planner
+    check(vm is not None and vm.voxel_grid().is_cuda,
+          "the voxel map is not on the card")
+    check(st.mapper.frontier_grid_provider == pl._planning_grid,
+          "the mapper's frontier basis is not the planner's overlay")
+    fronts = []
+    st.bus.subscribe("/frontiers", callback=lambda f: fronts.append(
+        np.asarray(f.assignment)))
+    st.brain.start_exploring()
+    nodes = {"sim": (st.sim, "step"), "brain": (st.brain, "update_loop"),
+             "mapper": (st.mapper, "tick"), "voxel_mapper": (vm, "tick"),
+             "planner": (pl, "tick")}
+    node_ms = {k: [] for k in nodes}
+    syncs = {k: [] for k in nodes}
+
+    def instrument(key, obj, attr):
+        fn = getattr(obj, attr)
+
+        def wrapped():
+            t0 = time.perf_counter()
+            if st._steps_run in STACK_SYNC_TICKS:
+                _r, n = _count_syncs(torch, fn)
+                syncs[key].append(n)
+            else:
+                fn()
+            torch.cuda.synchronize()
+            node_ms[key].append((time.perf_counter() - t0) * 1e3)
+        setattr(obj, attr, wrapped)
+
+    for key, (obj, attr) in nodes.items():
+        instrument(key, obj, attr)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    rt = {}
+    with BatchCount(cfg.grid) as bc, SweepRecorder() as rec, \
+            K6Capture() as k6:
+        t0 = time.perf_counter()
+        st.run_steps(STACK_DEPTH_RESTART)
+        # An auto-checkpoint, then a mapper restart mid-run.
+        with tempfile.TemporaryDirectory() as tmp:
+            st.auto_checkpoint_path = os.path.join(tmp, "auto.npz")
+            t1 = time.perf_counter()
+            st.save_auto_checkpoint()
+            rt["save_s"] = time.perf_counter() - t1
+            grid_before = vm.voxel_grid()
+            kf = vm.snapshot_keyframes()
+            g2 = CK.load_voxel_sidecar(st.auto_checkpoint_path,
+                                       vm.snapshot_grid(),
+                                       running_config_json=cfg.to_json())
+            kf2 = CK.load_keyframe_sidecar(
+                st.auto_checkpoint_path, running_config_json=cfg.to_json())
+            rt["voxel_sidecar_bit_equal"] = bool(torch.equal(g2,
+                                                             grid_before))
+            rt["keyframe_sidecar_bit_equal"] = all(
+                np.array_equal(kf[k], kf2[k]) for k in kf)
+            rt["keyframes_in_sidecar"] = int(len(kf["robot"]))
+            del g2, kf, kf2
+            old_mapper = st.mapper
+            t1 = time.perf_counter()
+            st.restart_mapper()
+            torch.cuda.synchronize()
+            rt["restart_s"] = time.perf_counter() - t1
+            instrument("mapper", st.mapper, "tick")
+            rt["voxel_map_kept"] = (st.voxel_mapper is vm
+                                    and vm.voxel_grid() is grid_before)
+            rt["voxel_follows_new_mapper"] = (vm.mapper is st.mapper
+                                              and st.mapper is not
+                                              old_mapper)
+            rt["overlay_rewired"] = (st.mapper.frontier_grid_provider
+                                     == pl._planning_grid)
+            st.auto_checkpoint_path = ""
+        fused_before = vm.n_images_fused
+        st.run_steps(STACK_STEPS - STACK_DEPTH_RESTART)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    for _key, (obj, attr) in nodes.items():
+        if attr in vars(obj):
+            delattr(obj, attr)
+    if "tick" in vars(st.mapper):
+        del st.mapper.tick
+    launches = dict(_cuda.LAUNCHES)
+    routes = {k: dict(v) for k, v in _cuda.ROUTES.items()}
+    peak = torch.cuda.max_memory_allocated()
+    assigned = np.stack(fronts)
+    counts = _voxel_counts(cfg.voxel, vm.voxel_grid())
+    # The closure repair at the ring the drive left (the drive may close
+    # no loop): the held keyframes re-fused at the graphs' node poses.
+    held = sum(len(r) for r in vm._keyframes)
+    refuses = vm.n_refuses
+    t1 = time.perf_counter()
+    vm._refuse_from_keyframes()
+    torch.cuda.synchronize()
+    refuse = {"keyframes": held, "ms": (time.perf_counter() - t1) * 1e3,
+              "voxels": _voxel_counts(cfg.voxel, vm.voxel_grid())}
+    steady = {k: v[1:] for k, v in node_ms.items()}
+    out = {"phase": "stack_depth", "config": "SlamConfig(), depth_cam",
+           "world": STACK_WORLD, "robots": STACK_ROBOTS,
+           "steps": STACK_STEPS, "launch_s": launch_s, "wall_s": wall,
+           "steps_per_s": STACK_STEPS / wall,
+           "tick_ms": {k: dict(_p50_p90(v), n=len(v), max=max(v))
+                       for k, v in steady.items() if v},
+           "ms_per_step_by_node": {k: sum(v) / STACK_STEPS
+                                   for k, v in node_ms.items()},
+           "host_syncs_by_node_steps_10_to_12": syncs,
+           "launches": launches, "routes": routes,
+           "k1_launches_by_batch": bc.n,
+           "k6_batches": sorted(k6.inputs),
+           "images_fused": vm.n_images_fused,
+           "images_dropped_unpaired": vm.n_images_dropped_unpaired,
+           "images_fused_after_restart": vm.n_images_fused - fused_before,
+           "keyframes_stored": vm.n_keyframes_stored,
+           "keyframes_held": sum(len(r) for r in vm._keyframes),
+           "refuses": vm.n_refuses, "voxel_revision": vm.map_revision,
+           "loops_closed_before_restart": st.mapper.n_loops_closed,
+           "overlay": {"rebuilds": pl.n_overlay_rebuilds,
+                       "reuses": pl.n_overlay_reuses},
+           "frontier_publish": st.mapper.frontier_stats(),
+           "publishes": len(assigned),
+           "robot_assignments": int((assigned >= 0).sum()),
+           "planner": {"plans": pl.n_plans,
+                       "frontier_plans": pl.n_frontier_plans,
+                       "goal_fields": pl.n_goal_fields},
+           "voxels": counts, "restart": rt, "peak_bytes": peak,
+           "refuse_of_held_ring": refuse}
+    emit(out)
+    for name in FLEET_KERNELS + ("voxel_image",):
+        check(launches[name] > 0,
+              f"kernel {name} never launched on the depth-camera stack")
+    check(vm.n_images_fused + vm.n_images_dropped_unpaired
+          == STACK_ROBOTS * STACK_STEPS,
+          f"stack_depth: {vm.n_images_fused} images fused and "
+          f"{vm.n_images_dropped_unpaired} dropped of "
+          f"{STACK_ROBOTS * STACK_STEPS}")
+    check(out["robot_assignments"] > 0,
+          "stack_depth: the auction assigned no frontier")
+    check(counts["occupied"] > 0, "stack_depth: no voxel occupied")
+    check(bool(torch.isfinite(vm.voxel_grid()).all()),
+          "stack_depth: the voxel grid is not finite")
+    check(all(rt[k] for k in ("voxel_sidecar_bit_equal",
+                              "keyframe_sidecar_bit_equal",
+                              "voxel_map_kept", "voxel_follows_new_mapper",
+                              "overlay_rewired")),
+          f"stack_depth: the restart or the sidecars failed: {rt}")
+    check(out["images_fused_after_restart"] > 0,
+          "stack_depth: no image fused after the restart")
+    check(pl.n_overlay_rebuilds > 0, "stack_depth: no overlay was built")
+    check(held > 0 and vm.n_refuses == refuses + 1
+          and refuse["voxels"]["occupied"] + refuse["voxels"]["free"] > 0,
+          f"stack_depth: the keyframe re-fuse did not run: {refuse}")
+    k6_in = k6.inputs.get(STACK_ROBOTS)
+    st.shutdown()
+    return ({"per": f"{STACK_STEPS} depth-camera stack steps",
+             "k1_launches_by_batch": bc.n},
+            out, rec, k6_in)
 
 
 def _k1_key(row: dict) -> str:
@@ -4104,13 +4487,15 @@ def stack_kernel_rows(torch, cfg, world, gen, fleet: dict, mapper: dict,
     res = cfg.grid.resolution_m
     n_samples = int(cfg.scan.range_max_m / (res * 0.5))
     out = {}
-    stack = new_paths["stack"]["k1_launches_by_batch"]
+    stacks = [new_paths[k]["k1_launches_by_batch"]
+              for k in ("stack", "stack_depth") if k in new_paths]
     for name, raster in (("sensor_model_delta", False),
                          ("sensor_model_raster", True)):
         covered = {_k1_key(r) for k, r in rows.items()
                    if k.startswith(name) and "shape" in r
                    and "cells_within_range" in r}
-        for key in sorted(set(stack[name]) - covered):
+        for key in sorted(set().union(*(b[name] for b in stacks))
+                          - covered):
             B, _, tag = key.partition("@")
             c = cfg
             if tag:
@@ -4146,7 +4531,9 @@ def _new_sweep_rows(torch, cfg, rec, rows: dict, tag: str) -> dict:
         seen.add((name, sig))
         key = ("costfield_relax" if name == "relax_sweeps"
                else "label_prop") + f"_{tag}_n{init.shape[-1]}_s{s}" + (
-                   f"_r{init.shape[0]}" if init.dim() == 3 else "")
+                   f"_r{init.shape[0]}" if init.dim() == 3 else "") + (
+                   f"_m{m.shape[0]}" if name == "relax_sweeps"
+                   and m.dim() == 3 else "")
         out[key] = _sweep_row(torch, name, m, init, s)
     return out
 
@@ -4746,9 +5133,10 @@ def phase_world_parity(torch, seed: int):
 
 
 def phase_ab(parent: str, seed: int) -> dict:
-    """K1-K7 of the tree `parent` and of this one, timed in turns (parent,
-    change, change, parent) on this card, each run in a process of its own
-    that imports that tree's package."""
+    """K1-K7, exact_bfs' frontier costs and 30 steps of the mission stack
+    of the tree `parent` and of this one, timed in turns (parent, change,
+    change, parent) on this card, each run in a process of its own that
+    imports that tree's package."""
     runs = []
     for label, tree in (("parent", parent), ("change", HERE),
                         ("change", HERE), ("parent", parent)):
@@ -4859,16 +5247,19 @@ def main(argv=None) -> int:
         phase_publish(torch, cfg, publisher, mapped)
         _plan, planned = phase_planner(torch, cfg, publisher.grid,
                                        publisher.poses, publisher.last)
-        phase_fleet_modes(torch, cfg, publisher.grid, args.seed)
+        _modes, exact_rec = phase_fleet_modes(torch, cfg, publisher.grid,
+                                              args.seed)
         new_paths = {
             "recovery": phase_recovery(torch, cfg, args.seed)[0],
             "rendezvous": phase_rendezvous(torch, cfg, args.seed)[0],
             "fuse_paths": phase_fuse_paths(torch, cfg, publisher.grid,
                                            args.seed)[0]}
-        new_paths["tenancy"], tenancy, tenancy_out = phase_tenancy(
-            torch, cfg, args.seed)
+        new_paths["tenancy"], tenancy, tenancy_out, option_recs = \
+            phase_tenancy(torch, cfg, args.seed)
         new_paths["stack"], stack_out, stack_rec = phase_stack(
             torch, args.seed)
+        new_paths["stack_depth"], depth_out, depth_rec, depth_k6 = \
+            phase_stack_depth(torch, args.seed)
         new_paths["world"], world_out, world_rec, world_k1 = phase_world(
             torch, args.seed)
         world_par, world_k1_global = phase_world_parity(torch, args.seed)
@@ -4884,11 +5275,20 @@ def main(argv=None) -> int:
                              (publisher.grid, publisher, planned), new_paths,
                              tenancy, stack_rec,
                              (world_rec, list(world_k1.items())
-                              + list(world_k1_global.items())))
+                              + list(world_k1_global.items())),
+                             {"recs": {"exact_bfs": exact_rec,
+                                       "tenant_exact_bfs":
+                                           option_recs["exact_bfs"],
+                                       "stack_depth": depth_rec},
+                              "k6": depth_k6,
+                              "k6_launches_per_step":
+                                  depth_out["launches"]["voxel_image"]
+                                  / STACK_STEPS})
         voxel_launches = vstate["out"]["launches"]
         voxel_summed_launches = bench["launches"]["voxel_summed"]
         del mapped, world, st, vstate, bench, publisher, planned, tenancy
         del stack_rec, world_rec, world_k1, world_k1_global
+        del exact_rec, option_recs, depth_rec, depth_k6
         phase_parity(torch, args.seed)
         phase_slam_parity(torch, args.seed)
         phase_voxel_parity(torch, args.seed)
@@ -4931,6 +5331,7 @@ def main(argv=None) -> int:
         kernels[-1]["launches_stack_burst"] = \
             stack_out["burst"]["launches"][name]
         kernels[-1]["launches_world"] = world_out["launches"][name]
+        kernels[-1]["launches_stack_depth"] = depth_out["launches"][name]
     emit({"seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -17,9 +17,16 @@ keeps the bounded-memory world (`world/store.py`), whose evicted tiles
 spill under `checkpoint_dir/world_spill` and whose window manifest rides
 beside each checkpoint.
 
+`depth_cam=True` adds the depth-camera stack: the sim node renders a
+depth image per robot a step, a `VoxelMapperNode` fuses them into the
+shared voxel grid at the mapper's corrected poses, and the planner plans,
+and the mapper's frontier auction runs, on the 2D map overlaid with the
+voxel map's obstacle slice. Its grid and keyframe ring ride beside each
+auto-checkpoint as the voxel and keyframe sidecars.
+
 Not ported yet, and refused with NotImplementedError naming the ROADMAP
 item rather than silently dropped: the HTTP API (`http_port`), the
-depth-camera stack (`depth_cam`), the observability tier
+observability tier
 (`cfg.obs.enabled`, `cfg.obs.devprof.enabled`), the warm-restart tier
 (`cfg.cold_start.enabled`) and the tenancy control plane
 (`cfg.tenancy.enabled`). So is the staged warm-up ladder of a mapper
@@ -49,6 +56,7 @@ from jax_mapping_torch.bridge.node import Executor
 from jax_mapping_torch.bridge.planner import PlannerNode
 from jax_mapping_torch.bridge.sim_node import SimNode
 from jax_mapping_torch.bridge.tf import TfTree
+from jax_mapping_torch.bridge.voxel_mapper import VoxelMapperNode
 from jax_mapping_torch.config import SlamConfig
 from jax_mapping_torch.obs.recorder import flight_recorder
 from jax_mapping_torch.recovery import RecoveryManager
@@ -77,6 +85,7 @@ class Stack:
     health: Optional[FleetHealth] = None     # shared degraded-mode registry
     supervisor: Optional[Supervisor] = None  # heartbeat watch + restarts
     recovery: Optional[RecoveryManager] = None   # estimator guardrails
+    voxel_mapper: Optional[VoxelMapperNode] = None   # when depth_cam
     #: Auto-checkpoint file the supervisor saves to and the mapper
     #: resumes from ("" = no checkpoint_dir, no auto-checkpointing).
     auto_checkpoint_path: str = ""
@@ -99,6 +108,8 @@ class Stack:
                 self.brain.update_loop()
             if "jax_mapper" not in self._killed:
                 self.mapper.tick()
+            if self.voxel_mapper is not None:
+                self.voxel_mapper.tick()
             self._steps_run += 1
             if self.planner is not None \
                     and self._steps_run % steps_per_plan == 0:
@@ -122,10 +133,13 @@ class Stack:
         `auto_checkpoint_path` (the previous generation rotates to
         `.prev`). A windowed mapper's `.world` manifest rotates in
         LOCKSTEP: a fallback to the `.prev` states must re-anchor from
-        the manifest saved with them."""
+        the manifest saved with them. With the depth-camera stack, the
+        voxel grid and the keyframe ring are written beside it as the
+        voxel and keyframe sidecars."""
         from jax_mapping_torch.io.checkpoint import (
             clear_world_sidecar, previous_checkpoint_path, save_checkpoint,
-            save_world_sidecar, world_sidecar_path)
+            save_keyframe_sidecar, save_voxel_sidecar, save_world_sidecar,
+            world_sidecar_path)
         os.makedirs(os.path.dirname(self.auto_checkpoint_path),
                     exist_ok=True)
         world = self.mapper.world
@@ -145,6 +159,13 @@ class Stack:
                                config_json=self.cfg.to_json())
         else:
             clear_world_sidecar(self.auto_checkpoint_path)
+        if self.voxel_mapper is not None:
+            save_voxel_sidecar(self.auto_checkpoint_path,
+                               self.voxel_mapper.snapshot_grid(),
+                               config_json=self.cfg.to_json())
+            save_keyframe_sidecar(self.auto_checkpoint_path,
+                                  self.voxel_mapper.snapshot_keyframes(),
+                                  config_json=self.cfg.to_json())
 
     def restart_mapper(self) -> None:
         """The supervisor's mapper restarter: rebuild the MapperNode,
@@ -204,6 +225,13 @@ class Stack:
                                for nd in self.executor.nodes]
         if self.planner is not None:
             self.planner.mapper = new
+            if self.planner.voxel_mapper is not None:
+                new.frontier_grid_provider = self.planner._planning_grid
+                new.frontier_grid_key_provider = self.planner.overlay_key
+        if self.voxel_mapper is not None:
+            # The voxel node survives the restart, its map with it; it
+            # follows the new node's corrections and graph from here.
+            self.voxel_mapper.mapper = new
         self._killed.discard("jax_mapper")
 
     def shutdown(self) -> None:
@@ -219,26 +247,24 @@ def _anchor(mapper: MapperNode, poses: np.ndarray) -> None:
         mapper.states[i] = st._replace(pose=dev_poses[i])
 
 
-def _refuse_unported(cfg: SlamConfig, http_port, depth_cam) -> None:
+def _refuse_unported(cfg: SlamConfig, http_port) -> None:
     refused = [
         (http_port is not None, "http_port: the HTTP API "
-         "(bridge/http_api.py) is not ported yet (ROADMAP A.9)"),
-        (depth_cam, "depth_cam=True: the voxel mapper node "
-         "(bridge/voxel_mapper.py) is not ported yet (ROADMAP A.9)"),
+         "(bridge/http_api.py) is not ported yet (ROADMAP A.9d)"),
         (cfg.world.windowed and cfg.planner.enabled, "cfg.world.windowed "
          "with cfg.planner.enabled: the JAX package's planner plans with "
          "the logical grid config on the mapper's window-sized grid, in "
          "the wrong frame (ROADMAP re-anchor note); disable the planner "
          "for a windowed stack"),
         (cfg.obs.enabled, "cfg.obs.enabled: causal tracing and the "
-         "pipeline ledger (obs/) are not ported yet (ROADMAP A.9)"),
+         "pipeline ledger (obs/) are not ported yet (ROADMAP A.9f)"),
         (cfg.obs.devprof.enabled, "cfg.obs.devprof.enabled: the dispatch "
-         "profiler (obs/devprof.py) is not ported yet (ROADMAP A.9)"),
+         "profiler (obs/devprof.py) is not ported yet (ROADMAP A.9f)"),
         (cfg.cold_start.enabled, "cfg.cold_start.enabled: the warm-restart "
          "tier (io/compile_cache.py, resilience/warmup.py) is not ported "
-         "yet (ROADMAP A.9)"),
+         "yet (ROADMAP A.9g)"),
         (cfg.tenancy.enabled, "cfg.tenancy.enabled: the tenancy control "
-         "plane (tenancy/controlplane.py) is not ported yet (ROADMAP A.9)"),
+         "plane (tenancy/controlplane.py) is not ported yet (ROADMAP A.9h)"),
     ]
     for on, what in refused:
         if on:
@@ -259,7 +285,7 @@ def launch_sim_stack(cfg: SlamConfig, world: np.ndarray,
     realtime=True spins the executor thread. `seed` seeds the bus's loss
     weather, the fleet's spawn radii and wheel noise, and the
     supervisor's jitter."""
-    _refuse_unported(cfg, http_port, depth_cam)
+    _refuse_unported(cfg, http_port)
     dev = resolve_device(device)
     res = world_res_m if world_res_m is not None else cfg.grid.resolution_m
     # The always-on flight recorder follows the newest stack; its dumps
@@ -279,7 +305,7 @@ def launch_sim_stack(cfg: SlamConfig, world: np.ndarray,
     driver = SimulatedThymioDriver(n_robots=n_robots)
     sim = SimNode(cfg, bus, driver, world, res, tf=tf,
                   rate_hz=cfg.robot.control_rate_hz, seed=seed,
-                  realtime=realtime, device=dev)
+                  realtime=realtime, device=dev, depth_cam=depth_cam)
     health = (FleetHealth(cfg.resilience, n_robots)
               if cfg.resilience.enabled else None)
     recovery = None
@@ -301,10 +327,22 @@ def launch_sim_stack(cfg: SlamConfig, world: np.ndarray,
                         spill_dir=world_spill_dir or None)
     _anchor(mapper, brain.poses)
 
+    voxel_mapper = None
+    if depth_cam:
+        voxel_mapper = VoxelMapperNode(cfg, bus, tf=tf, n_robots=n_robots,
+                                       mapper=mapper)
+
     planner = None
     if cfg.planner.enabled:
         planner = PlannerNode(cfg, bus, mapper=mapper, brain=brain,
-                              health=health)
+                              voxel_mapper=voxel_mapper, health=health)
+        if planner.voxel_mapper is not None:
+            # One map for assignment and planning: the auction must not
+            # assign frontiers whose corridors only the 3D overlay knows
+            # are blocked; the overlay's key lets the incremental publish
+            # keep its tiles while only the 2D map moves.
+            mapper.frontier_grid_provider = planner._planning_grid
+            mapper.frontier_grid_key_provider = planner.overlay_key
 
     supervisor = None
     if cfg.resilience.enabled:
@@ -314,13 +352,15 @@ def launch_sim_stack(cfg: SlamConfig, world: np.ndarray,
                                 / cfg.robot.control_rate_hz)
 
     nodes = [sim, brain, mapper] + \
+        ([voxel_mapper] if voxel_mapper is not None else []) + \
         ([planner] if planner is not None else []) + \
         ([supervisor] if supervisor is not None else [])
     executor = Executor(nodes)
     stack = Stack(cfg=cfg, bus=bus, tf=tf, driver=driver, sim=sim,
                   brain=brain, mapper=mapper, executor=executor, device=dev,
                   planner=planner, health=health, supervisor=supervisor,
-                  recovery=recovery, world_spill_dir=world_spill_dir)
+                  recovery=recovery, world_spill_dir=world_spill_dir,
+                  voxel_mapper=voxel_mapper)
     if supervisor is not None:
         # The brain has no restarter: its driver link and poses cannot be
         # rebuilt; its death is declared and exported.

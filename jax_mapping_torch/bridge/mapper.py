@@ -44,9 +44,13 @@ more read of the poses). Every publish boundary adds `world.offset_xy()`
 back (world = window + offset); the dirty-tile and revision lattices
 cover the logical extent.
 
+With `frontier_grid_provider` wired (launch does it beside a voxel
+mapper), the frontier auction runs on the planner's voxel-overlaid
+planning grid (`_frontier_basis`), keyed for the incremental pipeline by
+`frontier_grid_key_provider`.
+
 Not ported: causal tracing and the pipeline / SLO ledgers
-(`cfg.obs.enabled`, refused at launch), and the voxel overlay of the
-frontier basis (the depth-camera stack).
+(`cfg.obs.enabled`, refused at launch).
 """
 
 from __future__ import annotations
@@ -197,6 +201,17 @@ class MapperNode(Node):
             nt = size // cfg.serving.tile_cells
             self._dirty_tiles = np.zeros((nt, nt), bool)
             self._tile_rev = np.zeros((nt, nt), np.int64)
+        #: Optional callable giving the log-odds grid the frontier
+        #: auction runs on (launch wires the planner's voxel-overlaid
+        #: planning grid); None = the shared 2D map. Called as
+        #: provider(lo, revision) with this node's own snapshot, so the
+        #: publish's poses and grid stay paired.
+        self.frontier_grid_provider = None
+        #: Its companion: the provider output's ingredient that the tile
+        #: revisions do not track (the voxel overlay's revision). The
+        #: incremental pipeline drops its cached tiles when it moves; a
+        #: provider without one forces a full recompute every publish.
+        self.frontier_grid_key_provider = None
         self._match_candidates = [0] * n_robots
         self._match_prune_ratio = [0.0] * n_robots
         #: Revision listeners, called from the tick thread outside every
@@ -1266,6 +1281,38 @@ class MapperNode(Node):
             M.counters.inc("mapper.frontiers_blacklist_redirects")
         return assignment
 
+    def _frontier_basis(self, lo, rev: int):
+        """(grid the frontier auction runs on, its key beyond the tile
+        revisions). With a provider wired: the planning grid (the
+        planner's voxel overlay), so the auction and the waypoint descent
+        see one map, and a frontier whose only corridor the depth camera
+        alone sees blocked is not assigned forever while every plan to it
+        fails. Without one: the shared 2D map."""
+        if self.frontier_grid_provider is None:
+            return lo, None
+        try:
+            # Key BEFORE basis: an overlay advancing in between leaves new
+            # content under an older key, which the next read heals.
+            key = None
+            if self.frontier_grid_key_provider is not None:
+                key = ("overlay", self.frontier_grid_key_provider())
+            # rev keys content only while revisions are tracked (the
+            # revision is frozen at 0 with serving off): None asks the
+            # provider to key on identity.
+            lo_rev = rev if self._serving_enabled else None
+            basis = self.frontier_grid_provider(lo, lo_rev)
+            if key is not None:
+                return basis, key
+            # An unkeyed basis: a fresh sentinel makes the pipeline treat
+            # every tile as dirty, never serving a stale overlay.
+            return basis, ("unkeyed", object())
+        except Exception:                # noqa: BLE001
+            # Provider trouble must not stop the frontier publish; the
+            # bare 2D map is the fallback.
+            import traceback
+            traceback.print_exc()
+            return lo, None
+
     def _frontier_incremental(self):
         """The incremental pipeline, or None (disabled config, no
         revision tracking, or a latched geometry rejection)."""
@@ -1317,7 +1364,7 @@ class MapperNode(Node):
         poses = stacked.cpu().numpy()
         for i, scan, od in corrections:
             self._publish_correction(i, scan, od, poses[i])
-        extra_key = None
+        lo, extra_key = self._frontier_basis(lo, rev)
         if self.world is not None:
             # The pipeline runs at window scale: its view of the logical
             # revision lattice is the resident window, and the origin in

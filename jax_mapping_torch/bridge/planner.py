@@ -17,8 +17,11 @@ planner over the fleet's own map:
 * Unreachable goals publish an EMPTY plan with reachable=False.
 
 Each plan's path, flags and waypoint come back to the host in one copy.
-Plans search the 2D map: the voxel obstacle overlay belongs to the
-depth-camera stack, which is not ported yet.
+With a voxel mapper attached (`PlannerConfig.use_voxel_obstacles`),
+plans search the 2D map overlaid with the 3D map's obstacle slice
+(`_planning_grid`): obstacles the depth camera sees and the LiDAR plane
+misses block paths. The mapper's frontier auction reads the same basis
+(launch wires `frontier_grid_provider`).
 """
 
 from __future__ import annotations
@@ -55,7 +58,7 @@ class PlannerNode(Node):
     SetGoal drives — brain._goal_cb's convention)."""
 
     def __init__(self, cfg: SlamConfig, bus: Bus, mapper, brain=None,
-                 robot_idx: int = 0, health=None):
+                 robot_idx: int = 0, voxel_mapper=None, health=None):
         super().__init__("planner", bus)
         self.cfg = cfg
         self.mapper = mapper
@@ -64,6 +67,24 @@ class PlannerNode(Node):
         #: Shared degraded-mode registry: no plans for DEAD robots.
         self._health = health
         self.n_plans_skipped_dead = 0
+        # 3D-aware planning needs equal cell sizes: checked here, once and
+        # loudly, since a per-tick error inside a guarded callback would
+        # silently stop every plan. A mismatch plans on the 2D map only.
+        self.voxel_mapper = voxel_mapper
+        if (voxel_mapper is not None and cfg.planner.use_voxel_obstacles
+                and abs(cfg.voxel.resolution_m - cfg.grid.resolution_m)
+                > 1e-9):
+            print("[planner] voxel resolution "
+                  f"{cfg.voxel.resolution_m} != grid "
+                  f"{cfg.grid.resolution_m}; 3D obstacle overlay "
+                  "DISABLED — plans search the 2D map only", flush=True)
+            self.voxel_mapper = None
+        #: The overlay cache: (key, 2D grid, voxel grid, overlaid grid).
+        self._lo_cache = None
+        #: Overlay work: cache hits (keyed or by identity), and the
+        #: obstacle-slice overlays actually computed.
+        self.n_overlay_rebuilds = 0
+        self.n_overlay_reuses = 0
         self.plan_pub = self.create_publisher("/plan")
         self.wp_pub = self.create_publisher("/goal_waypoint")
         # Standalone (no brain): track the goal from the topic. With a
@@ -134,6 +155,56 @@ class PlannerNode(Node):
             return self.brain.robot_pose(i)[:2]
         return None
 
+    def overlay_key(self):
+        """The voxel overlay's content key (its serving revision), or None
+        when no overlay applies: the half of the planning basis the
+        mapper's incremental frontier pipeline cannot see per tile."""
+        if self.voxel_mapper is None \
+                or not self.cfg.planner.use_voxel_obstacles:
+            return None
+        return self.voxel_mapper.serving_revision()
+
+    def _planning_grid(self, lo=None, lo_rev=None):
+        """The log-odds grid plans search: the shared 2D map, overlaid
+        with the 3D obstacle slice when a voxel mapper is attached.
+
+        Cached on (map revision, voxel revision) while the mapper tracks
+        revisions, else on the identity of both grids: the manual plan,
+        every frontier field of a tick and the mapper's frontier publish
+        share one overlay. `lo` / `lo_rev` let the mapper pass its own
+        snapshot, so the publish's poses and grid stay paired. Each
+        revision is read BEFORE its grid: a write landing in between
+        leaves new content under an old key (healed by the next miss),
+        never old content under a new key. The cache tuple is read once
+        and replaced whole, so two threads cost at most one extra
+        overlay."""
+        if lo is None:
+            lo_rev = (self.mapper.serving_revision()
+                      if getattr(self.mapper, "_serving_enabled", False)
+                      else None)
+            lo = self.mapper.merged_grid()
+        overlay = (self.voxel_mapper is not None
+                   and self.cfg.planner.use_voxel_obstacles)
+        v_rev = self.voxel_mapper.serving_revision() if overlay else None
+        vg = self.voxel_mapper.voxel_grid() if overlay else None
+        key = (lo_rev, v_rev) if lo_rev is not None else None
+        cache = self._lo_cache
+        # Identity keys only an unkeyed call: a step that fuses nothing
+        # may hand back its input grid while the revision moves, where
+        # the JAX package's arrays are always new.
+        if cache is not None and \
+                (cache[0] == key if key is not None
+                 else (cache[1] is lo and cache[2] is vg)):
+            self.n_overlay_reuses += 1
+            return cache[3]
+        out = lo
+        if overlay:
+            out = P.overlay_voxel_obstacles(
+                self.cfg.planner, self.cfg.grid, self.cfg.voxel, lo, vg)
+            self.n_overlay_rebuilds += 1
+        self._lo_cache = (key, lo, vg, out)
+        return out
+
     def _xy(self, xy) -> torch.Tensor:
         return torch.as_tensor(np.asarray(xy, np.float32),
                                device=self.device)
@@ -141,7 +212,7 @@ class PlannerNode(Node):
     def _plan(self, goal, pose_xy):
         """One plan; returns (path, reachable, waypoint, arrived)."""
         r = P.plan_to_goal(self.cfg.planner, self.cfg.frontier,
-                           self.cfg.grid, self.mapper.merged_grid(),
+                           self.cfg.grid, self._planning_grid(),
                            self._xy(goal), self._xy(pose_xy))
         return _read_plan(r)
 
@@ -231,7 +302,7 @@ class PlannerNode(Node):
             target = targets[a]
             if a not in fields:
                 if plan_lo is None:
-                    plan_lo = self.mapper.merged_grid()
+                    plan_lo = self._planning_grid()
                 fields[a] = P.goal_field(
                     self.cfg.planner, self.cfg.frontier, self.cfg.grid,
                     plan_lo, self._xy(target))

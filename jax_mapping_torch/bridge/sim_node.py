@@ -11,13 +11,15 @@ floor provided for free. Each tick it:
   3. feeds measured wheel speeds + IR prox back into the driver (uint16
      wire encoding included),
   4. raycasts LD06 scans from ground-truth poses (`sim.lidar`) and
-     publishes them Best-Effort (report.pdf §V.A).
+     publishes them Best-Effort (report.pdf §V.A),
+  5. with `depth_cam`, renders every robot's depth image
+     (`sim.depthcam`) and publishes it on `{ns}depth`.
 
 The JAX package draws the wheel noise from a PRNG key carried in the
 fleet state; here a `torch.Generator` seeded from `seed` draws the (R, 2)
 standard normals on the host each step and `step_fleet` takes them as
-`wheel_normals`. The measured wheels, the IR readings and the scans
-leave the device together, in one copy a step.
+`wheel_normals`. The measured wheels, the IR readings, the scans and
+the depth images leave the device together, in one copy a step.
 """
 
 from __future__ import annotations
@@ -32,12 +34,13 @@ from jax_mapping_torch._util import resolve_device
 from jax_mapping_torch.bridge.brain import robot_ns
 from jax_mapping_torch.bridge.bus import Bus
 from jax_mapping_torch.bridge.driver import SimulatedThymioDriver
-from jax_mapping_torch.bridge.messages import Header, LaserScan
+from jax_mapping_torch.bridge.messages import (DepthImage, Header,
+                                               LaserScan)
 from jax_mapping_torch.bridge.node import Node
 from jax_mapping_torch.bridge.qos import qos_sensor_data
 from jax_mapping_torch.bridge.tf import TfTree
 from jax_mapping_torch.config import SlamConfig
-from jax_mapping_torch.sim import lidar, thymio
+from jax_mapping_torch.sim import depthcam, lidar, thymio
 
 
 class SimNode(Node):
@@ -47,7 +50,8 @@ class SimNode(Node):
                  driver: SimulatedThymioDriver, world: np.ndarray,
                  world_res_m: float, tf: Optional[TfTree] = None,
                  rate_hz: float = 10.0, seed: int = 0,
-                 realtime: bool = True, device=None):
+                 realtime: bool = True, device=None,
+                 depth_cam: bool = False, wall_height_m: float = 0.5):
         super().__init__("sim_node", bus, tf)
         self.cfg = cfg
         self.driver = driver
@@ -65,6 +69,17 @@ class SimNode(Node):
         self.scan_pubs = [
             self.create_publisher(f"{robot_ns(i, R)}scan", qos_sensor_data)
             for i in range(R)]
+        # The optional simulated depth camera: a depth image per robot a
+        # tick for the 3D voxel pipeline, on walls `wall_height_m` tall.
+        self.depth_cam = depth_cam
+        self.wall_height_m = wall_height_m
+        if depth_cam:
+            self.depth_n_samples = depthcam.n_samples_for(cfg.depthcam,
+                                                          world_res_m)
+            self.depth_pubs = [
+                self.create_publisher(f"{robot_ns(i, R)}depth",
+                                      qos_sensor_data)
+                for i in range(R)]
         # Adversarial sensor-fault state (wheel_slip / lidar_miscal /
         # ghost_returns / scan_jam). The identity values keep the healthy
         # hot path byte-identical (_faults_active gates every application).
@@ -137,9 +152,16 @@ class SimNode(Node):
                 device=self.device)
         scans = lidar.simulate_scans(cfg.scan, self.world, self.world_res_m,
                                      self.n_samples, scan_poses)
+        parts = [measured, prox, scans]
+        if self.depth_cam:
+            parts.append(depthcam.render_depths(
+                cfg.depthcam, self.world, self.world_res_m,
+                self.depth_n_samples, self.sim_state.poses,
+                self.wall_height_m).reshape(R, -1))
         # Everything the host needs from this step, in one copy.
-        host = torch.cat([measured, prox, scans], dim=1).cpu().numpy()
-        measured_np, scans_np = host[:, :2], host[:, 7:]
+        host = torch.cat(parts, dim=1).cpu().numpy()
+        n_scan = scans.shape[1]
+        measured_np, scans_np = host[:, :2], host[:, 7:7 + n_scan]
         prox7 = np.zeros((R, 7), np.int32)
         prox7[:, :5] = np.clip(host[:, 2:7], 0, 4500).astype(np.int32)
         if faults:
@@ -180,4 +202,13 @@ class SimNode(Node):
                 range_min=cfg.scan.range_min_m,
                 range_max=cfg.scan.range_max_m,
                 ranges=scans_np[i, :cfg.scan.n_beams].copy()))
+        if self.depth_cam:
+            cam = cfg.depthcam
+            depths_np = host[:, 7 + n_scan:].reshape(R, cam.height_px,
+                                                     cam.width_px)
+            for i, pub in enumerate(self.depth_pubs):
+                pub.publish(DepthImage(
+                    header=Header(stamp=stamp,
+                                  frame_id=f"{robot_ns(i, R)}base_camera"),
+                    depth=depths_np[i].copy()))
         self.n_steps += 1

@@ -13,10 +13,15 @@ the kernels' plain PyTorch versions. Without a card and without
 `--device cpu` the launch raises: the demo never falls back to the CPU
 on its own.
 
+`--depth-cam` adds the depth-camera stack (a depth image per robot a
+step fused into the shared voxel grid, kernel K6 on the card) and the
+voxel counts to the summary; `--voxel-out PNG` writes its height map.
+
 `--save-final CKPT` writes the final SLAM state as a checkpoint (with the
-windowed world's `.world` manifest when `world.windowed`), and
-`--resume CKPT` starts from one, re-anchored at the relaunched fleet's
-spawn poses:
+windowed world's `.world` manifest when `world.windowed`, and the voxel
+grid and keyframe ring with `--depth-cam`), and `--resume CKPT` starts
+from one, re-anchored at the relaunched fleet's spawn poses (the voxel
+grid too, when both runs have `--depth-cam`):
 
     python -m jax_mapping_torch.demo --config windowed.json --save-final f.npz
     python -m jax_mapping_torch.demo --config windowed.json --resume f.npz
@@ -37,10 +42,6 @@ REFUSED = {
     "map_prior": ("io/rosmap.py (map import)", "A.9c"),
     "serve": ("bridge/http_api.py (the HTTP API)", "A.9d"),
     "http_port": ("bridge/http_api.py (the HTTP API)", "A.9d"),
-    "depth_cam": ("bridge/voxel_mapper.py (the depth-camera stack)",
-                  "A.9a"),
-    "voxel_out": ("bridge/voxel_mapper.py (the depth-camera stack)",
-                  "A.9a"),
 }
 
 
@@ -76,13 +77,19 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--save-final", type=str, default=None, metavar="CKPT",
                    help="write the final SLAM state as a resumable "
                         "checkpoint")
+    p.add_argument("--depth-cam", action="store_true",
+                   help="also run the 3D pipeline: a simulated depth camera "
+                        "per robot fused into a shared voxel grid; adds "
+                        "voxel counts to the summary")
+    p.add_argument("--voxel-out", type=str, default=None, metavar="PNG",
+                   help="write the final 3D height map as a grayscale PNG "
+                        "(requires --depth-cam)")
     # Not ported yet: accepted so that the refusal names what is missing.
     p.add_argument("--http-port", type=int, default=None,
                    help=argparse.SUPPRESS)
-    for flag in ("--record", "--replay", "--map-prior", "--voxel-out"):
+    for flag in ("--record", "--replay", "--map-prior"):
         p.add_argument(flag, type=str, default=None, help=argparse.SUPPRESS)
-    for flag in ("--serve", "--depth-cam"):
-        p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--serve", action="store_true", help=argparse.SUPPRESS)
     return p
 
 
@@ -106,7 +113,8 @@ def _resume(stack, cfg, path: str) -> int:
     message on a missing, unreadable or mismatched checkpoint."""
     from jax_mapping_torch.config import configs_equivalent
     from jax_mapping_torch.io.checkpoint import (
-        load_checkpoint, load_prior_sidecar, load_world_sidecar)
+        load_checkpoint, load_prior_sidecar, load_voxel_sidecar,
+        load_world_sidecar)
     from jax_mapping_torch.ops import grid as G
     mapper = stack.mapper
     try:
@@ -140,16 +148,31 @@ def _resume(stack, cfg, path: str) -> int:
     mapper.resume(states, payload, stack.brain.poses, map_prior=prior)
     print(f"resumed {len(states)} robot state(s) from {path}",
           file=sys.stderr)
+    voxel = stack.voxel_mapper
+    if voxel is not None:
+        # The grid only: the keyframe ring anchors to the checkpointed
+        # graphs, and the resumed chains start fresh at the spawn poses.
+        try:
+            vgrid = load_voxel_sidecar(path, voxel.snapshot_grid(),
+                                       running_config_json=cfg.to_json())
+        except ValueError as e:
+            print(f"error: cannot resume 3D map: {e}", file=sys.stderr)
+            return 2
+        if vgrid is not None:
+            voxel.restore_grid(vgrid)
+            print("resumed 3D voxel map from the checkpoint sidecar",
+                  file=sys.stderr)
     return 0
 
 
 def _save_final(stack, cfg, path: str) -> None:
-    """Write the mapper's states as a checkpoint, with the prior and
-    world sidecars it needs (stale ones from an earlier save under this
-    name removed)."""
+    """Write the mapper's states as a checkpoint, with the prior, world,
+    voxel and keyframe sidecars it needs (stale prior and world ones from
+    an earlier save under this name removed)."""
     from jax_mapping_torch.io.checkpoint import (
         clear_prior_sidecar, clear_world_sidecar, save_checkpoint,
-        save_prior_sidecar, save_world_sidecar)
+        save_keyframe_sidecar, save_prior_sidecar, save_voxel_sidecar,
+        save_world_sidecar)
     mapper = stack.mapper
     save_checkpoint(path, mapper.snapshot_states(),
                     config_json=cfg.to_json())
@@ -164,6 +187,18 @@ def _save_final(stack, cfg, path: str) -> None:
                            config_json=cfg.to_json())
     else:
         clear_world_sidecar(path)
+    voxel = stack.voxel_mapper
+    if voxel is not None:
+        try:
+            vp = save_voxel_sidecar(path, voxel.snapshot_grid(),
+                                    config_json=cfg.to_json())
+            # The keyframe ring too: a resume re-anchors and ignores it,
+            # but a graph-preserving restore repairs closures from it.
+            save_keyframe_sidecar(path, voxel.snapshot_keyframes(),
+                                  config_json=cfg.to_json())
+            print(f"3D voxel checkpoint written to {vp}", file=sys.stderr)
+        except ValueError as e:
+            print(f"error: 3D checkpoint not written: {e}", file=sys.stderr)
 
 
 def main(argv=None) -> int:
@@ -189,6 +224,10 @@ def main(argv=None) -> int:
     if args.localization:
         cfg = cfg.replace(mode="localization")
 
+    if args.voxel_out and not args.depth_cam:
+        print("error: --voxel-out requires --depth-cam", file=sys.stderr)
+        return 2
+
     if args.world == "arena":
         world = W.empty_arena(args.world_cells, cfg.grid.resolution_m)
     else:
@@ -197,7 +236,7 @@ def main(argv=None) -> int:
 
     stack = launch_sim_stack(cfg, world, n_robots=args.robots,
                              drop_prob=args.drop_prob, seed=args.seed,
-                             device=args.device)
+                             depth_cam=args.depth_cam, device=args.device)
     try:
         if args.resume:
             rc = _resume(stack, cfg, args.resume)
@@ -227,9 +266,22 @@ def main(argv=None) -> int:
             "cells_occupied": int((occ == 100).sum()),
             "brain": stack.brain.status(),
         }
+        voxel = stack.voxel_mapper
+        if voxel is not None:
+            from jax_mapping_torch.ops import voxel as VX
+            occ3 = VX.to_occupancy(cfg.voxel, voxel.voxel_grid())
+            summary["voxels_occupied"] = int((occ3 == 100).sum())
+            summary["voxels_free"] = int((occ3 == 0).sum())
+            summary["depth_images_fused"] = int(voxel.n_images_fused)
         print(json.dumps(summary, indent=2))
         if args.out:
             _write_png(args.out, occ)
+        if args.voxel_out and voxel is not None:
+            from jax_mapping_torch.bridge.png import encode_gray
+            with open(args.voxel_out, "wb") as f:
+                f.write(encode_gray(voxel.height_map_image()))
+            print(f"voxel height map written to {args.voxel_out}",
+                  file=sys.stderr)
         if args.save_final:
             _save_final(stack, cfg, args.save_final)
         return 0

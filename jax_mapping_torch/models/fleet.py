@@ -306,14 +306,14 @@ def _tick_sense(cfg: SlamConfig, state: FleetState, world_res_m: float,
     a = fr.assignment.long().clamp_min(0)
     goals = torch.gather(fr.targets, -2, a[..., None].expand(*a.shape, 2))
     goal_valid = fr.assignment >= 0
-    if cfg.frontier.planned_goals:         # one mission: the frontiers
-        # refuse the option over a batch. A waypoint along the min-plus
-        # shortest path to the assigned target replaces the straight-line
-        # goal wherever a plan exists.
+    if cfg.frontier.planned_goals:
+        # A waypoint along the min-plus shortest path to the assigned
+        # target replaces the straight-line goal wherever a plan exists;
+        # over the megabatch's T grids, one cost-field call for all.
         wps, wvalid = F.assigned_waypoints(cfg.frontier, cfg.grid,
                                            state.grid, state.est_poses,
                                            fr.targets, fr.assignment)
-        goals = torch.where(wvalid[:, None], wps, goals)
+        goals = torch.where(wvalid[..., None], wps, goals)
     est0 = flat(state.est_poses)
     pol = frontier_policy(cfg.robot, cfg.scan, est0, flat(goals),
                           flat(goal_valid), scans, prox,

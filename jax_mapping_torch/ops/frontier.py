@@ -17,8 +17,11 @@ on `costfield._relax_once` on the CPU.
 The tenant megabatch runs the pipeline over T grids at once: (T, N, N)
 log-odds and (T, R, 3) poses give a `FrontierResult` whose every field
 has a leading T, with one K2 launch and one K3 launch a level for all
-tenants, and the auction run for every tenant in lockstep. Only the
-default options run batched (`_refuse_batched`).
+tenants, and the auction run for every tenant in lockstep. Every option
+runs batched (`exact_bfs`: one K3 launch for all T * R fields, each under
+its own mask; `decay_aware`; `planned_goals` through
+`assigned_waypoints`); only the incremental publish's crop and warm-start
+arguments stay one grid at a time (`_refuse_batched`).
 """
 
 from __future__ import annotations
@@ -372,22 +375,33 @@ def cost_to_go(cfg: FrontierConfig, passable: torch.Tensor,
     the 8-neighbour min-plus relaxation. A valid seed's own cell is
     unblocked, so a seed hugging a wall still radiates.
 
+    Batched: (F, n, n) passable masks with (F, S, 2) seeds and (F, S)
+    flags give F fields, field f from its own seeds under its own mask
+    (its seed cells unblocked in it alone), in one `relax` call.
+
     `relax` runs the sweeps: by default kernel K3 on a CUDA tensor (one
-    field, this call's own blocked mask) and the plain version on the
-    CPU; `costfield._relax_sweeps_plain` runs the plain version on any
+    launch, a mask per field) and the plain version on the CPU;
+    `costfield._relax_sweeps_plain` runs the plain version on any
     device, which is how the card holds the kernel against it."""
-    n = passable.shape[0]
-    rr = seeds_rc[:, 0].clamp(0, n - 1).long()
-    cc = seeds_rc[:, 1].clamp(0, n - 1).long()
-    lin = rr * n + cc
-    dist = torch.full((n * n,), _BIG, device=passable.device)
-    dist = dist.scatter_reduce(0, lin, torch.where(seed_valid, 0.0, _BIG),
+    one = passable.dim() == 2
+    if one:
+        passable, seeds_rc, seed_valid = (passable[None], seeds_rc[None],
+                                          seed_valid[None])
+    nf, n = passable.shape[0], passable.shape[-1]
+    rr = seeds_rc[..., 0].clamp(0, n - 1).long()
+    cc = seeds_rc[..., 1].clamp(0, n - 1).long()
+    f_off = torch.arange(nf, device=passable.device)[:, None] * (n * n)
+    lin = (f_off + rr * n + cc).reshape(-1)
+    valid = seed_valid.expand(rr.shape).reshape(-1)
+    dist = torch.full((nf * n * n,), _BIG, device=passable.device)
+    dist = dist.scatter_reduce(0, lin, torch.where(valid, 0.0, _BIG),
                                reduce="amin", include_self=True)
     blocked = (~passable).reshape(-1).clone()
-    blocked[lin] = torch.where(seed_valid, False, blocked[lin])
-    blocked = blocked.reshape(n, n)
-    init = torch.where(blocked, _BIG, dist.reshape(n, n))
-    return relax(blocked, init[None], 2 * cfg.bfs_iters + 1)[0]
+    blocked[lin] = torch.where(valid, False, blocked[lin])
+    blocked = blocked.reshape(nf, n, n)
+    init = torch.where(blocked, _BIG, dist.reshape(nf, n, n))
+    d = relax(blocked, init, 2 * cfg.bfs_iters + 1)
+    return d[0] if one else d
 
 
 #: 3 x 3 neighbourhood offsets in row-major order: index k of a patch's
@@ -466,13 +480,10 @@ def bfs_passability(cfg: FrontierConfig, grid_cfg: GridConfig,
 # Full pipeline
 # ---------------------------------------------------------------------------
 
-def _refuse_batched(cfg: FrontierConfig, **args) -> None:
-    """The frontier options the tenant megabatch does not run batched
-    yet (ROADMAP A.6): raise a ValueError that names the first one set."""
-    for name in ("exact_bfs", "decay_aware", "planned_goals"):
-        if getattr(cfg, name):
-            raise ValueError(f"FrontierConfig.{name} is not supported over "
-                             "a batch of grids (the tenant megabatch)")
+def _refuse_batched(**args) -> None:
+    """The incremental publish's crop and warm-start arguments, which no
+    entry point passes over a batch of grids: raise a ValueError that
+    names the first one set."""
     for name, value in args.items():
         if value is not None and value is not False:
             raise ValueError(f"compute_frontiers_from_masks: `{name}` is "
@@ -487,8 +498,6 @@ def compute_frontiers(cfg: FrontierConfig, grid_cfg: GridConfig,
     (T, N, N) + (T, R, 3) -> the same with a leading T on every field.
     With `decay_aware` the stale mask comes from the raw log-odds (the
     masks alone cannot tell healed from fresh unknown)."""
-    if logodds.dim() == 3:
-        _refuse_batched(cfg)
     free, _occ, unknown = coarsen(cfg, grid_cfg, logodds)
     stale = stale_mask(cfg, grid_cfg, logodds) if cfg.decay_aware else None
     return compute_frontiers_from_masks(cfg, grid_cfg, free, unknown,
@@ -530,16 +539,21 @@ def compute_frontiers_from_masks(cfg: FrontierConfig, grid_cfg: GridConfig,
     each slot's finite cost is scaled by 1 - stale_bonus x the stale
     share of its target's 3 x 3 clustering-cell neighbourhood.
     With every argument at its default this is the plain full-grid
-    computation. (T, n, n) masks and (T, R, 3) poses run T grids at once
-    (the tenant megabatch) with the default options only."""
+    computation. (T, n, n) masks, (T, R, 3) poses and a (T, n, n) stale
+    mask run T grids at once (the tenant megabatch), with every option;
+    the crop and warm-start arguments take one grid."""
     batched = free.dim() == 3
     if batched:
-        _refuse_batched(cfg, origin_rc=origin_rc, warm_fields=warm_fields,
-                        warm_iters=warm_iters, return_fields=return_fields,
-                        stale=stale)
+        _refuse_batched(origin_rc=origin_rc, warm_fields=warm_fields,
+                        warm_iters=warm_iters, return_fields=return_fields)
+        if stale is not None and stale.shape != free.shape:
+            raise ValueError(f"compute_frontiers_from_masks: `stale` "
+                             f"{tuple(stale.shape)} over a batch of grids "
+                             f"must match the masks {tuple(free.shape)}")
     else:
         free, unknown, robot_poses = free[None], unknown[None], \
             robot_poses[None]
+        stale = None if stale is None else stale[None]
     mask = frontier_mask(free, unknown)
     c = cfg.cluster_downsample
     res = grid_cfg.resolution_m * cfg.downsample
@@ -580,15 +594,20 @@ def compute_frontiers_from_masks(cfg: FrontierConfig, grid_cfg: GridConfig,
         rr, cc = to_bfs_rc(robot_poses[..., 1] - oy,
                            robot_poses[..., 0] - ox)           # (T, R)
         if cfg.exact_bfs:
-            # One K3 call per robot: each field unblocks its own seed.
+            # One K3 launch for every tenant's robots: field (t, r) under
+            # mask t with robot r's own seed cell unblocked.
             bfs_cfg = (cfg if c == 1 else dataclasses.replace(
                 cfg, bfs_iters=max(1, -(-cfg.bfs_iters // c))))
-            valid = torch.ones(1, dtype=torch.bool, device=free.device)
-            costs = torch.stack([
-                cost_to_go(bfs_cfg, bfs_passable[0],
-                           torch.stack([rr[0, r], cc[0, r]])[None], valid
-                           )[tgt_r[0], tgt_c[0]] * bfs_scale
-                for r in range(robot_poses.shape[1])])[None]
+            T, R = rr.shape
+            nb = bfs_passable.shape[-1]
+            exact = cost_to_go(
+                bfs_cfg, bfs_passable[:, None].expand(T, R, nb, nb)
+                .reshape(T * R, nb, nb),
+                torch.stack([rr, cc], -1).reshape(T * R, 1, 2),
+                torch.ones((T * R, 1), dtype=torch.bool,
+                           device=free.device))
+            costs = _gather_costs(exact.reshape(T, R, nb, nb), tgt_r,
+                                  tgt_c) * bfs_scale
         else:
             robot_rc = torch.stack([rr, cc], dim=-1)           # (T, R, 2)
             if warm_fields is not None:
@@ -614,10 +633,17 @@ def compute_frontiers_from_masks(cfg: FrontierConfig, grid_cfg: GridConfig,
         sb = (_pool_sum(stale, c).to(torch.float32) / float(c * c)
               if c > 1 else stale.to(torch.float32))
         padded = torch.nn.functional.pad(sb, (1, 1, 1, 1))
-        frac = _patch3(padded, torch.stack([tgt_r[0], tgt_c[0]], 1)
-                       ).sum(dim=(1, 2)) / 9.0
+        # Each tenant's (K, 3, 3) neighbourhoods of its targets. The
+        # stale shares are multiples of 1 / c^2, so their sum is exact in
+        # any order.
+        ar = const((0, 1, 2), padded.device, torch.int64)
+        tt = torch.arange(padded.shape[0], device=padded.device)
+        frac = padded[tt[:, None, None, None],
+                      tgt_r[..., None, None] + ar[:, None],
+                      tgt_c[..., None, None] + ar[None, :]
+                      ].sum(dim=(-2, -1)) / 9.0                # (T, K)
         bonus = frac.new_full((), cfg.stale_bonus)
-        scale = (1.0 - bonus * frac.clamp(0.0, 1.0))[None, None, :]
+        scale = (1.0 - bonus * frac.clamp(0.0, 1.0))[:, None, :]
         # Only finite costs discount: a scaled _BIG would pass the
         # auction's `< _BIG` gate.
         costs = torch.where(costs < _BIG, costs * scale, costs)
@@ -648,40 +674,53 @@ def assigned_waypoints_from_masks(cfg: FrontierConfig, grid_cfg: GridConfig,
     multigrid cost field per robot seeded at its target's cell (K3, the
     passability the assignment used), descended `waypoint_lookahead`
     steps from the robot's cell. Returns (waypoints_xy (R, 2), valid
-    (R,)); invalid where unassigned, unreachable or not moved."""
+    (R,)); invalid where unassigned, unreachable or not moved.
+
+    (T, n, n) masks with (T, R, 3) poses, (T, K, 2) targets and (T, R)
+    assignments give (T, R, 2) and (T, R): one `cost_fields` call over
+    the T * R fields (a K3 launch a level) and one descent for all."""
+    batched = free.dim() == 3
+    if not batched:
+        free, unknown, robot_poses, targets, assignment = (
+            x[None] for x in (free, unknown, robot_poses, targets,
+                              assignment))
     mask = frontier_mask(free, unknown)
     ox, oy = grid_cfg.origin_m
     bfs_passable, bfs_res = bfs_passability(cfg, grid_cfg, free, unknown,
                                             mask)
-    n2 = bfs_passable.shape[0]
+    T, R = assignment.shape
+    n2 = bfs_passable.shape[-1]
 
     def to_rc(xy):
         return torch.stack(
-            [_to_int32(div(xy[:, 1] - oy, bfs_res)).clamp(0, n2 - 1),
-             _to_int32(div(xy[:, 0] - ox, bfs_res)).clamp(0, n2 - 1)], 1)
+            [_to_int32(div(xy[..., 1] - oy, bfs_res)).clamp(0, n2 - 1),
+             _to_int32(div(xy[..., 0] - ox, bfs_res)).clamp(0, n2 - 1)], -1)
 
-    t_xy = targets[assignment.long().clamp_min(0)]
-    seeds_rc = to_rc(t_xy)
-    robot_rc = to_rc(robot_poses[:, :2])
+    a = assignment.long().clamp_min(0)
+    t_xy = torch.gather(targets, 1, a[..., None].expand(T, R, 2))
+    seeds_rc = to_rc(t_xy)                                     # (T, R, 2)
+    robot_rc = to_rc(robot_poses[..., :2]).reshape(T * R, 2)
     fields = CF.cost_fields(~bfs_passable, seeds_rc, cfg.mg_levels,
-                            cfg.mg_refine_iters)            # (R, n2, n2)
-    padded = torch.nn.functional.pad(fields, (1, 1, 1, 1), value=_BIG)
+                            cfg.mg_refine_iters)          # (T, R, n2, n2)
+    padded = torch.nn.functional.pad(
+        fields.reshape(T * R, n2, n2), (1, 1, 1, 1), value=_BIG)
     rc = robot_rc
     for _ in range(cfg.waypoint_lookahead):
         rc = descent_step(padded, rc, n2)
     start_min = _patch3(padded, robot_rc).amin(dim=(1, 2))
     wp_xy = torch.stack([(rc[:, 1].to(torch.float32) + 0.5) * bfs_res + ox,
                          (rc[:, 0].to(torch.float32) + 0.5) * bfs_res + oy],
-                        1)
-    moved = (rc != robot_rc).any(dim=1)
-    valid = (assignment >= 0) & (start_min < _BIG) & moved
-    return wp_xy, valid
+                        1).reshape(T, R, 2)
+    moved = (rc != robot_rc).any(dim=1).reshape(T, R)
+    valid = (assignment >= 0) & (start_min < _BIG).reshape(T, R) & moved
+    return (wp_xy, valid) if batched else (wp_xy[0], valid[0])
 
 
 def assigned_waypoints(cfg: FrontierConfig, grid_cfg: GridConfig,
                        logodds: torch.Tensor, robot_poses: torch.Tensor,
                        targets: torch.Tensor, assignment: torch.Tensor):
-    """`assigned_waypoints_from_masks` from a raw log-odds grid."""
+    """`assigned_waypoints_from_masks` from a raw log-odds grid, or from
+    T grids (T, N, N) with the batched arguments."""
     free, _occ, unknown = coarsen(cfg, grid_cfg, logodds)
     return assigned_waypoints_from_masks(cfg, grid_cfg, free, unknown,
                                          robot_poses, targets, assignment)

@@ -294,10 +294,10 @@ def obstacle_slice(vox: VoxelConfig, grid: torch.Tensor, z_min_m: float,
 
 def occupied_voxel_centers(vox: VoxelConfig, grid) -> np.ndarray:
     """Host-side export: (N, 3) f32 world-metre centres of occupied
-    voxels."""
-    g = grid.cpu().numpy() if isinstance(grid, torch.Tensor) \
-        else np.asarray(grid)
-    zi, yi, xi = np.nonzero(g > vox.occ_threshold)
+    voxels. The occupied voxels are found where the grid lies; only their
+    indices cross to the host."""
+    g = torch.as_tensor(grid)
+    zi, yi, xi = torch.nonzero(g > vox.occ_threshold).cpu().numpy().T
     ox, oy, oz = vox.origin_m
     res = vox.resolution_m
     return np.stack([(xi + 0.5) * res + ox,

@@ -387,6 +387,75 @@ def test_cost_fields_batched_equal_plain(dev, T):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("F_", [1, 8, 24])
+@pytest.mark.parametrize("n", [256, 1024])
+def test_relax_sweeps_mask_per_field_equals_plain(dev, n, F_):
+    """F fields each under its own blocked mask (`exact_bfs`' one launch
+    for every robot of every tenant), one launch on the cluster route
+    (one a sweep at 1024^2): every field equals its plain sweeps under
+    its own mask."""
+    mazes = [KI.corridor_maze(n, seed=n + f) for f in range(F_)]
+    blocked = torch.as_tensor(np.stack(mazes)).to(dev)
+    init = torch.as_tensor(np.concatenate(
+        [KI.maze_init(m, 1, seed=f, dense=f % 3 == 2)
+         for f, m in enumerate(mazes)])).to(dev)
+    sweeps = 257 if n <= 512 else 5
+    _cuda.reset_launches()
+    got, ran = CF.relax_sweeps(blocked, init, sweeps)
+    _check_launches("costfield_relax", sweeps, n)
+    want = torch.stack([CF._relax_sweeps_plain(blocked[f], init[f:f + 1],
+                                               sweeps)[0]
+                        for f in range(F_)])
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), int((got != want).sum())
+    assert torch.equal(CF.sweeps(blocked, init, sweeps), want)
+
+
+@pytest.mark.parametrize("T", [1, 3])
+def test_exact_bfs_one_launch_on_card(dev, T):
+    """`exact_bfs` over T grids of the default config: one K3 launch for
+    all T * 8 fields, costs and assignment equal to the per-robot plain
+    fields (one `cost_to_go` a robot under its own seed's mask)."""
+    cfg = SlamConfig()
+    fc = dataclasses.replace(cfg.frontier, exact_bfs=True)
+    # The rooms with 2 m doors: the 0.8 m cells seal 0.5 m ones (C.3).
+    n = cfg.grid.size_cells
+    world = torch.as_tensor(KI.rooms_wide_doors(n, cfg.grid.resolution_m))
+    lo1 = torch.where(world, 3.0, -1.0)
+    lo1[:, : n // 8] = 0.0
+    lo = torch.stack([lo1.to(dev)] * T)
+    g = torch.Generator().manual_seed(T)
+    poses = ((torch.rand((T, 8, 3), generator=g) - 0.5)
+             * torch.tensor([40.0, 40.0, 6.0])).to(dev)
+    _cuda.reset_launches()
+    fr = F.compute_frontiers(fc, cfg.grid, lo if T > 1 else lo[0],
+                             poses if T > 1 else poses[0])
+    relax = dict(_cuda.LAUNCHES)["costfield_relax"]
+    assert relax == 1, relax
+    free, _occ, unknown = F.coarsen(fc, cfg.grid, lo[0])
+    mask = F.frontier_mask(free, unknown)
+    passable, bres = F.bfs_passability(fc, cfg.grid, free, unknown, mask)
+    bfs_cfg = dataclasses.replace(fc, bfs_iters=-(-fc.bfs_iters // 4))
+    ox, oy = cfg.grid.origin_m
+    costs = fr.costs if T > 1 else fr.costs[None]
+    targets = fr.targets if T > 1 else fr.targets[None]
+    sizes = fr.sizes if T > 1 else fr.sizes[None]
+    for t in range(T):
+        tr = ((targets[t, :, 1] - oy) / bres).clamp(0, 255).long()
+        tc = ((targets[t, :, 0] - ox) / bres).clamp(0, 255).long()
+        for r in range(8):
+            rc = torch.stack([((poses[t, r, 1] - oy) / bres).int(),
+                              ((poses[t, r, 0] - ox) / bres).int()])[None]
+            d = F.cost_to_go(bfs_cfg, passable, rc,
+                             torch.ones(1, dtype=torch.bool, device=dev),
+                             relax=CF._relax_sweeps_plain)
+            want = torch.where(sizes[t] > 0,
+                               torch.clamp_max(d[tr, tc] * 4.0, 1e9), 1e9)
+            live = sizes[t] > 0
+            assert torch.equal(costs[t, r][live], want[live]), (t, r)
+    assert bool((costs < 1e9).any())
+
+
 def test_megabatch_on_card_equals_solo(dev):
     """Three tiny missions (bucket 3) and 2 + 1 pad (bucket 3) ticked as a
     megabatch on the card: every lane equals its solo `fleet_step` run on

@@ -385,25 +385,30 @@ def test_demo_runs_and_writes_png(tmp_path):
     assert set(np.unique(img)) <= {0, 127, 255} and (img == 255).any()
 
 
-#: (flags, what the refusal says): the flags whose modules are not ported
-#: name them; --resume and --save-final are ported and refuse, as the JAX
-#: demo does, a checkpoint that is not there.
-DEMO_REFUSED = [(["--record", "b"], "not port"), (["--replay", "b"], "not port"),
-                (["--resume", "c"], "no checkpoint at c"),
-                (["--save-final", "c", "--resume", "missing.npz"],
+#: (flags, exit code, what the demo says): the flags whose modules are
+#: not ported name them; --resume and --save-final are ported and refuse,
+#: as the JAX demo does, a checkpoint that is not there. --depth-cam is
+#: ported (it runs and reports its images), and --voxel-out without it
+#: is refused as the JAX demo refuses it.
+DEMO_REFUSED = [(["--record", "b"], 2, "not port"),
+                (["--replay", "b"], 2, "not port"),
+                (["--resume", "c"], 2, "no checkpoint at c"),
+                (["--save-final", "c", "--resume", "missing.npz"], 2,
                  "no checkpoint at missing.npz"),
-                (["--map-prior", "m.yaml"], "not port"),
-                (["--serve"], "not port"), (["--http-port", "0"], "not port"),
-                (["--depth-cam"], "not port"),
-                (["--voxel-out", "v.png"], "not port")]
+                (["--map-prior", "m.yaml"], 2, "not port"),
+                (["--serve"], 2, "not port"),
+                (["--http-port", "0"], 2, "not port"),
+                (["--depth-cam"], 0, '"depth_images_fused": 1'),
+                (["--voxel-out", "v.png"], 2, "requires --depth-cam")]
 
 
-@pytest.mark.parametrize("flag,says", DEMO_REFUSED,
-                         ids=[f[0] for f, _ in DEMO_REFUSED])
-def test_demo_refuses_unported_flags(flag, says, capsys):
+@pytest.mark.parametrize("flag,rc,says", DEMO_REFUSED,
+                         ids=[f[0] for f, _, _ in DEMO_REFUSED])
+def test_demo_refuses_unported_flags(flag, rc, says, capsys):
     from jax_mapping_torch import demo
-    assert demo.main(["--device", "cpu", "--steps", "1"] + flag) == 2
-    assert says in capsys.readouterr().err
+    assert demo.main(["--device", "cpu", "--steps", "1"] + flag) == rc
+    out = capsys.readouterr()
+    assert says in (out.err if rc else out.out)
 
 
 LAUNCH_REFUSED = {
@@ -419,7 +424,17 @@ LAUNCH_REFUSED = {
 
 @pytest.mark.parametrize("what", list(LAUNCH_REFUSED))
 def test_launch_refuses_unported(what):
+    """Each unported option raises, naming its ROADMAP item; depth_cam,
+    ported since, launches the voxel mapper and wires the planner's
+    overlay into the mapper's frontier basis."""
     cfg = tiny_config(2)
+    if what == "depth_cam":
+        st = launch_sim_stack(cfg, W.empty_arena(32, 0.05), n_robots=2,
+                              device="cpu", depth_cam=True)
+        assert st.voxel_mapper is not None and st.sim.depth_cam
+        assert st.mapper.frontier_grid_provider == st.planner._planning_grid
+        st.shutdown()
+        return
     kw = dict(LAUNCH_REFUSED[what])
     section = kw.pop("cfg", None)
     if section == "devprof":
@@ -446,6 +461,8 @@ def test_launch_without_card_raises():
 def test_demo_and_launch_import_no_jax():
     code = ("import sys\n"
             "import jax_mapping_torch.demo, jax_mapping_torch.bridge.launch\n"
+            "import jax_mapping_torch.bridge.voxel_mapper\n"
+            "import jax_mapping_torch.tenancy.megabatch\n"
             "print(sorted(k for k in sys.modules if k.split('.')[0] in "
             "('jax', 'jax_mapping')))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -245,13 +245,33 @@ def test_compute_frontiers_batched_matches_jax_vmap(ref, name):
 @pytest.mark.parametrize("option", ["exact_bfs", "decay_aware",
                                     "planned_goals"])
 def test_batched_frontiers_refuse_options(option):
-    """The options JAX runs under vmap and the port does not batch yet
-    raise, naming the option."""
+    """Each frontier option JAX runs under vmap runs over T grids too (it
+    was refused before the options were batched): every tenant's result
+    equals its solo call bit for bit, and `planned_goals`' waypoints do
+    too."""
     cfg = CONFIGS["micro"]
     fcfg = dataclasses.replace(cfg.frontier, **{option: True})
-    grids = torch.zeros((2, 64, 64))
-    with pytest.raises(ValueError, match=option):
-        F.compute_frontiers(fcfg, cfg.grid, grids, torch.zeros((2, 2, 3)))
+    grids, poses = _option_maps(cfg)
+    fr = F.compute_frontiers(fcfg, cfg.grid, grids, poses)
+    wp, ok = F.assigned_waypoints(fcfg, cfg.grid, grids, poses, fr.targets,
+                                  fr.assignment)
+    for t in range(grids.shape[0]):
+        want = F.compute_frontiers(fcfg, cfg.grid, grids[t], poses[t])
+        for f, x in zip(F.FrontierResult._fields, want):
+            assert torch.equal(getattr(fr, f)[t], x), (option, t, f)
+        w1, ok1 = F.assigned_waypoints(fcfg, cfg.grid, grids[t], poses[t],
+                                       want.targets, want.assignment)
+        assert torch.equal(wp[t], w1) and torch.equal(ok[t], ok1), t
+    assert bool((fr.assignment >= 0).any())
+
+
+def _option_maps(cfg):
+    """The micro maps of `_maps` (T = 3), the last two with their weak
+    evidence halved: healed cells for `decay_aware`."""
+    grids, poses = _maps("micro")
+    weak = grids.abs() < 0.45
+    grids[1:] = torch.where(weak[1:], grids[1:] * 0.5, grids[1:])
+    return grids, poses
 
 
 @pytest.mark.parametrize("arg", ["origin_rc", "warm_fields", "warm_iters",
@@ -261,6 +281,7 @@ def test_batched_frontiers_refuse_crop_and_warm(arg):
     free = torch.zeros((2, 32, 32), dtype=torch.bool)
     value = {"origin_rc": (0, 0), "warm_fields": torch.zeros((2, 16, 16)),
              "warm_iters": 0, "return_fields": True,
+             # A batch takes a (T, n, n) stale mask: one grid's is refused.
              "stale": torch.zeros((32, 32), dtype=torch.bool)}[arg]
     with pytest.raises(ValueError, match=arg):
         F.compute_frontiers_from_masks(cfg.frontier, cfg.grid, free, ~free,

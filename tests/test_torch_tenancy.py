@@ -396,13 +396,14 @@ def test_match_batch_tenant_equals_solo_calls():
 
 
 def test_megabatch_refuses_planned_goals():
+    """`planned_goals` was refused over a batch; it now runs batched (one
+    cost-field call for every lane's robots), and each lane equals its
+    solo run bit for bit."""
     cfg = CFG.replace(frontier=dataclasses.replace(CFG.frontier,
                                                    planned_goals=True))
-    s = _missions(cfg, 2)
-    b = MB.make_tenant_batch(s, _worlds(2), [0, 1])
-    with pytest.raises(ValueError, match="planned_goals"):
-        MB.megabatch_step(cfg, b, RES,
-                          wheel_normals=torch.zeros((2, 1, 2)))
+    b, solo, _closed, _b0 = _run(cfg, _missions(cfg, 2), _worlds(2), 3)
+    for i, s in enumerate(solo):
+        _assert_bit_equal(MB.lane_state(b, i), s, f"planned_goals lane {i}")
 
 
 def test_megabatch_draws_normals_from_generator():

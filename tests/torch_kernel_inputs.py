@@ -189,6 +189,27 @@ def cameras_around_region(cfg, y0, ny, nx, B, seed):
 MISSION_TILE = 64
 
 
+def rooms_wide_doors(size_cells: int, resolution_m: float,
+                     door_m: float = 2.0, seed: int = 1) -> np.ndarray:
+    """`rooms_world` with each door widened to `door_m` about its centre.
+    The default frontier config plans on 0.8 m cells pooled
+    conservatively, which seal rooms_world's 0.5 m doors (ROADMAP C.3,
+    tests/test_torch_frontier_scene.py); 2 m doors stay open to it, so the
+    mission stack's fleet can be assigned the frontiers it sees through
+    them."""
+    from jax_mapping_torch.sim import world as W
+    w, doors = W.rooms_with_doors(size_cells, resolution_m, seed=seed)
+    half = int(round(door_m / resolution_m)) // 2
+    for d in doors:
+        if d["r1"] - d["r0"] == 2:              # a gap in a horizontal wall
+            c = (d["c0"] + d["c1"]) // 2
+            w[d["r0"]:d["r1"], c - half:c + half] = False
+        else:
+            r = (d["r0"] + d["r1"]) // 2
+            w[r - half:r + half, d["c0"]:d["c1"]] = False
+    return w
+
+
 def mission_grid(size=512):
     """The missions' grid: 512^2 cells at 0.05 m, tile 64."""
     return GridConfig(size_cells=size, patch_cells=64, max_range_m=2.0,
