@@ -222,6 +222,36 @@ Phases, each printed as one JSON line:
            the mapper's estimates to 1e-4 m, frontier assignments equal,
            at most 1e-4 of the grid cells apart
 
+  sharded  the multi-rank mesh's main path on one NCCL rank
+           (a 1 x 1 ('fleet', 'space') mesh brought up in this process):
+           `make_fleet_step` of the default SlamConfig, 8 robots on the
+           fleet phase's world, 30 ticks (K1's slab fuse and matcher, K2,
+           K3; tick p50/p90 beside the fleet phase's `fleet_step` p50, host
+           syncs of ticks 1-3, launches by route, peak memory), then the
+           closing drive: the same widths from a state whose 8 robots have
+           driven a gallery east and back (1016 key poses each), ticked
+           until loops close; the closing tick's time, K1 launches and
+           peak memory, its repair (every valid ring slot, 8 x 1017 scans)
+           held exactly to the full-grid unclamped fuse; the matcher 5
+           times on the last tick's inputs (it must be deterministic: a
+           mesh's 'space' replicas rely on it); then
+           `make_voxel_fuse_step` on the default
+           (64, 1024, 1024) grid, the voxel phase's 8 images a tick for 20
+           ticks through K7's region route, held to the patch path. Counts
+           are zeroed before each part and read after it
+  sharded_parity  tiny_config with 8 robots on a 1 x 1 mesh, card against
+           CPU (a card mesh and a CPU mesh over one process group): 6 ticks
+           in the 4.8 m arena and 10 of the dry run's trajectory (closures,
+           thinning), then one tiny voxel fuse
+  dryrun   `python -m jax_mapping_torch.parallel.dryrun` on one NCCL rank:
+           the trajectory must thin and close loops
+  sharded_ranks  4 gloo ranks sharing the card (a 2 x 2 mesh, tiny_config,
+           6 ticks), held to the same job on 4 CPU ranks, the 'space'
+           replicas bit-equal (gloo takes CUDA tensors in torch 2.11)
+  replay   `demo --record` of a tiny_config(2) stack for 40 steps, then
+           `demo --replay` of the bag on the card: messages replayed, scans
+           fused and dropped, cells occupied and free
+
 Then one line {"kernels": [...]} and, last, the result line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero before the
 result line. Without a CUDA device, or without the package beside this
@@ -5132,6 +5162,577 @@ def phase_world_parity(torch, seed: int):
     return out, bc.inputs
 
 
+# ---------------------------------------------------------------------------
+# The multi-rank mesh, trace replay
+# ---------------------------------------------------------------------------
+
+SHARDED_TICKS = 30
+SHARDED_VOXEL_TICKS = 20
+
+
+def _sharded_world(torch, cfg):
+    """The fleet phase's world, plank_course(4096, 0.05, n_planks=40,
+    seed=0), on the card."""
+    return _world(cfg, torch.device(DEV), torch)
+
+
+#: Ring slots the closing drive leaves free: its ring holds max_poses less
+#: these key poses, so the closure's key pose lands without a thinning.
+SHARDED_CLOSING_FREE_SLOTS = 8
+SHARDED_CLOSING_TICKS = 3
+
+
+def _sharded_closing_state(torch, cfg, mesh, seed: int):
+    """A state that a long mission reaches just before it closes its loops,
+    and its world: each robot of a formation has driven a gallery (the
+    world phase's `_gallery`, walls, pillars and boxes) east and back west
+    to its start, a key pose every `min_travel_m`, max_poses less
+    SHARDED_CLOSING_FREE_SLOTS of them in its graph (odometry edges) and
+    ring (noise-free scans); the grid is the ring fused onto the slab. Its
+    estimate stands one key step west of its start, heading west, so its
+    next key pose lies within the search disc of its chain's first poses.
+    Built with the step's own pieces (`_update_graphs`, `_slab_delta`), on
+    the mesh's device. Returns (state, world)."""
+    from jax_mapping_torch.models import fleet as FL
+    from jax_mapping_torch.parallel import fleet_sharded as FS
+    from jax_mapping_torch.sim import lidar
+    dev = FS.mesh_device(mesh)
+    Rl, slab_rows = FS.shard_shape(cfg, mesh)
+    res, cap = cfg.grid.resolution_m, cfg.loop.max_poses
+    step_m = cfg.matcher.min_travel_m
+    K = cap - SHARDED_CLOSING_FREE_SLOTS
+    east = K // 2
+    length = east * step_m
+    world = torch.as_tensor(_gallery(cfg.grid.size_cells, res, -4.0,
+                                     length + 4.0, 4.0, 2.0, seed + 21),
+                            device=dev)
+    ys = torch.tensor([-1.2, -0.4, 0.4, 1.2])
+    form = torch.stack([-1.0 * ((torch.arange(Rl) // 4) % 2),
+                        ys[torch.arange(Rl) % 4]], 1)
+    k = torch.arange(K, dtype=torch.float64)
+    x = torch.where(k < east, k * step_m, (2 * east - 1 - k) * step_m)
+    th = torch.where(k < east, 0.0, math.pi)
+    course = torch.stack([x, torch.zeros_like(x), th], 1)      # (K, 3)
+    poses = (course[None] + torch.cat(
+        [form, torch.zeros(Rl, 1)], 1)[:, None].double()).float().to(dev)
+    n_samples = int(cfg.scan.range_max_m / (res * 0.5))
+    flat = poses.reshape(-1, 3)
+    scans = torch.cat([lidar.simulate_scans(cfg.scan, world, res, n_samples,
+                                            flat[s:s + 512])
+                       for s in range(0, flat.shape[0], 512)]
+                      ).reshape(Rl, K, -1)
+    st = FS.init_sharded_state(cfg, mesh)
+    graphs, rings = st.graphs, st.scan_rings
+    key = torch.ones(Rl, dtype=torch.bool, device=dev)
+    for j in range(K):
+        graphs, rings, _ = FL._update_graphs(cfg, graphs, poses[:, j], key,
+                                             scans[:, j], rings)
+    grid = torch.clamp(FS._slab_delta(
+        cfg, scans.reshape(Rl * K, -1), poses.reshape(Rl * K, 3),
+        FS.axis_index(mesh, "space") * slab_rows, slab_rows),
+        cfg.grid.logodds_min, cfg.grid.logodds_max)
+    start = poses[:, 0] + torch.tensor([-step_m, 0.0, math.pi], device=dev)
+    return st._replace(true_poses=start, est_poses=start.clone(), grid=grid,
+                       last_key_poses=poses[:, -1].contiguous(),
+                       graphs=graphs, scan_rings=rings,
+                       t=st.t + K), world
+
+
+def _repair_fold_times(torch, cfg, scans, poses) -> dict:
+    """The closure repair's fold two ways on the same ring scans, each
+    after a warm-up: `_slab_delta`'s slice add a scan (what the step runs)
+    and one accumulating `index_put_` a 64-scan sub-batch (measured only:
+    the port does not use it); times, peak memory above the inputs, and
+    the largest difference (the two sum overlapping patches in different
+    orders)."""
+    from jax_mapping_torch.ops import grid as G
+    from jax_mapping_torch.ops.fuse_kernel import _STREAM_CHUNK
+    from jax_mapping_torch.parallel import fleet_sharded as FS
+    g = cfg.grid
+    P, N = g.patch_cells, g.size_cells
+
+    def index_put():
+        canvas = torch.zeros((N + 2 * P, N), device=scans.device)
+        ar = torch.arange(P, device=scans.device)
+        for c in range(0, scans.shape[0], _STREAM_CHUNK):
+            d, o = G._classify_batch(g, cfg.scan, scans[c:c + _STREAM_CHUNK],
+                                     poses[c:c + _STREAM_CHUNK])
+            rows = (o[:, 0, None, None] + P + ar[None, :, None]).long()
+            cols = (o[:, 1, None, None] + ar[None, None, :]).long()
+            canvas.index_put_((rows, cols), d, accumulate=True)
+        return canvas[P:P + N]
+
+    out = {"scans": int(scans.shape[0])}
+    res = {}
+    for name, fn in (("slice_adds", lambda: FS._slab_delta(
+            cfg, scans, poses, 0, N)), ("index_put", index_put)):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        res[name] = fn()
+        torch.cuda.synchronize()
+        out[f"{name}_ms"] = (time.perf_counter() - t0) * 1e3
+        out[f"{name}_peak_above_inputs_bytes"] = \
+            torch.cuda.max_memory_allocated() - base
+    out["max_abs_diff"] = float((res["slice_adds"] - res["index_put"])
+                                .abs().max())
+    return out
+
+
+def phase_sharded(torch, cfg, fleet: dict, seed: int,
+                  ticks: int = SHARDED_TICKS,
+                  voxel_ticks: int = SHARDED_VOXEL_TICKS):
+    """The multi-rank mesh's main path on one NCCL rank (a 1 x 1 mesh,
+    brought up in this process): `make_fleet_step` of the default
+    SlamConfig, 8 robots on the fleet phase's world, `ticks` ticks, then
+    the closing drive (`_sharded_closing_state`: the same widths from a
+    state whose robots have driven their loops) until a tick closes loops,
+    whose repair re-fuses every valid ring slot of every robot (about 8 x
+    1024 scans), held to the port's full-grid unclamped fuse; then
+    `make_voxel_fuse_step` on the default (64, 1024, 1024) voxel grid, the
+    voxel phase's 8 images a tick for `voxel_ticks` ticks, held to the
+    patch path's grid. Counts are zeroed before each part and read after
+    it: K1 (both modes), K2, K3 and K7 must launch. The matcher runs 5
+    times on the last tick's inputs: the space replicas of a mesh rely on
+    it being deterministic."""
+    from jax_mapping_torch.ops import _cuda
+    from jax_mapping_torch.ops import grid as G
+    from jax_mapping_torch.ops import scan_match as M
+    from jax_mapping_torch.ops import voxel as V
+    from jax_mapping_torch.parallel import fleet_sharded as FS
+    from jax_mapping_torch.parallel import mesh as MESH
+    from jax_mapping_torch.parallel import voxel_sharded as VS
+    from jax_mapping_torch.sim import depthcam as D
+    from jax_mapping_torch.sim import lidar
+    world = _sharded_world(torch, cfg)
+    mesh = MESH.make_mesh(1, 1)                      # default: the card
+    check(mesh.device_type == "cuda", "the sharded mesh is not on the card")
+    R, res = cfg.fleet.n_robots, cfg.grid.resolution_m
+    st = FS.init_sharded_state(cfg, mesh)
+    step = FS.make_fleet_step(cfg, mesh, res)
+    gen = torch.Generator().manual_seed(seed)
+    normals = [torch.randn((R, 2), generator=gen).to(DEV)
+               for _ in range(ticks + SHARDED_CLOSING_TICKS)]
+    cst, cworld = _sharded_closing_state(torch, cfg, mesh, seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _cuda.reset_launches()
+    tick_ms, syncs, verifies, closing = [], [], [], []
+    with VerifyCount() as vc, BatchCount(cfg.grid) as bc:
+        for i in range(ticks):
+            n0, k0 = vc.n, _cuda.LAUNCHES["sensor_model_delta"]
+            loops0 = int(st.n_loops.sum())
+            t0 = time.perf_counter()
+            if 1 <= i <= 3:
+                (st, met), n_sync = _count_syncs(
+                    torch, lambda: step(st, world, normals[i]))
+                syncs.append(n_sync)
+            else:
+                st, met = step(st, world, normals[i])
+            torch.cuda.synchronize()
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
+            verifies.append(vc.n - n0)
+            if int(st.n_loops.sum()) > loops0:
+                closing.append({"tick": i, "k1_delta_launches":
+                                _cuda.LAUNCHES["sensor_model_delta"] - k0})
+        peak = torch.cuda.max_memory_allocated()
+        # The closing drive, until a tick closes loops.
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(SHARDED_CLOSING_TICKS):
+            k0 = _cuda.LAUNCHES["sensor_model_delta"]
+            loops0 = int(cst.n_loops.sum())
+            t0 = time.perf_counter()
+            cst, _ = step(cst, cworld, normals[ticks + i])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            if int(cst.n_loops.sum()) > loops0:
+                closing.append({
+                    "drive": "closing", "tick": i, "ms": ms,
+                    "loops_closed": int(cst.n_loops.sum()) - loops0,
+                    "repair_scans": int(cst.graphs.pose_valid.sum()),
+                    "k1_delta_launches":
+                        _cuda.LAUNCHES["sensor_model_delta"] - k0})
+                break
+        close_peak = torch.cuda.max_memory_allocated()
+    launches = dict(_cuda.LAUNCHES)
+    routes = {k: dict(v) for k, v in _cuda.ROUTES.items()}
+    grid = st.grid
+    # The repair held to the port's full-grid unclamped fuse of the same
+    # ring scans at the same poses, folded in the same order.
+    valid = cst.graphs.pose_valid[:, :cfg.loop.max_poses].reshape(-1)
+    want = torch.clamp(G.scan_deltas_full(
+        cfg.grid, cfg.scan,
+        cst.scan_rings.reshape(valid.shape[0], -1)[valid],
+        cst.graphs.poses[:, :cfg.loop.max_poses].reshape(-1, 3)[valid]),
+        cfg.grid.logodds_min, cfg.grid.logodds_max)
+    repair_apart = int((cst.grid != want).sum())
+    repair_max_abs = float((cst.grid - want).abs().max())
+    del want
+    fold = _repair_fold_times(
+        torch, cfg, cst.scan_rings.reshape(valid.shape[0], -1)[valid],
+        cst.graphs.poses[:, :cfg.loop.max_poses].reshape(-1, 3)[valid])
+    del cst, cworld
+    # The matcher on the last tick's inputs, 5 times.
+    scans = lidar.simulate_scans(cfg.scan, world, res,
+                                 max(8, int(cfg.scan.range_max_m
+                                            / (res * 0.5))), st.true_poses)
+    runs = [M.match_batch(cfg.grid, cfg.scan, cfg.matcher, grid, scans,
+                          st.est_poses) for _ in range(5)]
+    deterministic = all(torch.equal(r.pose, runs[0].pose)
+                        and torch.equal(r.response, runs[0].response)
+                        for r in runs)
+    del runs, scans
+
+    # The Y-slab voxel fuse on the same mesh.
+    vox, cam = cfg.voxel, cfg.depthcam
+    drive = _VoxelDrive(torch, cfg)
+    n_samples = D.n_samples_for(cam, vox.resolution_m)
+    batches = []
+    for t in range(voxel_ticks):
+        p = drive.poses([t * drive.ARC])
+        batches.append((D.render_depths(cam, drive.world, vox.resolution_m,
+                                        n_samples, p), p))
+    fuse = VS.make_voxel_fuse_step(vox, cam, mesh)
+    vgrid = VS.init_sharded_voxel_grid(vox, mesh)
+    check(vgrid.device.type == DEV, "the voxel slab is not on the card")
+    torch.cuda.synchronize()
+    _cuda.reset_launches()
+    voxel_ms = []
+    for d, p in batches:
+        t0 = time.perf_counter()
+        vgrid = fuse(vgrid, d, p)
+        torch.cuda.synchronize()
+        voxel_ms.append((time.perf_counter() - t0) * 1e3)
+    voxel_launches = dict(_cuda.LAUNCHES)
+    _, voxel_syncs = _count_syncs(torch, lambda: fuse(vgrid, *batches[-1]))
+    patch = V.empty_voxel_grid(vox, DEV)
+    for d, p in batches:
+        patch = V.fuse_depths(vox, cam, patch, d, p)
+    voxel_apart = int(((vgrid - patch).abs() > 1e-5).sum())
+    vcounts = _voxel_counts(vox, vgrid)
+    steady = tick_ms[1:]
+    import torch.distributed as dist
+    out = {"phase": "sharded", "mesh": [1, 1],
+           "backend": str(dist.get_backend()),
+           "ticks": ticks, "robots": R, "grid_cells": cfg.grid.size_cells,
+           "world": "plank_course(4096, 0.05, n_planks=40, seed=0)",
+           "first_tick_ms": tick_ms[0], "tick_ms": _p50_p90(steady),
+           "fleet_step_tick_p50_ms": fleet["tick_p50_ms"],
+           "host_syncs_ticks_1_to_3": syncs,
+           "verifications_per_tick": verifies,
+           "loops_closed": int(st.n_loops.sum()),
+           "closing_ticks": closing,
+           "closing_peak_mem_bytes": close_peak,
+           "repair_cells_apart_from_full_grid_fuse": repair_apart,
+           "repair_max_abs_err": repair_max_abs,
+           "repair_fold": fold,
+           "launches": launches,
+           "launches_per_tick": {k: v / ticks for k, v in launches.items()},
+           "routes": routes,
+           "k1_launches_by_batch": bc.per_tick(1),
+           "peak_mem_bytes": peak, "peak_above_start_bytes": peak - base,
+           "mean_pose_err_m": float(met["mean_pose_err_m"]),
+           "mapped_occ_cells": int((grid > cfg.grid.occ_threshold).sum()),
+           "observed_cells": int((grid != 0).sum()),
+           "matcher_deterministic_5_calls": deterministic,
+           "voxel": {"ticks": voxel_ticks, "images_per_tick":
+                     int(batches[0][0].shape[0]),
+                     "grid": [vox.size_z_cells, vox.size_y_cells,
+                              vox.size_x_cells],
+                     "region_route": VS.uses_region_kernel(vox, cam, mesh),
+                     "tick_ms": _p50_p90(voxel_ms[1:]),
+                     "host_syncs_per_fuse": voxel_syncs,
+                     "launches": voxel_launches,
+                     "voxels_apart_from_patch_path": voxel_apart,
+                     "map": vcounts}}
+    emit(out)
+    check(bool(torch.isfinite(grid).all()), "sharded grid non-finite")
+    check(float(grid.abs().max()) <= cfg.grid.logodds_max,
+          "sharded grid outside the log-odds bounds")
+    check(out["observed_cells"] > 0, "the sharded fleet observed no cell")
+    check(closing, "no sharded tick closed a loop")
+    check(repair_apart == 0,
+          f"the sharded repair differs from the full-grid fuse in "
+          f"{repair_apart} cells (max abs {repair_max_abs})")
+    for name in FLEET_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} never launched on the sharded path")
+    check(deterministic, "the card's matcher is not deterministic")
+    check(out["voxel"]["region_route"], "the voxel fuse left the region route")
+    check(voxel_launches["voxel_summed"] >= voxel_ticks,
+          "kernel voxel_summed did not launch on every sharded voxel tick")
+    check(bool(torch.isfinite(vgrid).all()), "sharded voxel grid non-finite")
+    check(vcounts["occupied"] > 0, "the sharded voxel fuse mapped nothing")
+    check(voxel_apart <= 1e-4 * vgrid.numel(),
+          f"sharded voxel grid: {voxel_apart} voxels off the patch path")
+    launches_all = {k: launches[k] + voxel_launches[k] for k in launches}
+    return out, launches_all
+
+
+def sharded_kernel_rows(torch, cfg, seed: int, fleet: dict, mapper: dict,
+                        batches: dict, rows: dict) -> dict:
+    """Rows for the K1 batches the sharded path launched (`batches`: its
+    BatchCount totals) that the kernels phase holds no row for, each
+    against its plain version on poses near walls (the coarse view for a
+    batch keyed at its resolution), with its launches on the sharded
+    path. Its K2, K3 and K7 shapes are the fleet's and the voxel region's
+    rows."""
+    from jax_mapping_torch.models import slam as S
+    from jax_mapping_torch.ops import grid as G
+    from jax_mapping_torch.sim import lidar
+    world = _sharded_world(torch, cfg)
+    gen = torch.Generator().manual_seed(seed)
+    res = cfg.grid.resolution_m
+    n_samples = int(cfg.scan.range_max_m / (res * 0.5))
+    out = {}
+    for name, raster in (("sensor_model_delta", False),
+                         ("sensor_model_raster", True)):
+        covered = {_k1_key(r) for k, r in rows.items()
+                   if k.startswith(name) and "shape" in r
+                   and "cells_within_range" in r}
+        for key in sorted(set(batches[name]) - covered):
+            B, _, tag = key.partition("@")
+            c = cfg
+            if tag:
+                g_c, m_c = S._loop_wide_cfgs(cfg)
+                c = cfg.replace(grid=g_c, matcher=m_c)
+            poses = _poses_near_walls(torch, cfg, world, int(B), gen)
+            ranges = lidar.simulate_scans(cfg.scan, world, res, n_samples,
+                                          poses)
+            origins = G.patch_origin(c.grid, poses[:, :2]).contiguous()
+            row = _k1_row(torch, c, raster, ranges, poses, origins, fleet,
+                          mapper, key=key)
+            row["launches_sharded"] = batches[name][key]
+            out[f"{name}_sharded_b{key}"] = row
+    emit({"phase": "kernels_sharded", "rows": out})
+    for name, r in out.items():
+        check(r["mismatches"] == 0,
+              f"kernel {name} differs from its plain version in "
+              f"{r['mismatches']} elements (max abs {r['max_abs_err']})")
+    return out
+
+
+def phase_sharded_parity(torch, seed: int):
+    """tiny_config with 8 robots on a 1 x 1 mesh, on the card and on the
+    CPU (a card mesh and a CPU mesh over the same process group) from one
+    state with the same wheel normals: 6 ticks in the 4.8 m arena, and 10
+    of the dry run's trajectory (closures and thinning) in its 2.4 m
+    arena. Truth poses to 1e-6 m, estimates to 1e-4 m, assignments and
+    loop counts equal, at most 1e-4 of the grid cells apart, every tick;
+    then one voxel fuse of 8 tiny images, at most 1e-4 of the voxels
+    apart. The drive is tests/torch_sharded_drive.py, which the card
+    tests share."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import torch_sharded_drive as SD
+    out = {"phase": "sharded_parity", "mesh": [1, 1], "robots": SD.ROBOTS}
+    for name in SD.TICKS:
+        out[name] = SD.step_card_and_cpu(name, seed)
+    out["voxel"] = SD.voxel_fuse_card_and_cpu()
+    emit(out)
+    for name in SD.TICKS:
+        bad = SD.step_failures(name, out[name])
+        check(not bad, f"sharded parity {name}: {bad} {out[name]}")
+    bad = SD.voxel_failures(out["voxel"])
+    check(not bad, f"sharded parity voxel: {bad} {out['voxel']}")
+    return out
+
+
+def phase_dryrun(torch):
+    """`parallel.dryrun` on one NCCL rank: the 16-step trajectory must
+    thin and close loops, planned steering runs, the voxel fuse leaves
+    evidence (K1-K3 and K7 on the card)."""
+    from jax_mapping_torch.ops import _cuda
+    from jax_mapping_torch.parallel import dryrun as DR
+    _cuda.reset_launches()
+    t0 = time.perf_counter()
+    summary = DR.dryrun(1)
+    secs = time.perf_counter() - t0
+    out = {"phase": "dryrun", **summary, "seconds": secs,
+           "launches": dict(_cuda.LAUNCHES)}
+    emit(out)
+    check(summary["thins"] >= 1, "dry run: no thinning")
+    check(summary["loops_closed"] >= 1, "dry run: no loop closed")
+    check(summary["voxels_updated"] > 0, "dry run: no voxel evidence")
+    for name in FLEET_KERNELS + ("voxel_summed",):
+        check(out["launches"][name] > 0, f"dry run: {name} never launched")
+    return out
+
+
+SHARDED_RANKS_TICKS = 6
+
+
+def _sharded_rank(argv) -> None:
+    """One rank of the `sharded_ranks` phase's gloo jobs (spawned by
+    `parallel.dryrun.spawn`): argv = [device, ticks, seed, output dir].
+    tiny_config with 8 robots on a 2 x 2 mesh in the 4.8 m arena, the
+    fleet's wheel normals from one seeded stream; writes this rank's
+    robots, its launch counts and (rank 0) the gathered global state."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from jax_mapping_torch import interop
+    from jax_mapping_torch.config import tiny_config
+    from jax_mapping_torch.ops import _cuda
+    from jax_mapping_torch.parallel import fleet_sharded as FS
+    from jax_mapping_torch.parallel import mesh as MESH
+    from jax_mapping_torch.sim import world as W
+    dev, ticks, seed, out_dir = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    rank = dist.get_rank()
+    mesh = MESH.make_mesh(2, 2, device_type=dev)
+    cfg = tiny_config(8)
+    res = cfg.grid.resolution_m
+    st = FS.init_sharded_state(cfg, mesh)
+    step = FS.make_fleet_step(cfg, mesh, res)
+    world = torch.as_tensor(W.empty_arena(96, res),
+                            device=FS.mesh_device(mesh))
+    gen = torch.Generator().manual_seed(seed)
+    out, ms = {}, []
+    _cuda.reset_launches()
+    for t in range(ticks):
+        t0 = time.perf_counter()
+        st, met = step(st, world, torch.randn((8, 2), generator=gen))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        g = interop.sharded_state_to_numpy(st, mesh)
+        out[f"truth{t}"], out[f"est{t}"] = g.true_poses, g.est_poses
+        out[f"grid{t}"] = g.grid
+        out[f"assign{t}"] = MESH.gather_rows(met["assignment"], mesh,
+                                             "fleet").cpu().numpy()
+        out[f"loops{t}"] = np.asarray(int(met["n_loops"]))
+    mine = {"truth": st.true_poses.cpu().numpy(),
+            "est": st.est_poses.cpu().numpy(),
+            "n_poses": st.graphs.n_poses.cpu().numpy(),
+            "tick_ms": np.asarray(ms),
+            "launches": np.asarray([_cuda.LAUNCHES[k]
+                                    for k in FLEET_KERNELS])}
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **mine)
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "global.npz"), **out)
+
+
+def phase_sharded_ranks(torch, seed: int, ticks: int = SHARDED_RANKS_TICKS):
+    """4 gloo ranks sharing the one card (a 2 x 2 mesh; gloo takes the
+    card's tensors for all_reduce and all_gather_into_tensor), tiny_config
+    with 8 robots, `ticks` ticks, held to the same 2 x 2 job on 4 CPU
+    ranks: truth poses to 1e-6 m, estimates to 1e-4 m, assignments and
+    loop counts equal, at most 1e-4 of the cells apart, every tick; the
+    'space' replicas of each robot bit-equal on the card; K1-K3 launched
+    on every card rank. No multi-card speed: the ranks share one card."""
+    import numpy as np
+    from jax_mapping_torch.parallel import dryrun as DR
+    res = {}
+    for dev in ("cuda", "cpu"):
+        with tempfile.TemporaryDirectory() as d:
+            t0 = time.perf_counter()
+            DR.spawn("chip_smoke:_sharded_rank", 4,
+                     [dev, str(ticks), str(seed), d], timeout_s=300)
+            secs = time.perf_counter() - t0
+            with np.load(os.path.join(d, "global.npz")) as z:
+                g = {k: z[k] for k in z.files}
+            ranks = []
+            for r in range(4):
+                with np.load(os.path.join(d, f"rank{r}.npz")) as z:
+                    ranks.append({k: z[k] for k in z.files})
+        res[dev] = (g, ranks, secs)
+    (a, ra, sa), (b, _rb, sb) = res["cuda"], res["cpu"]
+    T = range(ticks)
+    out = {"phase": "sharded_ranks", "mesh": [2, 2], "backend": "gloo",
+           "ranks_share_one_card": True, "ticks": ticks, "robots": 8,
+           "job_s": {"cuda": sa, "cpu": sb},
+           "rank0_tick_ms_cuda": _p50_p90(list(ra[0]["tick_ms"][1:])),
+           "truth_m": max(float(np.abs(a[f"truth{t}"]
+                                       - b[f"truth{t}"]).max()) for t in T),
+           "est_m": max(float(np.abs(a[f"est{t}"] - b[f"est{t}"]).max())
+                        for t in T),
+           "cells_apart_max_share": max(float(
+               (np.abs(a[f"grid{t}"] - b[f"grid{t}"]) > 1e-5).mean())
+               for t in T),
+           "assignments_equal": all(np.array_equal(a[f"assign{t}"],
+                                                   b[f"assign{t}"])
+                                    for t in T),
+           "loops_equal": all(int(a[f"loops{t}"]) == int(b[f"loops{t}"])
+                              for t in T),
+           "space_replicas_bit_equal": all(
+               np.array_equal(ra[2 * f][k], ra[2 * f + 1][k])
+               for f in range(2) for k in ("truth", "est", "n_poses")),
+           "launches_by_rank_cuda": {
+               str(r): dict(zip(FLEET_KERNELS,
+                                ra[r]["launches"].tolist()))
+               for r in range(4)}}
+    emit(out)
+    check(out["truth_m"] <= 1e-6, f"sharded ranks: truth {out['truth_m']}")
+    check(out["est_m"] <= 1e-4, f"sharded ranks: estimates {out['est_m']}")
+    check(out["assignments_equal"], "sharded ranks: assignments")
+    check(out["loops_equal"], "sharded ranks: loop counts")
+    check(out["cells_apart_max_share"] <= 1e-4, "sharded ranks: grid cells")
+    check(out["space_replicas_bit_equal"],
+          "sharded ranks: the 'space' replicas differ on the card")
+    for r, launches in out["launches_by_rank_cuda"].items():
+        for name in FLEET_KERNELS:
+            check(launches[name] > 0,
+                  f"sharded ranks: {name} never launched on rank {r}")
+    return out
+
+
+def _demo(argv) -> tuple:
+    """jax_mapping_torch.demo.main(argv) with its standard output captured:
+    (rc, the summary JSON it printed, or None)."""
+    import contextlib
+    import io
+    from jax_mapping_torch import demo
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = demo.main(argv)
+    text = buf.getvalue()
+    i = text.find("{")
+    return rc, (json.loads(text[i:]) if i >= 0 else None)
+
+
+def phase_replay(torch, seed: int, steps: int = 40):
+    """The rosbag workflow on the card: `demo --record` of a tiny_config(2)
+    stack for `steps` steps (every robot's /scan and /odom), then `demo
+    --replay` of that bag into a fresh mapper. The replay must fuse scans
+    and map occupied cells; K1 launches on the replay."""
+    from jax_mapping_torch.io.trace import TraceReplayer
+    from jax_mapping_torch.ops import _cuda
+    with tempfile.TemporaryDirectory() as d:
+        bag = os.path.join(d, "run.npz")
+        t0 = time.perf_counter()
+        rc, live = _demo(["--robots", "2", "--steps", str(steps),
+                          "--seed", str(seed), "--record", bag])
+        record_s = time.perf_counter() - t0
+        check(rc == 0 and live is not None, f"demo --record rc {rc}")
+        n_bag = len(TraceReplayer(bag))
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        t0 = time.perf_counter()
+        rc, rep = _demo(["--robots", "2", "--replay", bag])
+        replay_s = time.perf_counter() - t0
+        launches = dict(_cuda.LAUNCHES)
+    check(rc == 0 and rep is not None, f"demo --replay rc {rc}")
+    out = {"phase": "replay", "steps_recorded": steps,
+           "bag_messages": n_bag, "record_s": record_s,
+           "replay_s": replay_s, "device": rep["device"],
+           "replayed": rep["replayed"], "scans_fused": rep["scans_fused"],
+           "scans_dropped_unpaired": rep["scans_dropped_unpaired"],
+           "cells_occupied": rep["cells_occupied"],
+           "cells_free": rep["cells_free"],
+           "live_cells_occupied": live["cells_occupied"],
+           "launches": launches}
+    emit(out)
+    check(rep["device"].startswith("cuda"), "the replay ran off the card")
+    check(rep["replayed"] == n_bag, "the replay skipped messages")
+    check(rep["scans_fused"] > 0, "the replay fused no scan")
+    check(rep["cells_occupied"] > 0, "the replayed map holds no occupied cell")
+    check(launches["sensor_model_delta"] > 0 or launches["window_apply"] > 0,
+          "no fusion kernel launched on the replay")
+    return out
+
+
 def phase_ab(parent: str, seed: int) -> dict:
     """K1-K7, exact_bfs' frontier costs and 30 steps of the mission stack
     of the tree `parent` and of this one, timed in turns (parent, change,
@@ -5293,6 +5894,14 @@ def main(argv=None) -> int:
         phase_slam_parity(torch, args.seed)
         phase_voxel_parity(torch, args.seed)
         phase_stack_parity(torch, args.seed)
+        sharded, sharded_launches = phase_sharded(torch, SlamConfig(),
+                                                  fleet, args.seed)
+        sharded_kernel_rows(torch, SlamConfig(), args.seed, fleet, mapper,
+                            sharded["k1_launches_by_batch"], rows)
+        phase_sharded_parity(torch, args.seed)
+        phase_dryrun(torch)
+        phase_sharded_ranks(torch, args.seed)
+        phase_replay(torch, args.seed)
         # The mission stack's modules the phases above did not import.
         import jax_mapping_torch.demo  # noqa: F401
         import jax_mapping_torch.resilience  # noqa: F401
@@ -5332,6 +5941,10 @@ def main(argv=None) -> int:
             stack_out["burst"]["launches"][name]
         kernels[-1]["launches_world"] = world_out["launches"][name]
         kernels[-1]["launches_stack_depth"] = depth_out["launches"][name]
+        kernels[-1]["launches_sharded"] = sharded_launches[name]
+    import torch.distributed as dist
+    if dist.is_initialized():
+        dist.destroy_process_group()
     emit({"seconds": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -25,6 +25,16 @@ grid too, when both runs have `--depth-cam`):
 
     python -m jax_mapping_torch.demo --config windowed.json --save-final f.npz
     python -m jax_mapping_torch.demo --config windowed.json --resume f.npz
+
+`--record BAG` records every robot's /scan and /odom (and /depth with
+`--depth-cam`) to a trace in the JAX package's format; `--replay BAG`
+maps from such a trace instead of simulating (no sim, no brain: the
+reference's rosbag workflow, a mapper tick every 40 messages), and
+`--map-prior map.yaml` seeds the mapper with a ROS map_server map before
+stepping (localization on a known map, with `--localization`):
+
+    python -m jax_mapping_torch.demo --robots 2 --record run.npz
+    python -m jax_mapping_torch.demo --robots 2 --replay run.npz --out m.png
 """
 
 from __future__ import annotations
@@ -37,9 +47,6 @@ import time
 #: Flags of the JAX package's demo whose modules are not ported yet: the
 #: flag -> (what it needs, its ROADMAP item).
 REFUSED = {
-    "record": ("io/trace.py (trace recording)", "A.9c"),
-    "replay": ("io/trace.py (trace replay)", "A.9c"),
-    "map_prior": ("io/rosmap.py (map import)", "A.9c"),
     "serve": ("bridge/http_api.py (the HTTP API)", "A.9d"),
     "http_port": ("bridge/http_api.py (the HTTP API)", "A.9d"),
 }
@@ -83,12 +90,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "voxel counts to the summary")
     p.add_argument("--voxel-out", type=str, default=None, metavar="PNG",
                    help="write the final 3D height map as a grayscale PNG "
-                        "(requires --depth-cam)")
+                        "(requires --depth-cam, or --replay of a bag "
+                        "recorded with it)")
+    p.add_argument("--record", type=str, default=None, metavar="BAG",
+                   help="record /scan + /odom (+ /depth with --depth-cam) "
+                        "to a rosbag-style trace during the run")
+    p.add_argument("--replay", type=str, default=None, metavar="BAG",
+                   help="map from a recorded trace instead of simulating "
+                        "(no sim, no brain: scans and odometry come from "
+                        "the bag)")
+    p.add_argument("--map-prior", type=str, default=None, metavar="YAML",
+                   help="seed the mapper with a ROS map_server map "
+                        "(map.yaml + map.pgm) before stepping")
     # Not ported yet: accepted so that the refusal names what is missing.
     p.add_argument("--http-port", type=int, default=None,
                    help=argparse.SUPPRESS)
-    for flag in ("--record", "--replay", "--map-prior"):
-        p.add_argument(flag, type=str, default=None, help=argparse.SUPPRESS)
     p.add_argument("--serve", action="store_true", help=argparse.SUPPRESS)
     return p
 
@@ -105,6 +121,142 @@ def _write_png(path: str, occ) -> None:
     with open(path, "wb") as f:
         f.write(encode_gray(occupancy_to_png_array(occ)))
     print(f"map written to {path}", file=sys.stderr)
+
+
+def replay_bag(rep, cfg, n_robots: int, device=None, depth: bool = False):
+    """Feed a bag's messages (a `TraceReplayer`) to a fresh mapper (and a
+    voxel mapper with `depth`) as `--replay` does: a mapper tick every 40
+    messages, then 4. Returns (mapper, voxel mapper or None, messages)."""
+    from jax_mapping_torch.bridge.bus import Bus
+    from jax_mapping_torch.bridge.mapper import MapperNode
+    bus = Bus()
+    mapper = MapperNode(cfg, bus, n_robots=n_robots, device=device)
+    voxel = None
+    if depth:
+        from jax_mapping_torch.bridge.voxel_mapper import VoxelMapperNode
+        voxel = VoxelMapperNode(cfg, bus, n_robots=n_robots, mapper=mapper)
+    pubs = {}
+    n = 0
+    # Publishing interleaves with mapper ticks: the odometry pairing
+    # history is bounded, so a bag must not be dumped wholesale ahead of
+    # processing.
+    for _stamp, topic, msg in rep.messages():
+        if topic not in pubs:
+            pubs[topic] = bus.publisher(topic)
+        pubs[topic].publish(msg)
+        n += 1
+        if n % 40 == 0:
+            mapper.tick()
+            if voxel is not None:
+                voxel.tick()
+    for _ in range(4):
+        mapper.tick()
+    if voxel is not None:
+        voxel.tick()
+    return mapper, voxel, n
+
+
+def _replay_main(args, cfg) -> int:
+    """Map from a recorded /scan + /odom trace: no sim, no brain, the
+    mapper alone (the reference's rosbag workflow). Bags carrying depth
+    topics (recorded with --depth-cam) also rebuild the 3D voxel map."""
+    from jax_mapping_torch.bridge.brain import robot_ns
+    from jax_mapping_torch.config import configs_equivalent
+    from jax_mapping_torch.io.trace import TraceReplayer
+    from jax_mapping_torch.ops import grid as G
+
+    rep = TraceReplayer(args.replay)
+    # Every expected namespace must appear: a bag recorded with --robots
+    # 2 replayed at 4 would leave robots 2-3 silently unfed, and one
+    # replayed at 1 would publish to topics nothing subscribes to.
+    expected = set()
+    for i in range(args.robots):
+        ns = robot_ns(i, args.robots)
+        expected |= {f"{ns}scan", f"{ns}odom"}
+    bag_topics = {rec["topic"] for rec in rep.index}
+    if not expected <= bag_topics:
+        missing = sorted(expected - bag_topics)
+        print(f"error: bag topics {sorted(bag_topics)} do not cover the "
+              f"expected {sorted(expected)} (missing {missing}) — was the "
+              "bag recorded with a different --robots?", file=sys.stderr)
+        return 2
+    if rep.config_json is not None and \
+            not configs_equivalent(rep.config_json, cfg.to_json()):
+        print("error: bag was recorded under a different config; pass the "
+              "matching --config (the bag stores the recording config)",
+              file=sys.stderr)
+        return 2
+    has_depth = any(t.endswith("depth") for t in bag_topics)
+    if args.voxel_out and not has_depth:
+        print("error: --voxel-out given but the bag has no depth topics "
+              "(was it recorded without --depth-cam?)", file=sys.stderr)
+        return 2
+
+    mapper, voxel, n = replay_bag(rep, cfg, args.robots, args.device,
+                                  depth=has_depth)
+    occ = G.to_occupancy(cfg.grid, mapper.merged_grid()).cpu().numpy()
+    summary = {
+        "replayed": n,
+        "bag": args.replay,
+        "robots": args.robots,
+        "device": str(mapper.device),
+        "cells_free": int((occ == 0).sum()),
+        "cells_occupied": int((occ == 100).sum()),
+        "scans_fused": int(mapper.n_scans_fused),
+        "scans_dropped_unpaired": int(mapper.n_scans_dropped_unpaired),
+    }
+    if voxel is not None:
+        from jax_mapping_torch.ops import voxel as VX
+        occ3 = VX.to_occupancy(cfg.voxel, voxel.voxel_grid())
+        summary["voxels_occupied"] = int((occ3 == 100).sum())
+        summary["voxels_free"] = int((occ3 == 0).sum())
+        summary["depth_images_fused"] = int(voxel.n_images_fused)
+    print(json.dumps(summary, indent=2))
+    if args.out:
+        _write_png(args.out, occ)
+    if args.voxel_out and voxel is not None:
+        from jax_mapping_torch.bridge.png import encode_gray
+        with open(args.voxel_out, "wb") as f:
+            f.write(encode_gray(voxel.height_map_image()))
+        print(f"voxel height map written to {args.voxel_out}",
+              file=sys.stderr)
+    return 0
+
+
+def _recorder(stack, args):
+    """A TraceRecorder on every robot's /scan and /odom (and /depth with
+    --depth-cam)."""
+    from jax_mapping_torch.bridge.brain import robot_ns
+    from jax_mapping_torch.io.trace import TraceRecorder
+    topics = []
+    for i in range(args.robots):
+        ns = robot_ns(i, args.robots)
+        topics += [f"{ns}scan", f"{ns}odom"]
+        if args.depth_cam:
+            topics.append(f"{ns}depth")
+    return TraceRecorder(stack.bus, topics)
+
+
+def _seed_prior(stack, cfg, args) -> int:
+    """Seed the mapper with the --map-prior map: 0, or 2 with a message
+    when --resume is set too or the map cannot be read."""
+    if args.resume:
+        # The checkpoint's grid would be installed over the prior:
+        # refusing beats telling the user the prior is active when it is
+        # not.
+        print("demo: --map-prior and --resume both set a map; pick one "
+              "(a checkpoint already contains its grid)", file=sys.stderr)
+        return 2
+    from jax_mapping_torch.io import rosmap
+    try:
+        n_occ = rosmap.seed_mapper(stack.mapper, args.map_prior, cfg.grid)
+    except rosmap.SEED_ERRORS as e:
+        print(f"demo: cannot seed --map-prior {args.map_prior}: {e}",
+              file=sys.stderr)
+        return 2
+    print(f"demo: seeded map prior from {args.map_prior} "
+          f"({n_occ} occupied cells)")
+    return 0
 
 
 def _resume(stack, cfg, path: str) -> int:
@@ -224,9 +376,21 @@ def main(argv=None) -> int:
     if args.localization:
         cfg = cfg.replace(mode="localization")
 
-    if args.voxel_out and not args.depth_cam:
-        print("error: --voxel-out requires --depth-cam", file=sys.stderr)
+    if args.voxel_out and not args.depth_cam and not args.replay:
+        print("error: --voxel-out requires --depth-cam (or --replay of a "
+              "bag recorded with it)", file=sys.stderr)
         return 2
+
+    if args.replay:
+        clash = [f for f in ("record", "save_final", "resume", "serve",
+                             "depth_cam")
+                 if getattr(args, f)]
+        if clash:
+            flags = ", ".join("--" + f.replace("_", "-") for f in clash)
+            print(f"error: --replay cannot be combined with {flags}",
+                  file=sys.stderr)
+            return 2
+        return _replay_main(args, cfg)
 
     if args.world == "arena":
         world = W.empty_arena(args.world_cells, cfg.grid.resolution_m)
@@ -238,6 +402,11 @@ def main(argv=None) -> int:
                              drop_prob=args.drop_prob, seed=args.seed,
                              depth_cam=args.depth_cam, device=args.device)
     try:
+        recorder = _recorder(stack, args) if args.record else None
+        if args.map_prior:
+            rc = _seed_prior(stack, cfg, args)
+            if rc:
+                return rc
         if args.resume:
             rc = _resume(stack, cfg, args.resume)
             if rc:
@@ -274,6 +443,11 @@ def main(argv=None) -> int:
             summary["voxels_free"] = int((occ3 == 0).sum())
             summary["depth_images_fused"] = int(voxel.n_images_fused)
         print(json.dumps(summary, indent=2))
+        if recorder is not None:
+            recorder.stop()
+            n_rec = recorder.save(args.record, config_json=cfg.to_json())
+            print(f"recorded {n_rec} messages to {args.record}",
+                  file=sys.stderr)
         if args.out:
             _write_png(args.out, occ)
         if args.voxel_out and voxel is not None:

@@ -16,6 +16,10 @@ arrays, the layout a test compares against the JAX side.
 `bridge.sim_node.SimNode` (`sim.sim_state`: poses and wheel speeds; its
 PRNG key is dropped), the other half of a JAX mission stack's state
 beside its mapper's `snapshot_states()`.
+`sharded_state_from_numpy` cuts one rank's shard out of the global view
+of a JAX `parallel.fleet_sharded.ShardedFleetState` (its per-robot keys
+are dropped), and `sharded_state_to_numpy` gathers a mesh's shards back
+into that global view.
 """
 
 from __future__ import annotations
@@ -26,6 +30,8 @@ import torch
 from jax_mapping_torch.models.fleet import FleetState
 from jax_mapping_torch.models.slam import SlamState
 from jax_mapping_torch.ops.posegraph import PoseGraph
+from jax_mapping_torch.parallel import fleet_sharded as FS
+from jax_mapping_torch.parallel.mesh import gather_rows
 from jax_mapping_torch.sim.thymio import FleetSimState
 from jax_mapping_torch.tenancy.megabatch import TenantBatch
 
@@ -126,3 +132,42 @@ def tenant_batch_to_numpy(batch: TenantBatch) -> TenantBatch:
     return TenantBatch(states=fleet_state_to_numpy(batch.states),
                        worlds=n(batch.worlds), keys=n(batch.keys),
                        active=n(batch.active))
+
+
+def sharded_state_from_numpy(tree, coord, mesh_shape, device
+                             ) -> "FS.ShardedFleetState":
+    """The shard of mesh coordinate coord = (fleet index, space index) of
+    a (n_fleet, n_space) mesh, from a JAX ShardedFleetState's global view
+    with numpy leaves: its R / n_fleet robots (graphs and rings too), its
+    slab of N / n_space grid rows, `t` replicated."""
+    (f, s), (n_fleet, n_space) = coord, mesh_shape
+
+    def robots(a):
+        a = np.asarray(a)
+        n = a.shape[0] // n_fleet
+        return _t(a[f * n:(f + 1) * n], device)
+
+    grid = np.asarray(tree.grid)
+    rows = grid.shape[0] // n_space
+    g = tree.graphs
+    return FS.ShardedFleetState(
+        **{k: robots(getattr(tree, k)) for k in FS.FLEET_FIELDS},
+        grid=_t(grid[s * rows:(s + 1) * rows], device),
+        graphs=PoseGraph(*(robots(getattr(g, k))
+                           for k in PoseGraph._fields)),
+        t=_t(tree.t, device))
+
+
+def sharded_state_to_numpy(state: "FS.ShardedFleetState", mesh
+                           ) -> "FS.ShardedFleetState":
+    """The global view of a mesh's shards, with numpy leaves, on every
+    rank: robot leaves gathered along 'fleet', the grid along 'space'
+    (collectives: every rank of the mesh must call it)."""
+    def n(x, axis):
+        return gather_rows(x, mesh, axis).detach().cpu().numpy()
+
+    return FS.ShardedFleetState(
+        **{k: n(getattr(state, k), "fleet") for k in FS.FLEET_FIELDS},
+        grid=n(state.grid, "space"),
+        graphs=PoseGraph(*(n(x, "fleet") for x in state.graphs)),
+        t=state.t.detach().cpu().numpy())

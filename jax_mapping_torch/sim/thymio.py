@@ -74,3 +74,18 @@ def apply_wheel_slip(measured, slip_factor):
     numpy in, numpy out."""
     return np.asarray(measured) * np.asarray(slip_factor,
                                              np.float32)[:, None]
+
+
+def step_robots_keyed(robot: RobotConfig, poses: torch.Tensor,
+                      wheel_speeds: torch.Tensor, targets: torch.Tensor,
+                      dt: float, wheel_normals: torch.Tensor,
+                      speed_noise_frac: float = 0.05):
+    """The sharded fleet step's per-robot motor lag and rk2 step: poses
+    (R, 3), wheel_speeds (R, 2), targets (R, 2). The JAX version draws
+    each robot's noise from its own PRNG key; here the (R, 2) standard
+    normals are the input `wheel_normals`. Returns (poses, wheel_speeds,
+    measured)."""
+    state, measured = step_fleet(robot, FleetSimState(poses, wheel_speeds),
+                                 targets, dt, speed_noise_frac,
+                                 wheel_normals=wheel_normals)
+    return state.poses, state.wheel_speeds, measured

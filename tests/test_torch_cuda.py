@@ -55,6 +55,7 @@ from jax_mapping_torch.sim import world as W
 
 import test_torch_sensor_tiles as ST  # a sibling test file's inputs
 import torch_kernel_inputs as KI
+import torch_sharded_drive as SD
 
 pytestmark = pytest.mark.cuda
 
@@ -1090,3 +1091,28 @@ def test_stack_burst_launches_window_kernel(dev):
     st.mapper.tick()
     assert st.mapper.n_windows_fused - n_win == 2     # one a robot
     assert _cuda.LAUNCHES["window_apply"] >= 2
+
+
+# ---------------------------------------------------------------------------
+# The multi-rank mesh at 1 x 1 (one NCCL rank beside a CPU mesh)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["tiny", "trajectory"])
+def test_sharded_step_on_card_equals_cpu(dev, name):
+    """make_fleet_step on a 1 x 1 card mesh and a 1 x 1 CPU mesh from one
+    state with the same wheel normals (tests/torch_sharded_drive.py):
+    truth to 1e-6 m, estimates to 1e-4 m, assignments and loop counts
+    equal, at most 1e-4 of the cells apart; K1 (both modes), K2 and K3
+    launched on the card."""
+    o = SD.step_card_and_cpu(name)
+    assert SD.step_failures(name, o) == [], o
+    for k in ("sensor_model_delta", "sensor_model_raster", "label_prop",
+              "costfield_relax"):
+        assert o["launches"][k] > 0, k
+
+
+def test_sharded_voxel_fuse_on_card_equals_cpu(dev):
+    """make_voxel_fuse_step on 1 x 1 meshes: the card's region route (K7)
+    against the CPU's plain one, at most 1e-4 of the voxels apart."""
+    v = SD.voxel_fuse_card_and_cpu()
+    assert SD.voxel_failures(v) == [], v

@@ -389,13 +389,19 @@ def test_demo_runs_and_writes_png(tmp_path):
 #: not ported name them; --resume and --save-final are ported and refuse,
 #: as the JAX demo does, a checkpoint that is not there. --depth-cam is
 #: ported (it runs and reports its images), and --voxel-out without it
-#: is refused as the JAX demo refuses it.
-DEMO_REFUSED = [(["--record", "b"], 2, "not port"),
-                (["--replay", "b"], 2, "not port"),
+#: is refused as the JAX demo refuses it. --record, --replay and
+#: --map-prior are ported: the demo refuses --replay beside a flag of a
+#: simulated run, and a --map-prior it cannot read, as the JAX demo does
+#: (tests/test_torch_io.py drives them).
+DEMO_REFUSED = [(["--record", "b", "--replay", "b"], 2,
+                 "--replay cannot be combined with --record"),
+                (["--replay", "b", "--save-final", "c"], 2,
+                 "--replay cannot be combined with --save-final"),
                 (["--resume", "c"], 2, "no checkpoint at c"),
                 (["--save-final", "c", "--resume", "missing.npz"], 2,
                  "no checkpoint at missing.npz"),
-                (["--map-prior", "m.yaml"], 2, "not port"),
+                (["--map-prior", "m.yaml"], 2,
+                 "cannot seed --map-prior m.yaml"),
                 (["--serve"], 2, "not port"),
                 (["--http-port", "0"], 2, "not port"),
                 (["--depth-cam"], 0, '"depth_images_fused": 1'),

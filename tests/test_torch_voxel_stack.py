@@ -122,7 +122,26 @@ from jax_mapping.utils import global_metrics as M
 
 cfg = voxel_stack_config(tiny_config)
 world = W.plank_course(96, cfg.grid.resolution_m, n_planks=4, seed=3)
+
+# The stamps come from a simulated clock (ROS's sim time): every read in
+# a sim step gives that step's time, one control period after the last.
+# With the wall clock, the mapper's odometry rates (pose delta over stamp
+# delta) would round differently on a loaded CPU.
+import types
+from jax_mapping.bridge import brain as _brain, sim_node as _sim_node
+_clock = [1000.0]
+for _mod in (_brain, _sim_node):
+    _mod.time = types.SimpleNamespace(monotonic=lambda: _clock[0])
 st = launch_sim_stack(cfg, world, n_robots=2, seed=0, depth_cam=True)
+_sim_step = st.sim.step
+
+
+def _step_on_the_clock():
+    _clock[0] += 1.0 / cfg.robot.control_rate_hz
+    _sim_step()
+
+
+st.sim.step = _step_on_the_clock
 vm, pl, m = st.voxel_mapper, st.planner, st.mapper
 OUT["init_mapper_poses"] = np.stack([np.asarray(s.pose) for s in m.states])
 events, scans, odoms, depths, fronts = [], [], [], [], []

@@ -8,7 +8,9 @@ their worker. The subprocess also drops the suite's virtual 8-device
 XLA flag, which changes how XLA:CPU vectorises.
 
 A test module hands `run_reference` a script that fills the dict `OUT`
-with arrays; the arrays come back as a dict of numpy arrays.
+with arrays; the arrays come back as a dict of numpy arrays. A reference
+on a device mesh (the JAX package's `parallel/`) passes `n_devices`: the
+subprocess then gets that many virtual CPU devices.
 """
 
 from __future__ import annotations
@@ -54,16 +56,28 @@ def wheel_normals(s):
     return np.asarray(jax.random.normal(k1, s.sim.wheel_speeds.shape))
 '''
 
+#: A script prefix that gives the reference one XLA thread (before JAX is
+#: imported): the suite's parallel workers share the cores.
+ONE_XLA_THREAD = '''
+import os
+os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                           + " --xla_cpu_multi_thread_eigen=false")
+'''
+
 _EPILOGUE = '''
 np.savez(sys.argv[1], **{k: np.asarray(v) for k, v in OUT.items()})
 '''
 
 
-def clean_cpu_env() -> dict:
-    """CPU-pinned env without the suite's virtual-mesh XLA flag."""
+def clean_cpu_env(n_devices: int | None = None) -> dict:
+    """CPU-pinned env without the suite's virtual-mesh XLA flag, or with
+    `n_devices` virtual CPU devices when given."""
     env = {**os.environ, "JAX_PLATFORMS": "cpu"}
     flags = " ".join(f for f in env.get("XLA_FLAGS", "").split()
                      if "xla_force_host_platform_device_count" not in f)
+    if n_devices is not None:
+        flags = (flags + " --xla_force_host_platform_device_count="
+                 f"{n_devices}").strip()
     if flags:
         env["XLA_FLAGS"] = flags
     else:
@@ -74,12 +88,14 @@ def clean_cpu_env() -> dict:
     return env
 
 
-def run_reference(script: str, out_path, timeout: float = 600) -> dict:
-    """Run `script` in a fresh JAX process; return its OUT arrays."""
+def run_reference(script: str, out_path, timeout: float = 600,
+                  n_devices: int | None = None) -> dict:
+    """Run `script` in a fresh JAX process (on `n_devices` virtual CPU
+    devices when given); return its OUT arrays."""
     src = PRELUDE + textwrap.dedent(script) + _EPILOGUE
     r = subprocess.run([sys.executable, "-c", src, str(out_path)],
                        capture_output=True, text=True, timeout=timeout,
-                       env=clean_cpu_env(), cwd=str(REPO))
+                       env=clean_cpu_env(n_devices), cwd=str(REPO))
     if r.returncode != 0:
         raise RuntimeError(f"JAX reference failed (rc {r.returncode}):\n"
                            f"{r.stdout[-2000:]}\n{r.stderr[-6000:]}")
