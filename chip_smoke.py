@@ -131,6 +131,24 @@ Phases, each printed as one JSON line:
            fused or counted as dropped, the auction must assign. Steps/s,
            tick p50/p90 and host syncs by node, overlay rebuilds and
            reuses, keyframes, voxels, peak memory
+  serving  slice 14's main path, map serving and the HTTP API:
+           `launch_sim_stack(SlamConfig(), ..., n_robots=8, depth_cam=True,
+           http_port=0)` on the stack's world, 100 steps while 8 delta
+           clients poll /tiles (336 tiles of 256 cells in 3 levels), 2
+           poll /voxel-tiles (21), 2 poll /map-image and one listens on
+           /map-events, every 0.1 s. Counts are zeroed before the steps
+           and read after: K1, K2, K3 and K6 must launch. Every client's
+           mosaic at every level must equal the live map at the served
+           revision, bit for bit; the dirty hint must miss nothing; repeat
+           GETs answer 304; /save, 10 steps, /load restores the grid and
+           poses; /save-map equals the thresholded grid; /goal and
+           /goal/cancel reach the brain; /status and /metrics carry the
+           serving families. Steps/s beside stack_depth's, the
+           `serving.snapshot` stage p50/p90, tiles encoded and skipped a
+           refresh, host syncs and peak memory of a refresh (clients
+           stopped), request ms by route, bytes a client a second (delta
+           against whole PNG), peak memory; then `demo --serve` in a
+           process of its own, ended by SIGINT
   world    slice 11's main path, the bounded-memory world: `MapperNode`
            on the default SlamConfig with `world.windowed` (an 8-tile
            2048^2 window of 256-cell tiles over an 8192^2 logical lattice,
@@ -148,7 +166,10 @@ Phases, each printed as one JSON line:
            Between the second and third shift a checkpoint with its
            `.world` sidecar (and a copy of the spill file) is restored
            into a fresh node that replays the rest of the drive: its grid,
-           poses and origin must equal the uninterrupted run's
+           poses and origin must equal the uninterrupted run's. Last, one
+           `MapApiServer` on the drive's mapper serves a full /tiles
+           snapshot of the 8192^2 lattice (world_serving line), which
+           must equal `world.compose_serving` with its evicted markers
   world_parity  (a) the JAX package's store drive (`tests/test_world.py`:
            shift, poll, `fuse_scan_global`, a decay pass, a pressure
            hold), scaled to the full window, host-only and with a disk
@@ -220,7 +241,8 @@ Phases, each printed as one JSON line:
   stack_parity  the stack at tiny_config(2), speed_noise_frac=0, 40 steps
            on the card and on the CPU from one seed: truth poses to 1e-6 m,
            the mapper's estimates to 1e-4 m, frontier assignments equal,
-           at most 1e-4 of the grid cells apart
+           at most 1e-4 of the grid cells apart, and both stacks' full
+           /tiles manifests byte-equal
 
   sharded  the multi-rank mesh's main path on one NCCL rank
            (a 1 x 1 ('fleet', 'space') mesh brought up in this process):
@@ -4110,6 +4132,25 @@ class StageSamples:
         del self.timer.observe
 
 
+class HashDevices:
+    """The device types of the images `ops/grid.tile_hashes` is handed
+    while the context is open (a tile store hashes an image where it
+    lies)."""
+
+    def __enter__(self):
+        from jax_mapping_torch.ops import grid as G
+        self.G, self.orig, self.seen = G, G.tile_hashes, set()
+
+        def recording(arr, tile_cells):
+            self.seen.add(arr.device.type)
+            return self.orig(arr, tile_cells)
+        G.tile_hashes = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.G.tile_hashes = self.orig
+
+
 def _stack_step_reads(mapper) -> list:
     """Wraps the mapper's per-step host read: returns the list every
     step's StepRead is appended to."""
@@ -4497,6 +4538,443 @@ def phase_stack_depth(torch, seed: int):
             out, rec, k6_in)
 
 
+#: The serving phase: steps, the clients' poll period, and the steps
+#: between the /save and the /load.
+SERVING_STEPS = 100
+SERVING_POLL_S = 0.1
+SERVING_SAVE_STEPS = 10
+#: Delta clients on /tiles and /voxel-tiles, whole-PNG pollers on
+#: /map-image, and SSE listeners on /map-events.
+SERVING_CLIENTS = {"/tiles": 8, "/voxel-tiles": 2, "/map-image": 2,
+                   "/map-events": 1}
+#: The mapper publishes /map (the /map-image route's source) every this
+#: many steps, as its map timer does in a realtime stack.
+SERVING_PUBLISH_EVERY = 10
+
+
+class _ServingClients:
+    """The serving phase's concurrent clients, each on a thread of its
+    own polling every SERVING_POLL_S: DeltaMapClients on the tile routes
+    (every pyramid level), whole-PNG pollers and SSE listeners. Each keeps
+    its request latencies by route and its errors."""
+
+    def __init__(self, base: str):
+        import threading
+        from jax_mapping_torch.serving.client import DeltaMapClient
+        self.base, self.stop = base, threading.Event()
+        self.delta = {route: [DeltaMapClient(base, route=route,
+                                             timeout_s=120)
+                              for _ in range(SERVING_CLIENTS[route])]
+                      for route in ("/tiles", "/voxel-tiles")}
+        self.png_bytes = [0] * SERVING_CLIENTS["/map-image"]
+        self.sse = {"events": 0, "bytes": 0, "connections": 0}
+        self.lat, self.errors = [], []
+        # Daemons: a phase that fails mid-drive must not leave the
+        # interpreter waiting on its clients at exit.
+        self.threads = [threading.Thread(target=self._delta, args=(c, r),
+                                         daemon=True)
+                        for r, cs in self.delta.items() for c in cs]
+        self.threads += [threading.Thread(target=self._png, args=(k,),
+                                          daemon=True)
+                         for k in range(len(self.png_bytes))]
+        self.threads += [threading.Thread(target=self._sse, daemon=True)
+                         for _ in range(SERVING_CLIENTS["/map-events"])]
+
+    def _note(self, route, t0):
+        self.lat.append((route, (time.perf_counter() - t0) * 1e3))
+
+    def _delta(self, client, route):
+        while not self.stop.is_set():
+            t0 = time.perf_counter()
+            try:
+                client.poll()
+                self._note(route, t0)
+            except Exception as e:               # noqa: BLE001
+                self.errors.append(f"{route}: {type(e).__name__}: {e}")
+            self.stop.wait(SERVING_POLL_S)
+
+    def _png(self, k):
+        import urllib.error
+        import urllib.request
+        while not self.stop.is_set():
+            t0 = time.perf_counter()
+            try:
+                with urllib.request.urlopen(self.base + "/map-image",
+                                            timeout=120) as r:
+                    self.png_bytes[k] += len(r.read())
+                self._note("/map-image", t0)
+            except urllib.error.HTTPError as e:
+                if e.code != 404:                # before the first /map
+                    self.errors.append(f"/map-image: {e}")
+            except Exception as e:               # noqa: BLE001
+                self.errors.append(f"/map-image: {type(e).__name__}: {e}")
+            self.stop.wait(SERVING_POLL_S)
+
+    def _sse(self):
+        import urllib.request
+        while not self.stop.is_set():
+            try:
+                with urllib.request.urlopen(
+                        self.base + "/map-events?timeout_s=10",
+                        timeout=120) as r:
+                    self.sse["connections"] += 1
+                    for line in r:
+                        self.sse["bytes"] += len(line)
+                        self.sse["events"] += line.startswith(b"data:")
+                        if self.stop.is_set():
+                            break
+            except Exception as e:               # noqa: BLE001
+                self.errors.append(f"/map-events: {type(e).__name__}: {e}")
+                self.stop.wait(SERVING_POLL_S)
+
+    def start(self):
+        for t in self.threads:
+            t.start()
+
+    def join(self):
+        self.stop.set()
+        for t in self.threads:
+            t.join(timeout=180)
+        check(not any(t.is_alive() for t in self.threads),
+              "a serving client thread did not stop")
+
+    def latency_by_route(self) -> dict:
+        out = {}
+        for route in SERVING_CLIENTS:
+            xs = sorted(ms for r, ms in self.lat if r == route)
+            if xs:
+                out[route] = {"n": len(xs), "p50": statistics.median(xs),
+                              "p99": xs[min(len(xs) - 1,
+                                            int(0.99 * len(xs)))],
+                              "max": xs[-1]}
+        return out
+
+
+def _serving_expected(torch, cfg, st) -> dict:
+    """route -> the mosaic each pyramid level must hold at the served
+    revision: the grid's `to_gray` and its `downsample_gray` levels, the
+    voxel height image and its block-max levels (host numpy), as many
+    levels as the route's store serves."""
+    from jax_mapping_torch.ops import grid as G
+    from jax_mapping_torch.serving.tiles import _downsample_max_u8
+    out = {}
+    for route, img, down in (
+            ("/tiles", G.to_gray(cfg.grid, st.mapper.merged_grid()),
+             G.downsample_gray),
+            ("/voxel-tiles", torch.as_tensor(
+                st.voxel_mapper.serving_snapshot()[1],
+                device=st.voxel_mapper.device),
+             _downsample_max_u8)):
+        store = st.api.serving.store(
+            "grid" if route == "/tiles" else "voxel-height")
+        levels = [img]
+        for _ in range(len(store.tiles_since(-1, level=0)[2]["levels"])
+                       - 1):
+            levels.append(down(levels[-1]))
+        out[route] = [x.cpu().numpy() for x in levels]
+    return out
+
+
+def _demo_serve(seed: int) -> dict:
+    """`python -m jax_mapping_torch.demo --serve --http-port 0` in a
+    process of its own on the card (tiny_config, 2 robots, 20 steps): its
+    summary's URL must answer /status, /tiles and /metrics while it
+    serves, and Ctrl-C (SIGINT) must end it with exit code 0."""
+    import queue
+    import signal
+    import threading
+    import urllib.request
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [HERE] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "jax_mapping_torch.demo", "--serve",
+         "--http-port", "0", "--steps", "20", "--robots", "2", "--seed",
+         str(seed)], cwd=HERE, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    lines = queue.Queue()
+    readers = [threading.Thread(
+        target=lambda f=f, k=k: [lines.put((k, x)) for x in f], daemon=True)
+        for k, f in (("out", proc.stdout), ("err", proc.stderr))]
+    for r in readers:
+        r.start()
+    out, text = {"phase_part": "demo_serve"}, {"out": "", "err": ""}
+    try:
+        summary = None
+        deadline = time.perf_counter() + 300
+        while summary is None and time.perf_counter() < deadline:
+            try:
+                k, line = lines.get(timeout=1.0)
+                text[k] += line
+            except queue.Empty:
+                check(proc.poll() is None,
+                      f"demo --serve exited {proc.returncode}: {text}")
+                continue
+            i, j = text["out"].find("{\n"), text["out"].find("\n}\n")
+            if 0 <= i < j:
+                summary = json.loads(text["out"][i:j + 2])
+        check(summary is not None and "http" in summary,
+              f"demo --serve printed no summary with a URL: {text}")
+        out["serving_after_s"] = time.perf_counter() - t0
+        out["device"] = summary["device"]
+        for route in ("/status", "/tiles", "/metrics"):
+            with urllib.request.urlopen(summary["http"] + route,
+                                        timeout=60) as r:
+                out[route] = {"status": r.status, "bytes": len(r.read())}
+        tiles = json.loads(urllib.request.urlopen(
+            summary["http"] + "/tiles", timeout=60).read())
+        out["tiles"] = len(tiles["tiles"])
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            rc = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+    out["rc_after_sigint"] = rc
+    check(rc == 0, f"demo --serve exited {rc} after SIGINT")
+    check(out["device"].startswith("cuda"), "demo --serve ran off the card")
+    check(out["tiles"] > 0, "demo --serve served no tile")
+    return out
+
+
+def phase_serving(torch, seed: int, depth_steps_per_s=None):
+    """Slice 14's main path, map serving and the HTTP API, as users start
+    it: `launch_sim_stack(SlamConfig(), STACK_WORLD, n_robots=8,
+    depth_cam=True, http_port=0)` (the 4096^2 grid served as 336 tiles of
+    256 cells in 3 levels, the voxel height map as 21), then
+    `brain.start_exploring()` and SERVING_STEPS `run_steps` while
+    SERVING_CLIENTS poll every SERVING_POLL_S from threads (delta clients
+    on every pyramid level, whole-PNG pollers, an SSE listener), /map
+    published every SERVING_PUBLISH_EVERY steps. Counts are zeroed before
+    the steps and read after: K1, K2, K3 and K6 must launch. Then, with
+    the clients stopped: every client's mosaic at every level equal to
+    the live map bit for bit, `n_hint_missed` 0, a repeat GET answering
+    304, the refresh's host syncs and its peak memory above a tick's,
+    `POST /save`, SERVING_SAVE_STEPS steps, `POST /load` (grid and poses
+    back to the saved ones), `/save-map` against the thresholded grid,
+    `/goal` and `/goal/cancel` at the brain, the serving families on
+    /status and /metrics; last, `demo --serve` in a process of its own."""
+    import urllib.error
+    import urllib.request
+    import numpy as np
+    from jax_mapping_torch.bridge.launch import launch_sim_stack
+    from jax_mapping_torch.config import SlamConfig
+    from jax_mapping_torch.io import rosmap
+    from jax_mapping_torch.ops import _cuda
+    cfg = SlamConfig()
+    world = _stack_world(cfg.grid.resolution_m)
+    t0 = time.perf_counter()
+    st = launch_sim_stack(cfg, world, n_robots=STACK_ROBOTS, seed=seed,
+                          depth_cam=True, http_port=0)
+    torch.cuda.synchronize()
+    launch_s = time.perf_counter() - t0
+    api, m, vm = st.api, st.mapper, st.voxel_mapper
+    base = f"http://127.0.0.1:{api.port}"
+    gstore, vstore = api.serving.map_store, api.serving.voxel_store
+    check(gstore is not None and vstore is not None,
+          "the stack serves no grid or voxel tiles")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serving_")
+    api.checkpoint_dir = tmp
+
+    def post(route):
+        req = urllib.request.Request(base + route, method="POST")
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return json.loads(r.read())
+
+    def get(route, headers=None):
+        req = urllib.request.Request(base + route, headers=headers or {})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, r.headers, r.read()
+    clients = _ServingClients(base)
+    try:
+        st.brain.start_exploring()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_launches()
+        clients.start()
+        with BatchCount(cfg.grid) as bc, SweepRecorder() as rec, \
+                StageSamples("serving.snapshot") as snap, \
+                HashDevices() as hashed:
+            t0 = time.perf_counter()
+            for k in range(SERVING_STEPS):
+                st.run_steps(1)
+                if (k + 1) % SERVING_PUBLISH_EVERY == 0:
+                    m.publish_map()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(_cuda.LAUNCHES)
+            clients.join()
+            poll_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        check(clients.errors == [],
+              f"serving clients failed: {clients.errors[:5]}")
+        check(hashed.seen == {"cuda"},
+              f"the tile stores hashed on {sorted(hashed.seen)}, not the card")
+        g_stats = gstore.stats()
+        v_stats = vstore.stats()
+        n_tiles = {"/tiles": len(gstore.tiles_since(-1)[1]),
+                   "/voxel-tiles": len(vstore.tiles_since(-1)[1])}
+
+        # Quiescent: one more poll brings every client to the live
+        # revision; each mosaic must equal the map at every level.
+        expect = _serving_expected(torch, cfg, st)
+        revs = {"/tiles": m.serving_revision(),
+                "/voxel-tiles": vm.serving_revision()}
+        bad, snapshot_bytes, steady_bytes = [], {}, {}
+        for route, cs in clients.delta.items():
+            for c in cs:
+                c.poll()
+                if c.revision != revs[route] \
+                        or len(c.mosaics) != len(expect[route]) or any(
+                            not np.array_equal(c.mosaics.get(lvl), want)
+                            for lvl, want in enumerate(expect[route])):
+                    bad.append((route, c.revision))
+            snapshot_bytes[route] = statistics.mean(
+                c.snapshot_bytes for c in cs)
+            steady_bytes[route] = statistics.mean(
+                (c.bytes_received - c.snapshot_bytes) / poll_s for c in cs)
+        c0 = clients.delta["/tiles"][0]
+        n304 = c0.n_not_modified
+        c0.poll()
+        etag_hit = c0.n_not_modified == n304 + 1
+
+        # A refresh's host syncs and its peak above a tick's, counted with
+        # no client running (the sync debug mode is process-wide).
+        refresh = {"syncs": [], "peak_above_live": [],
+                   "tick_peak_above_live": []}
+        for _ in range(3):
+            torch.cuda.synchronize()
+            live = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            st.run_steps(1)
+            torch.cuda.synchronize()
+            refresh["tick_peak_above_live"].append(
+                torch.cuda.max_memory_allocated() - live)
+            live = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            _r, n = _count_syncs(torch, gstore.refresh)
+            torch.cuda.synchronize()
+            refresh["syncs"].append(n)
+            refresh["peak_above_live"].append(
+                torch.cuda.max_memory_allocated() - live)
+
+        # /save, steps, /load: the grid and poses come back.
+        saved = post("/save")
+        grid_saved = m.merged_grid().clone()
+        poses_saved = m._read_poses()
+        st.run_steps(SERVING_SAVE_STEPS)
+        moved = not torch.equal(m.merged_grid(), grid_saved)
+        poses_moved = not np.array_equal(m._read_poses(), poses_saved)
+        loaded = post("/load")
+        roundtrip = {
+            "saved": saved["status"], "loaded": loaded["status"],
+            "voxel_sidecar": "voxel_path" in loaded,
+            "grid_moved_between": moved, "poses_moved_between": poses_moved,
+            "grid_equal": bool(torch.equal(m.merged_grid(), grid_saved)),
+            "poses_equal": bool(np.array_equal(m._read_poses(),
+                                               poses_saved))}
+        body = post("/save-map?name=map")
+        occ, _res, _origin = rosmap.load_map(body["yaml"])
+        lo = m.merged_grid().cpu().numpy()
+        want = np.full(lo.shape, -1, np.int8)
+        want[lo <= cfg.grid.free_threshold] = 0
+        want[lo >= cfg.grid.occ_threshold] = 100
+        save_map_equal = bool(np.array_equal(occ, want))
+        goal = post("/goal?x=1.0&y=-0.5&robot=3")
+        goal_at_brain = st.brain.status()["goals"][3] == {"x": 1.0,
+                                                         "y": -0.5}
+        cancel = post("/goal/cancel?robot=3")
+        goal_cleared = st.brain.status()["goals"][3] is None
+        _s, _h, status = get("/status")
+        status = json.loads(status)
+        _s, _h, metrics = get("/metrics")
+        metrics = metrics.decode()
+        families = ("jax_mapping_serving_grid_revision",
+                    "jax_mapping_serving_grid_tiles_encoded_total",
+                    "jax_mapping_serving_voxel_revision",
+                    "jax_mapping_serving_events_total",
+                    "jax_mapping_stage_serving_snapshot_seconds",
+                    "jax_mapping_http_request_seconds",
+                    "jax_mapping_checkpoint_fallback_total")
+        missing = [f for f in families if f"# TYPE {f} " not in metrics]
+        _s, h, _b = get("/map-image")
+        try:
+            get("/map-image", {"If-None-Match": h["ETag"]})
+            png_304 = False
+        except urllib.error.HTTPError as e:
+            png_304 = e.code == 304
+        demo = _demo_serve(seed)
+
+        n_ref = max(1, g_stats["n_refreshes"])
+        png_rate = statistics.mean(b / poll_s for b in clients.png_bytes)
+        out = {"phase": "serving",
+               "config": "SlamConfig(), depth_cam, http_port=0",
+               "world": STACK_WORLD, "robots": STACK_ROBOTS,
+               "steps": SERVING_STEPS, "clients": SERVING_CLIENTS,
+               "poll_s": SERVING_POLL_S, "launch_s": launch_s,
+               "wall_s": wall, "steps_per_s": SERVING_STEPS / wall,
+               "stack_depth_steps_per_s_reference": depth_steps_per_s,
+               "serving_snapshot_ms": {**_p50_p90(snap.ms),
+                                       "n": len(snap.ms),
+                                       "max": max(snap.ms)},
+               "grid_store": g_stats, "voxel_store": v_stats,
+               "tiles_in_snapshot": n_tiles,
+               "tiles_encoded_per_refresh":
+                   g_stats["n_tiles_encoded"] / n_ref,
+               "tiles_clean_skipped_per_refresh":
+                   g_stats["n_tiles_clean_skipped"] / n_ref,
+               "refresh": refresh,
+               "request_ms_by_route": clients.latency_by_route(),
+               "bytes_per_client_per_s": {
+                   "tiles_steady": steady_bytes["/tiles"],
+                   "voxel_tiles_steady": steady_bytes["/voxel-tiles"],
+                   "whole_png": png_rate,
+                   "png_over_tiles": (png_rate / steady_bytes["/tiles"]
+                                      if steady_bytes["/tiles"] else None)},
+               "snapshot_bytes": snapshot_bytes,
+               "sse": clients.sse,
+               "events": api.serving.stats()["events"],
+               "clients_at_live_revision_and_equal":
+                   sum(len(cs) for cs in clients.delta.values()) - len(bad),
+               "clients_bad": bad, "etag_304": etag_hit,
+               "map_image_304": png_304,
+               "save_load": roundtrip, "save_map_equal": save_map_equal,
+               "goal": [goal.get("status"), goal_at_brain,
+                        cancel.get("status"), goal_cleared],
+               "status_keys": sorted(status),
+               "metrics_missing": missing,
+               "launches": launches, "k1_launches_by_batch": bc.n,
+               "peak_bytes": peak, "demo_serve": demo}
+        emit(out)
+        check(bad == [], f"serving: clients off the live map: {bad}")
+        check(g_stats["n_hint_missed"] == 0,
+              f"serving: the dirty hint missed {g_stats['n_hint_missed']}")
+        check(etag_hit and png_304, "serving: a repeat GET did not 304")
+        check(all(roundtrip[k] for k in ("voxel_sidecar", "poses_moved_between",
+                                         "grid_equal", "poses_equal")),
+              f"serving: /save then /load: {roundtrip}")
+        check(save_map_equal, "serving: /save-map differs from the grid")
+        check(goal_at_brain and goal_cleared,
+              "serving: /goal or /goal/cancel did not reach the brain")
+        check(not missing and status["n_scans_fused"] > 0
+              and status["n_images_fused"] > 0,
+              f"serving: /status or /metrics incomplete: {missing}")
+        check(clients.sse["events"] > 0, "serving: the SSE listener got no event")
+        for name in FLEET_KERNELS + ("voxel_image",):
+            check(launches[name] > 0,
+                  f"kernel {name} never launched on the serving path")
+        return ({"per": f"{SERVING_STEPS} serving stack steps",
+                 "k1_launches_by_batch": bc.n}, out, rec)
+    finally:
+        clients.stop.set()
+        st.shutdown()
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def _k1_key(row: dict) -> str:
     """A K1 row's BatchCount key."""
     tag = (f"@{row['grid_resolution_m']:g}m" if "grid_resolution_m" in row
@@ -4518,7 +4996,8 @@ def stack_kernel_rows(torch, cfg, world, gen, fleet: dict, mapper: dict,
     n_samples = int(cfg.scan.range_max_m / (res * 0.5))
     out = {}
     stacks = [new_paths[k]["k1_launches_by_batch"]
-              for k in ("stack", "stack_depth") if k in new_paths]
+              for k in ("stack", "stack_depth", "serving")
+              if k in new_paths]
     for name, raster in (("sensor_model_delta", False),
                          ("sensor_model_raster", True)):
         covered = {_k1_key(r) for k, r in rows.items()
@@ -4595,7 +5074,9 @@ def phase_stack_parity(torch, seed: int, steps: int = STACK_PARITY_STEPS):
     plank_course(96, 0.05, n_planks=4, seed=3), the same seed, `steps`
     steps on the card and on the CPU: truth poses to 1e-6 m, the mapper's
     estimates to 1e-4 m, every step; every frontier assignment equal; the
-    grids equal but for at most 1e-4 of the cells."""
+    grids equal but for at most 1e-4 of the cells. Both stacks serve HTTP
+    (`http_port=0`): their full `/tiles` manifests must be byte-equal, the
+    card's hashed on the card."""
     import dataclasses
     import numpy as np
     from jax_mapping_torch.bridge.launch import launch_sim_stack
@@ -4607,7 +5088,8 @@ def phase_stack_parity(torch, seed: int, steps: int = STACK_PARITY_STEPS):
     world = W.plank_course(96, cfg.grid.resolution_m, n_planks=4, seed=3)
     runs = {}
     for dev in ("cuda", "cpu"):
-        st = launch_sim_stack(cfg, world, n_robots=2, seed=seed, device=dev)
+        st = launch_sim_stack(cfg, world, n_robots=2, seed=seed, device=dev,
+                              http_port=0)
         fronts = []
         st.bus.subscribe("/frontiers", callback=lambda f, fr=fronts:
                          fr.append(np.asarray(f.assignment)))
@@ -4622,6 +5104,9 @@ def phase_stack_parity(torch, seed: int, steps: int = STACK_PARITY_STEPS):
                      "grid": st.mapper.shared_grid.cpu().numpy(),
                      "keys": [int(s.n_keyscans) for s in st.mapper.states],
                      "plans": st.planner.n_frontier_plans}
+        with HashDevices() as hashed:
+            runs[dev]["tiles"] = st.api.handle("/tiles?since=-1")[2]
+        runs[dev]["hashed_on"] = ",".join(sorted(hashed.seen))
         st.shutdown()
     a, b = runs["cuda"], runs["cpu"]
     out = {"phase": "stack_parity", "config": "tiny_config(2), "
@@ -4639,7 +5124,10 @@ def phase_stack_parity(torch, seed: int, steps: int = STACK_PARITY_STEPS):
            "cells_differ": int((a["grid"] != b["grid"]).sum()),
            "cells_total": int(a["grid"].size),
            "key_scans": {"cuda": a["keys"], "cpu": b["keys"]},
-           "frontier_plans": {"cuda": a["plans"], "cpu": b["plans"]}}
+           "frontier_plans": {"cuda": a["plans"], "cpu": b["plans"]},
+           "tiles_manifest_bytes": len(a["tiles"]),
+           "tiles_manifests_equal": a["tiles"] == b["tiles"],
+           "tiles_hashed_on": [a["hashed_on"], b["hashed_on"]]}
     emit(out)
     check(out["truth_m"] <= 1e-6, f"stack parity: truth poses {out}")
     check(out["est_m"] <= 1e-4 and out["est_rad"] <= 1e-4,
@@ -4647,6 +5135,9 @@ def phase_stack_parity(torch, seed: int, steps: int = STACK_PARITY_STEPS):
     check(out["assignments_equal"], "stack parity: frontier assignments")
     check(out["cells_differ"] <= 1e-4 * out["cells_total"],
           f"stack parity: {out['cells_differ']} grid cells differ")
+    check(out["tiles_manifests_equal"]
+          and out["tiles_hashed_on"] == ["cuda", "cpu"],
+          "stack parity: the card's /tiles manifest differs from the CPU's")
     return out
 
 
@@ -4970,12 +5461,70 @@ def phase_world(torch, seed: int):
               and r_["pose_max_diff_rad"] == 0.0
               and tuple(r_["origin"]) == tuple(status["origin_tile"]),
               f"the resumed run differs from the continuous one: {r_}")
+        _world_serving(torch, m, bus)
         return ({"per": f"{len(lead)} world ticks",
                  "k1_launches_by_batch": bc.n}, out, rec, bc.inputs)
     finally:
         for nd in nodes:
             nd.destroy()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _world_serving(torch, m, bus) -> dict:
+    """One `MapApiServer` on the world drive's windowed mapper: a full
+    `/tiles` snapshot of the 8192^2 lattice (32 x 32 level-0 tiles, three
+    levels) must equal `world.compose_serving` of the window's gray, with
+    every away tile a typed evicted marker and the coarser levels the
+    composed mosaic's `downsample_gray`."""
+    import numpy as np
+    from jax_mapping_torch.bridge.http_api import MapApiServer
+    from jax_mapping_torch.ops import grid as G
+    from jax_mapping_torch.serving.client import DeltaMapClient
+    api = MapApiServer(bus, mapper=m, port=0)
+    try:
+        torch.cuda.synchronize()
+        live = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with HashDevices() as hashed:
+            res = api.handle("/tiles?since=-1")
+        ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - live
+        check(res[0] == 200, f"world serving: /tiles answered {res[0]}")
+        body = json.loads(res[2])
+        client = DeltaMapClient("http://unused")
+        client.apply(body)
+        g = m.full_cfg.grid
+        mosaic, evicted = m.world.compose_serving(
+            G.to_gray(g, m.merged_grid()).cpu().numpy())
+        levels = [torch.as_tensor(mosaic)]
+        for _ in range(len(body["levels"]) - 1):
+            levels.append(G.downsample_gray(levels[-1]))
+        markers = sorted((e["ty"], e["tx"]) for e in body["tiles"]
+                         if e.get("evicted"))
+        out = {"phase": "world_serving", "size_cells": body["size_cells"],
+               "levels": [lv["size_cells"] for lv in body["levels"]],
+               "tiles": len(body["tiles"]), "evicted_markers": len(markers),
+               "evicted_tiles_meta": body.get("evicted_tiles"),
+               "first_snapshot_ms": ms, "body_bytes": len(res[2]),
+               "refresh_peak_above_live": peak,
+               "hashed_on": ",".join(sorted(hashed.seen)),
+               "levels_equal": [bool(np.array_equal(
+                   client.image(k), lv.cpu().numpy()))
+                   for k, lv in enumerate(levels)],
+               "markers_equal_away_set": markers == sorted(
+                   map(tuple, np.argwhere(evicted).tolist()))}
+    finally:
+        api.shutdown()
+    emit(out)
+    check(out["size_cells"] == WORLD_LOGICAL_CELLS
+          and out["hashed_on"] == "cuda",
+          f"world serving: the manifest is not the logical lattice: {out}")
+    check(all(out["levels_equal"]) and out["markers_equal_away_set"]
+          and out["evicted_markers"] > 0,
+          f"world serving: the snapshot differs from compose_serving: {out}")
+    return out
 
 
 #: The JAX package's store walk (`tests/test_world.py::_WALK`, metres at
@@ -5861,6 +6410,8 @@ def main(argv=None) -> int:
             torch, args.seed)
         new_paths["stack_depth"], depth_out, depth_rec, depth_k6 = \
             phase_stack_depth(torch, args.seed)
+        new_paths["serving"], serving_out, serving_rec = phase_serving(
+            torch, args.seed, depth_out["steps_per_s"])
         new_paths["world"], world_out, world_rec, world_k1 = phase_world(
             torch, args.seed)
         world_par, world_k1_global = phase_world_parity(torch, args.seed)
@@ -5880,7 +6431,8 @@ def main(argv=None) -> int:
                              {"recs": {"exact_bfs": exact_rec,
                                        "tenant_exact_bfs":
                                            option_recs["exact_bfs"],
-                                       "stack_depth": depth_rec},
+                                       "stack_depth": depth_rec,
+                                       "serving": serving_rec},
                               "k6": depth_k6,
                               "k6_launches_per_step":
                                   depth_out["launches"]["voxel_image"]
@@ -5889,7 +6441,7 @@ def main(argv=None) -> int:
         voxel_summed_launches = bench["launches"]["voxel_summed"]
         del mapped, world, st, vstate, bench, publisher, planned, tenancy
         del stack_rec, world_rec, world_k1, world_k1_global
-        del exact_rec, option_recs, depth_rec, depth_k6
+        del exact_rec, option_recs, depth_rec, depth_k6, serving_rec
         phase_parity(torch, args.seed)
         phase_slam_parity(torch, args.seed)
         phase_voxel_parity(torch, args.seed)
@@ -5942,6 +6494,7 @@ def main(argv=None) -> int:
         kernels[-1]["launches_world"] = world_out["launches"][name]
         kernels[-1]["launches_stack_depth"] = depth_out["launches"][name]
         kernels[-1]["launches_sharded"] = sharded_launches[name]
+        kernels[-1]["launches_serving"] = serving_out["launches"][name]
     import torch.distributed as dist
     if dist.is_initialized():
         dist.destroy_process_group()

@@ -24,9 +24,12 @@ and the mapper's frontier auction runs, on the 2D map overlaid with the
 voxel map's obstacle slice. Its grid and keyframe ring ride beside each
 auto-checkpoint as the voxel and keyframe sidecars.
 
+`http_port` serves the HTTP API (`bridge/http_api.py`, `Stack.api`) on
+that port (0 picks a free one) from a thread of its own: the management
+plane's routes, the tile serving and `/map-events`.
+
 Not ported yet, and refused with NotImplementedError naming the ROADMAP
-item rather than silently dropped: the HTTP API (`http_port`), the
-observability tier
+item rather than silently dropped: the observability tier
 (`cfg.obs.enabled`, `cfg.obs.devprof.enabled`), the warm-restart tier
 (`cfg.cold_start.enabled`) and the tenancy control plane
 (`cfg.tenancy.enabled`). So is the staged warm-up ladder of a mapper
@@ -50,6 +53,7 @@ from jax_mapping_torch._util import resolve_device
 from jax_mapping_torch.bridge.brain import ThymioBrain, robot_ns
 from jax_mapping_torch.bridge.bus import Bus
 from jax_mapping_torch.bridge.driver import SimulatedThymioDriver
+from jax_mapping_torch.bridge.http_api import MapApiServer
 from jax_mapping_torch.bridge.mapper import MapperNode
 from jax_mapping_torch.bridge.messages import Header, TransformStamped
 from jax_mapping_torch.bridge.node import Executor
@@ -86,6 +90,7 @@ class Stack:
     supervisor: Optional[Supervisor] = None  # heartbeat watch + restarts
     recovery: Optional[RecoveryManager] = None   # estimator guardrails
     voxel_mapper: Optional[VoxelMapperNode] = None   # when depth_cam
+    api: Optional[MapApiServer] = None       # when http_port is given
     #: Auto-checkpoint file the supervisor saves to and the mapper
     #: resumes from ("" = no checkpoint_dir, no auto-checkpointing).
     auto_checkpoint_path: str = ""
@@ -232,9 +237,15 @@ class Stack:
             # The voxel node survives the restart, its map with it; it
             # follows the new node's corrections and graph from here.
             self.voxel_mapper.mapper = new
+        if self.api is not None:
+            # Rebuilds the serving bundle around the new node: its tile
+            # stores and revision listener closed over the old one.
+            self.api.rebind_mapper(new)
         self._killed.discard("jax_mapper")
 
     def shutdown(self) -> None:
+        if self.api is not None:
+            self.api.shutdown()
         self.executor.shutdown()
 
 
@@ -247,10 +258,8 @@ def _anchor(mapper: MapperNode, poses: np.ndarray) -> None:
         mapper.states[i] = st._replace(pose=dev_poses[i])
 
 
-def _refuse_unported(cfg: SlamConfig, http_port) -> None:
+def _refuse_unported(cfg: SlamConfig) -> None:
     refused = [
-        (http_port is not None, "http_port: the HTTP API "
-         "(bridge/http_api.py) is not ported yet (ROADMAP A.9d)"),
         (cfg.world.windowed and cfg.planner.enabled, "cfg.world.windowed "
          "with cfg.planner.enabled: the JAX package's planner plans with "
          "the logical grid config on the mapper's window-sized grid, in "
@@ -284,8 +293,9 @@ def launch_sim_stack(cfg: SlamConfig, world: np.ndarray,
     idle so callers step deterministically via `Stack.run_steps`;
     realtime=True spins the executor thread. `seed` seeds the bus's loss
     weather, the fleet's spawn radii and wheel noise, and the
-    supervisor's jitter."""
-    _refuse_unported(cfg, http_port)
+    supervisor's jitter. `http_port` serves the HTTP API (0: a free
+    port, `Stack.api.port`)."""
+    _refuse_unported(cfg)
     dev = resolve_device(device)
     res = world_res_m if world_res_m is not None else cfg.grid.resolution_m
     # The always-on flight recorder follows the newest stack; its dumps
@@ -351,6 +361,15 @@ def launch_sim_stack(cfg: SlamConfig, world: np.ndarray,
                                 tick_period_s=1.0
                                 / cfg.robot.control_rate_hz)
 
+    api = None
+    if http_port is not None:
+        api = MapApiServer(bus, brain=brain, port=http_port,
+                           mapper=mapper, voxel_mapper=voxel_mapper,
+                           planner=planner, health=health,
+                           supervisor=supervisor, recovery=recovery,
+                           lock_timeout_s=cfg.resilience.http_lock_timeout_s)
+        api.serve_thread()
+
     nodes = [sim, brain, mapper] + \
         ([voxel_mapper] if voxel_mapper is not None else []) + \
         ([planner] if planner is not None else []) + \
@@ -360,7 +379,7 @@ def launch_sim_stack(cfg: SlamConfig, world: np.ndarray,
                   brain=brain, mapper=mapper, executor=executor, device=dev,
                   planner=planner, health=health, supervisor=supervisor,
                   recovery=recovery, world_spill_dir=world_spill_dir,
-                  voxel_mapper=voxel_mapper)
+                  voxel_mapper=voxel_mapper, api=api)
     if supervisor is not None:
         # The brain has no restarter: its driver link and poses cannot be
         # rebuilt; its death is declared and exported.

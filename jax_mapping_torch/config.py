@@ -437,8 +437,9 @@ class ObsConfig:
 
 @_frozen
 class ServingConfig:
-    """Tiled delta-map distribution. The port serves no tiles yet; the
-    tenancy path reads `tile_cells` through `world.store.window_slam_config`."""
+    """Tiled delta-map distribution (`serving/`, `bridge/http_api.py`):
+    the mapper's map revision and dirty-tile marks, and the `/tiles`,
+    `/voxel-tiles` and `/map-events` routes."""
 
     enabled: bool = True
     # Tile edge in cells at every pyramid level; divides grid.size_cells.

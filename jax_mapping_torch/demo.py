@@ -35,6 +35,13 @@ stepping (localization on a known map, with `--localization`):
 
     python -m jax_mapping_torch.demo --robots 2 --record run.npz
     python -m jax_mapping_torch.demo --robots 2 --replay run.npz --out m.png
+
+`--http-port PORT` serves the HTTP API (`bridge/http_api.py`) while the
+stack steps (0 picks a free port; the summary's `"http"` gives the URL),
+and `--serve` keeps it up after the steps until Ctrl-C, for `curl
+/status`, `/map-image`, `/tiles`, `/metrics`, `/start`, `/stop`:
+
+    python -m jax_mapping_torch.demo --serve --http-port 5000
 """
 
 from __future__ import annotations
@@ -43,13 +50,6 @@ import argparse
 import json
 import sys
 import time
-
-#: Flags of the JAX package's demo whose modules are not ported yet: the
-#: flag -> (what it needs, its ROADMAP item).
-REFUSED = {
-    "serve": ("bridge/http_api.py (the HTTP API)", "A.9d"),
-    "http_port": ("bridge/http_api.py (the HTTP API)", "A.9d"),
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -102,10 +102,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--map-prior", type=str, default=None, metavar="YAML",
                    help="seed the mapper with a ROS map_server map "
                         "(map.yaml + map.pgm) before stepping")
-    # Not ported yet: accepted so that the refusal names what is missing.
     p.add_argument("--http-port", type=int, default=None,
-                   help=argparse.SUPPRESS)
-    p.add_argument("--serve", action="store_true", help=argparse.SUPPRESS)
+                   help="serve the HTTP API on this port (0 = pick free)")
+    p.add_argument("--serve", action="store_true",
+                   help="keep serving HTTP after stepping (Ctrl-C to exit)")
     return p
 
 
@@ -356,13 +356,6 @@ def _save_final(stack, cfg, path: str) -> None:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     args.robots = max(1, args.robots)
-    for name, (needs, item) in REFUSED.items():
-        value = getattr(args, name)
-        if value is not None and value is not False:
-            flag = "--" + name.replace("_", "-")
-            print(f"error: {flag} needs {needs}, which jax_mapping_torch "
-                  f"does not port yet (ROADMAP {item})", file=sys.stderr)
-            return 2
 
     from jax_mapping_torch.bridge.launch import launch_sim_stack
     from jax_mapping_torch.config import SlamConfig, tiny_config
@@ -398,9 +391,12 @@ def main(argv=None) -> int:
         world = W.rooms_world(args.world_cells, cfg.grid.resolution_m,
                               seed=args.seed)
 
+    port = args.http_port if args.http_port is not None else (
+        0 if args.serve else None)
     stack = launch_sim_stack(cfg, world, n_robots=args.robots,
-                             drop_prob=args.drop_prob, seed=args.seed,
-                             depth_cam=args.depth_cam, device=args.device)
+                             http_port=port, drop_prob=args.drop_prob,
+                             seed=args.seed, depth_cam=args.depth_cam,
+                             device=args.device)
     try:
         recorder = _recorder(stack, args) if args.record else None
         if args.map_prior:
@@ -442,7 +438,9 @@ def main(argv=None) -> int:
             summary["voxels_occupied"] = int((occ3 == 100).sum())
             summary["voxels_free"] = int((occ3 == 0).sum())
             summary["depth_images_fused"] = int(voxel.n_images_fused)
-        print(json.dumps(summary, indent=2))
+        if stack.api is not None:
+            summary["http"] = f"http://127.0.0.1:{stack.api.port}"
+        print(json.dumps(summary, indent=2), flush=True)
         if recorder is not None:
             recorder.stop()
             n_rec = recorder.save(args.record, config_json=cfg.to_json())
@@ -458,6 +456,14 @@ def main(argv=None) -> int:
                   file=sys.stderr)
         if args.save_final:
             _save_final(stack, cfg, args.save_final)
+        if args.serve:
+            print(f"serving on http://127.0.0.1:{stack.api.port} — Ctrl-C "
+                  f"to exit", file=sys.stderr, flush=True)
+            try:
+                while True:
+                    time.sleep(1.0)
+            except KeyboardInterrupt:
+                pass
         return 0
     finally:
         stack.shutdown()

@@ -22,12 +22,14 @@ prior (`.prior`), the voxel grid (`.voxel`), the depth-keyframe ring
 from __future__ import annotations
 
 import glob
+import io
 import json
 import os
 import re
+import threading
 import zipfile
 import zlib
-from typing import Any, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +37,16 @@ import torch
 from jax_mapping_torch.obs.recorder import flight_recorder
 
 _META_KEY = "__jax_mapping_meta__"
+
+#: Fallback-slot load counters: which generation
+#: `load_checkpoint_with_fallback` actually resumed from, so a silent
+#: `.prev` rescue is distinguishable from a clean primary load. The HTTP
+#: plane renders them as `jax_mapping_checkpoint_fallback_total{slot=...}`;
+#: all three slots always report (an absent label and a zero counter mean
+#: different things to a rate() query).
+_FALLBACK_SLOTS = ("primary", "prev", "generation")
+_fallback_lock = threading.Lock()
+_fallback_counts: Dict[str, int] = {s: 0 for s in _FALLBACK_SLOTS}
 
 
 class CheckpointCorrupt(ValueError):
@@ -52,6 +64,12 @@ def fallback_slot(path: str, used_path: str) -> str:
     if used_path == previous_checkpoint_path(path):
         return "prev"
     return "generation"
+
+
+def fallback_counts() -> Dict[str, int]:
+    """Snapshot of the per-slot fallback-load counters."""
+    with _fallback_lock:
+        return dict(_fallback_counts)
 
 
 def previous_checkpoint_path(path: str) -> str:
@@ -308,6 +326,8 @@ def load_checkpoint_with_fallback(path: str, like: Any
                 first_err = e
             continue
         slot = fallback_slot(path, p)
+        with _fallback_lock:
+            _fallback_counts[slot] += 1
         flight_recorder.record("checkpoint_fallback", slot=slot,
                                name=os.path.basename(p),
                                fell_back=slot != "primary")
@@ -583,3 +603,15 @@ def clear_world_sidecar(path: str) -> bool:
         os.unlink(wp)
         return True
     return False
+
+
+def checkpoint_bytes(state: Any, config_json: Optional[str] = None) -> bytes:
+    """In-memory variant of `save_checkpoint` (for shipping state over a
+    wire): the same keys and meta record as the JAX package's, without
+    the per-leaf CRCs, as one `.npz` byte string."""
+    buf = io.BytesIO()
+    arrays = {key: _to_numpy(leaf) for key, leaf in _flatten(state)}
+    meta = {"keys": list(arrays.keys()), "config": config_json, "version": 1}
+    arrays[_META_KEY] = np.frombuffer(json.dumps(meta).encode(), np.uint8)
+    np.savez_compressed(buf, **arrays)
+    return buf.getvalue()

@@ -383,7 +383,12 @@ class IncrementalFrontierPipeline:
         self._last_cells = cells
         self.last_device_result = fr
         self.n_recomputes += 1
-        self.last_recompute_ms = round((time.perf_counter() - t0) * 1e3, 3)
+        dt = time.perf_counter() - t0
+        self.last_recompute_ms = round(dt * 1e3, 3)
+        # The `frontier.recompute` stage renders as /metrics' summary and
+        # histogram families; last_recompute_ms is /status' number.
+        from jax_mapping_torch.utils import global_metrics
+        global_metrics.stages.observe("frontier.recompute", dt)
         self.last_crop = crop
         return out
 

@@ -462,8 +462,11 @@ def merge_delta(grid_cfg: GridConfig, grid_arr: torch.Tensor,
 def _select3(a: torch.Tensor, b: torch.Tensor, va: int, vb: int,
              vc: int, dtype) -> torch.Tensor:
     """va where a, else vb where b, else vc, as `dtype` (no mask
-    indexing, which would read a count back from the device)."""
-    return torch.where(a, va, torch.where(b, vb, vc)).to(dtype)
+    indexing, which would read a count back from the device). Filled in
+    `dtype` itself: `torch.where` on Python scalars builds int64 arrays,
+    eight times the bytes of a uint8 image."""
+    out = torch.full(a.shape, vc, dtype=dtype, device=a.device)
+    return out.masked_fill_(b, vb).masked_fill_(a, va)
 
 
 def to_occupancy(grid_cfg: GridConfig, grid_arr: torch.Tensor
@@ -503,6 +506,12 @@ def _mul32(v: torch.Tensor, w) -> torch.Tensor:
     return (lo + hi) & _MASK32
 
 
+#: Cells a `tile_hashes` chunk covers (whole tile rows, at least one):
+#: each int64 temporary of a chunk is 16 MB, so a hash's device peak stays
+#: near a few times that however large the image is.
+_HASH_CHUNK_CELLS = 1 << 21
+
+
 def tile_hashes(arr: torch.Tensor, tile_cells: int) -> torch.Tensor:
     """(H, W) array -> (H//t, W//t, 2) per-tile content hashes: the JAX
     package's two multiplicative-weight uint32 lanes, with wraparound.
@@ -510,21 +519,31 @@ def tile_hashes(arr: torch.Tensor, tile_cells: int) -> torch.Tensor:
     int64 with each product reduced mod 2^32 and the tile sums (< 2^48
     for a 256^2 tile) reduced after; the values are those of the uint32
     lanes, held in an int64 tensor. Float arrays hash their bit
-    patterns."""
+    patterns. A tile's hash depends on its own cells only, so the rows
+    of tiles are hashed in chunks of `_HASH_CHUNK_CELLS`."""
     h, w = arr.shape
     if h % tile_cells or w % tile_cells:
         raise ValueError(f"array shape ({h}, {w}) not divisible by "
                          f"tile_cells={tile_cells}")
-    th, tw = h // tile_cells, w // tile_cells
+    idx = torch.arange(tile_cells * tile_cells, dtype=torch.int64,
+                       device=arr.device).reshape(tile_cells, tile_cells)
+    w1 = (_mul32(idx, 2654435761) + 0x9E3779B9) & _MASK32
+    w2 = (_mul32(idx ^ 0x85EBCA6B, 2246822519) + 1) & _MASK32
+    rows = max(1, _HASH_CHUNK_CELLS // (tile_cells * w)) * tile_cells
+    parts = [_tile_row_hashes(arr[r:r + rows], tile_cells, w1, w2)
+             for r in range(0, h, rows)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _tile_row_hashes(arr: torch.Tensor, tile_cells: int, w1: torch.Tensor,
+                     w2: torch.Tensor) -> torch.Tensor:
+    """`tile_hashes` of whole rows of tiles, with the lane weights."""
     if arr.is_floating_point():
         v = arr.to(torch.float32).view(torch.int32).to(torch.int64)
     else:
         v = arr.to(torch.int64)
     v = v & _MASK32
-    idx = torch.arange(tile_cells * tile_cells, dtype=torch.int64,
-                       device=arr.device).reshape(tile_cells, tile_cells)
-    w1 = (_mul32(idx, 2654435761) + 0x9E3779B9) & _MASK32
-    w2 = (_mul32(idx ^ 0x85EBCA6B, 2246822519) + 1) & _MASK32
+    th, tw = arr.shape[0] // tile_cells, arr.shape[1] // tile_cells
     tv = v.reshape(th, tile_cells, tw, tile_cells).permute(0, 2, 1, 3)
     h1 = _mul32(tv, w1).sum(dim=(2, 3)) & _MASK32
     h2 = _mul32(tv, w2).sum(dim=(2, 3)) & _MASK32

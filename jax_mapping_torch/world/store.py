@@ -530,13 +530,18 @@ class WorldStore:
 
     # -- serving composition -------------------------------------------------
 
-    def compose_serving(self, window_gray: np.ndarray):
+    def compose_serving(self, window_gray):
         """(logical gray mosaic, (nt, nt) evicted mask): the resident
         window pasted at its origin, everything else unknown-127, and the
-        tiles now away (host, disk, in flight, lost) flagged."""
+        tiles now away (host, disk, in flight, lost) flagged. A tensor
+        window gives a tensor mosaic on its device, an array an array."""
         L = self.logical_tiles * self.tile_cells
         t = self.tile_cells
-        mosaic = np.full((L, L), 127, np.uint8)
+        if torch.is_tensor(window_gray):
+            mosaic = torch.full((L, L), 127, dtype=torch.uint8,
+                                device=window_gray.device)
+        else:
+            mosaic = np.full((L, L), 127, np.uint8)
         r0, c0 = self.origin_tile
         mosaic[r0 * t:r0 * t + self.window_cells,
                c0 * t:c0 * t + self.window_cells] = window_gray

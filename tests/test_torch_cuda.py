@@ -1116,3 +1116,165 @@ def test_sharded_voxel_fuse_on_card_equals_cpu(dev):
     against the CPU's plain one, at most 1e-4 of the voxels apart."""
     v = SD.voxel_fuse_card_and_cpu()
     assert SD.voxel_failures(v) == [], v
+
+
+# ---------------------------------------------------------------------------
+# Serving: the tile store's device work and the HTTP API on the card
+# ---------------------------------------------------------------------------
+
+def _serving_arrays(seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    f = rng.normal(0.0, 2.0, (512, 512)).astype(np.float32)
+    f[0, :4] = [-0.0, 1e-45, np.inf, np.nan]
+    return {"u8": rng.integers(0, 256, (512, 512)).astype(np.uint8),
+            "f32": f,
+            "i8": rng.choice(np.array([-1, 0, 100], np.int8), (256, 768))}
+
+
+@pytest.mark.parametrize("name", ["u8", "f32", "i8"])
+@pytest.mark.parametrize("t", [64, 256])
+def test_tile_hashes_on_card_equal_cpu(dev, name, t):
+    arr = torch.as_tensor(_serving_arrays(0)[name])
+    got = G.tile_hashes(arr.to(dev), t)
+    assert got.is_cuda
+    assert torch.equal(got.cpu(), G.tile_hashes(arr, t))
+
+
+def test_gray_pyramid_on_card_equals_cpu(dev):
+    """`to_gray` of a seeded log-odds grid (with cells at the thresholds)
+    and two `downsample_gray` levels, card against CPU, bit for bit."""
+    cfg = SlamConfig()
+    rng = np.random.default_rng(1)
+    lo = rng.uniform(-3.0, 3.0, (1024, 1024)).astype(np.float32)
+    lo[0, :2] = [cfg.grid.occ_threshold, cfg.grid.free_threshold]
+    a = G.to_gray(cfg.grid, torch.as_tensor(lo).to(dev))
+    b = G.to_gray(cfg.grid, torch.as_tensor(lo))
+    assert a.is_cuda and a.dtype == torch.uint8
+    for _ in range(3):
+        assert torch.equal(a.cpu(), b)
+        a, b = G.downsample_gray(a), G.downsample_gray(b)
+
+
+def _store_manifests(device, hashed_on: list) -> str:
+    """A TileStore over a seeded sequence of log-odds grids on `device`
+    (the mapper's snapshot: `to_gray` of the grid): JSON of the full
+    snapshot, the delta and the stats after each refresh. Records the
+    device of every array `tile_hashes` is given."""
+    import json
+    from jax_mapping_torch.config import ServingConfig
+    from jax_mapping_torch.serving.tiles import TileStore
+    g = tiny_config().grid
+    rng = np.random.default_rng(2)
+    lo = np.zeros((g.size_cells,) * 2, np.float32)
+    cur = {"rev": 0, "grid": torch.as_tensor(lo, device=device)}
+    store = TileStore(ServingConfig(tile_cells=64, pyramid_levels=3),
+                      "grid", lambda: cur["rev"],
+                      lambda: (cur["rev"], G.to_gray(g, cur["grid"]), None))
+    orig = G.tile_hashes
+
+    def recording(arr, t):
+        hashed_on.append(arr.device.type)
+        return orig(arr, t)
+    G.tile_hashes = recording
+    out, prev = [], -1
+    try:
+        for k in range(6):
+            r0, c0 = rng.integers(0, g.size_cells - 40, 2)
+            lo = lo.copy()
+            lo[r0:r0 + 40, c0:c0 + 40] = rng.uniform(-2, 2, (40, 40))
+            cur.update(rev=k + 1, grid=torch.as_tensor(lo, device=device))
+            store.refresh()
+            full = store.tiles_since(-1)
+            out.append([full, store.tiles_since(prev), store.stats()])
+            prev = full[0]
+    finally:
+        G.tile_hashes = orig
+    return json.dumps(out, sort_keys=True)
+
+
+def test_tile_store_on_card_equals_cpu(dev):
+    """The same grids through the store on the card and on the CPU give
+    byte-equal manifests; on the card every hash is computed there."""
+    on_card, on_cpu = [], []
+    assert _store_manifests(dev, on_card) == _store_manifests("cpu", on_cpu)
+    assert on_card and set(on_card) == {"cuda"}
+
+
+def test_stack_http_routes_on_card(dev, tmp_path):
+    """A tiny depth-camera stack on the card with `http_port=0` answers
+    every route: delta clients rebuild the live map and the height map
+    bit for bit (hashed on the card), /save then /load restores the grid,
+    /save-map writes the thresholded grid, /goal reaches the brain."""
+    import json
+    import urllib.error
+    import urllib.request
+    from jax_mapping_torch.bridge.launch import launch_sim_stack
+    from jax_mapping_torch.serving.client import DeltaMapClient
+    cfg = tiny_config(2)
+    world = W.plank_course(96, cfg.grid.resolution_m, n_planks=4, seed=3)
+    st = launch_sim_stack(cfg, world, n_robots=2, seed=0, http_port=0,
+                          depth_cam=True, device=dev)
+    hashed_on, orig = [], G.tile_hashes
+
+    def recording(arr, t):
+        hashed_on.append(arr.device.type)
+        return orig(arr, t)
+    G.tile_hashes = recording
+    base = f"http://127.0.0.1:{st.api.port}"
+
+    def get(route):
+        with urllib.request.urlopen(base + route, timeout=30) as r:
+            return r.status, r.read()
+
+    def post(route):
+        req = urllib.request.Request(base + route, method="POST")
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, json.loads(r.read())
+    try:
+        st.api.checkpoint_dir = str(tmp_path)
+        st.brain.start_exploring()
+        st.run_steps(10)
+        st.mapper.publish_map()
+        grid_c, vox_c = DeltaMapClient(base), \
+            DeltaMapClient(base, route="/voxel-tiles")
+        grid_c.poll()
+        vox_c.poll()
+        st.run_steps(5)
+        grid_c.poll()
+        vox_c.poll()
+        assert np.array_equal(
+            grid_c.image(0),
+            G.to_gray(cfg.grid, st.mapper.merged_grid()).cpu().numpy())
+        assert np.array_equal(vox_c.image(0),
+                              st.voxel_mapper.serving_snapshot()[1])
+        assert hashed_on and set(hashed_on) == {"cuda"}
+        for route in ("/status", "/map-image", "/frontiers", "/metrics",
+                      "/voxel-image", "/map-events?mode=poll&since=-1",
+                      "/map-events?timeout_s=0.5"):
+            code, body = get(route)
+            assert code == 200 and body, route
+        with pytest.raises(urllib.error.HTTPError) as ei:
+            get("/trace")
+        assert ei.value.code == 404
+        grid_before = st.mapper.merged_grid().clone()
+        assert post("/save")[1]["status"] == "saved"
+        st.run_steps(3)
+        assert post("/load")[1]["status"] == "loaded"
+        assert torch.equal(st.mapper.merged_grid(), grid_before)
+        body = post("/save-map?name=m")[1]
+        from jax_mapping_torch.io import rosmap
+        occ, _res, _origin = rosmap.load_map(body["yaml"])
+        lo = st.mapper.merged_grid().cpu().numpy()
+        want = np.full(lo.shape, -1, np.int8)
+        want[lo <= cfg.grid.free_threshold] = 0
+        want[lo >= cfg.grid.occ_threshold] = 100
+        assert np.array_equal(occ, want)
+        assert post("/goal?x=0.5&y=0.25&robot=1")[1]["robot"] == 1
+        assert st.brain.status()["goals"][1] == {"x": 0.5, "y": 0.25}
+        assert post("/goal/cancel?robot=1")[1]["status"] == \
+            "goal cancelled"
+        assert get("/stop")[0] == 200 and not st.brain.is_exploring
+        assert get("/start")[0] == 200 and st.brain.is_exploring
+    finally:
+        G.tile_hashes = orig
+        st.shutdown()

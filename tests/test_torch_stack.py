@@ -385,14 +385,16 @@ def test_demo_runs_and_writes_png(tmp_path):
     assert set(np.unique(img)) <= {0, 127, 255} and (img == 255).any()
 
 
-#: (flags, exit code, what the demo says): the flags whose modules are
-#: not ported name them; --resume and --save-final are ported and refuse,
-#: as the JAX demo does, a checkpoint that is not there. --depth-cam is
+#: (flags, exit code, what the demo says): --resume and --save-final
+#: refuse, as the JAX demo does, a checkpoint that is not there. --depth-cam is
 #: ported (it runs and reports its images), and --voxel-out without it
 #: is refused as the JAX demo refuses it. --record, --replay and
 #: --map-prior are ported: the demo refuses --replay beside a flag of a
 #: simulated run, and a --map-prior it cannot read, as the JAX demo does
-#: (tests/test_torch_io.py drives them).
+#: (tests/test_torch_io.py drives them). --serve and --http-port are
+#: ported: --http-port serves while the stack steps and puts the URL in the
+#: summary, and --serve is refused beside --replay as the JAX demo refuses
+#: it (tests/test_torch_http_api.py drives the API).
 DEMO_REFUSED = [(["--record", "b", "--replay", "b"], 2,
                  "--replay cannot be combined with --record"),
                 (["--replay", "b", "--save-final", "c"], 2,
@@ -402,8 +404,9 @@ DEMO_REFUSED = [(["--record", "b", "--replay", "b"], 2,
                  "no checkpoint at missing.npz"),
                 (["--map-prior", "m.yaml"], 2,
                  "cannot seed --map-prior m.yaml"),
-                (["--serve"], 2, "not port"),
-                (["--http-port", "0"], 2, "not port"),
+                (["--serve", "--replay", "b"], 2,
+                 "--replay cannot be combined with --serve"),
+                (["--http-port", "0"], 0, '"http": "http://127.0.0.1:'),
                 (["--depth-cam"], 0, '"depth_images_fused": 1'),
                 (["--voxel-out", "v.png"], 2, "requires --depth-cam")]
 
@@ -432,8 +435,21 @@ LAUNCH_REFUSED = {
 def test_launch_refuses_unported(what):
     """Each unported option raises, naming its ROADMAP item; depth_cam,
     ported since, launches the voxel mapper and wires the planner's
-    overlay into the mapper's frontier basis."""
+    overlay into the mapper's frontier basis; http_port, ported since,
+    serves the HTTP API on a free port until the stack shuts down."""
     cfg = tiny_config(2)
+    if what == "http_port":
+        import json
+        import urllib.request
+        st = launch_sim_stack(cfg, W.empty_arena(32, 0.05), n_robots=2,
+                              device="cpu", http_port=0)
+        url = f"http://127.0.0.1:{st.api.port}/status"
+        with urllib.request.urlopen(url, timeout=10) as r:
+            assert json.loads(r.read())["n_robots"] == 2
+        st.shutdown()
+        with pytest.raises(OSError):
+            urllib.request.urlopen(url, timeout=10)
+        return
     if what == "depth_cam":
         st = launch_sim_stack(cfg, W.empty_arena(32, 0.05), n_robots=2,
                               device="cpu", depth_cam=True)
