@@ -149,6 +149,27 @@ Phases, each printed as one JSON line:
            stopped), request ms by route, bytes a client a second (delta
            against whole PNG), peak memory; then `demo --serve` in a
            process of its own, ended by SIGINT
+  scenario  the main path of faults and scripted world dynamics at full
+           width: `run_lifelong_mission` of SlamConfig() with
+           DecayConfig(enabled=True) and the obs tier (the JAX shared
+           mission's staleness SLO), 8 robots on the stack's world with its
+           four widened doors registered, a checkpoint dir, 150 steps of
+           `day_plan(150, doors, n_crowds=2, door_cycle=60, crowd_cycle=90,
+           kill_steps=(100,))`: door cycles, two crowds, the mapper killed
+           once and resumed from its checkpoint. Counts are zeroed before
+           the mission and read after: K1, K2 and K3 must launch; K5's
+           launches are reported. Steps/s, mapper tick p50/p90, world
+           updates, the compose's host ms, each upload's bytes, host and
+           device ms and host syncs (none allowed), decay passes with
+           device ms a pass and the K2/K3 launches of the ticks after one,
+           restarts, spans, SLO alerts, host syncs of a whole step with a
+           crowd out and of a quiet one, peak memory, and per door the
+           occupied cells in its rectangle at the end of each closure and
+           of the mission. Checks: on the card; the card's world equals the
+           host composition at sampled steps bit for bit; a quiet step
+           uploads nothing; the fleet's scans cross the closed first door
+           (door_h0); one restart from the checkpoint, and the mapper
+           ticks after it; the plan log is the scripted schedule
   world    slice 11's main path, the bounded-memory world: `MapperNode`
            on the default SlamConfig with `world.windowed` (an 8-tile
            2048^2 window of 256-cell tiles over an 8192^2 logical lattice,
@@ -178,6 +199,13 @@ Phases, each printed as one JSON line:
            windowed `MapperNode` drive at tiny_config on the card and on
            the CPU: schedules and origins equal, estimates within 2e-5 m,
            at most 1e-4 of the cells apart
+  lifelong_world  the JAX suite's bounded-memory corridor soak
+           (tests/test_world.py, its config, corridor, goal patrol and
+           chaos timing) with the planner off, one robot, 800 steps: the
+           device window's bytes flat while the distance grows, the
+           memory_pressure window fired and cleared through the FaultPlan,
+           spill_corrupt rotting real spilled tiles whose rehydrate
+           degrades to unknown with a `world_spill_corrupt` event; steps/s
   window   the bench's window workload: 256 scans on a 0.4 m loop into
            the 4096^2 grid through `fuse_scans_window` (K5), and 1024
            scans (K4 subtotals of 512, then one apply)
@@ -243,6 +271,15 @@ Phases, each printed as one JSON line:
            the mapper's estimates to 1e-4 m, frontier assignments equal,
            at most 1e-4 of the grid cells apart, and both stacks' full
            /tiles manifests byte-equal
+
+  scenario_parity  the JAX suite's shared scenario mission (tiny_config,
+           DecayConfig(True, 8, 0.9, 1.5), obs with the staleness SLO,
+           arena_with_door(96), 2 robots, a door closed at step 4 for 16
+           steps, a crowd at 26 for 10, the mapper killed at 48, 72 steps,
+           a delta client polling at 18 and at the end) on the card and on
+           the CPU: plan logs, world updates, decay passes, restarts and
+           SLO alerts equal, truth within 1e-5 m, at most 1e-4 of the
+           cells apart, span streams equal under obs/diff.py
 
   sharded  the multi-rank mesh's main path on one NCCL rank
            (a 1 x 1 ('fleet', 'space') mesh brought up in this process):
@@ -1306,6 +1343,14 @@ def _parity_mission(torch, cfg, seed: int, ticks: int) -> dict:
 
 # ---------------------------------------------------------------------------
 
+def _is_sync(w) -> bool:
+    """A warning of PyTorch's CUDA sync debug mode that flags a
+    synchronising call (not its one-time notice that the mode is a
+    prototype, which also names synchronisation)."""
+    msg = str(w.message)
+    return "synchroniz" in msg and "prototype feature" not in msg
+
+
 def _count_syncs(torch, fn):
     """(fn(), host syncs it made), counted by PyTorch's CUDA sync debug
     mode, which warns at every synchronising call."""
@@ -1317,7 +1362,7 @@ def _count_syncs(torch, fn):
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return out, sum("synchroniz" in str(w.message) for w in caught)
+    return out, sum(_is_sync(w) for w in caught)
 
 
 def _p50_p90(xs) -> dict:
@@ -4230,7 +4275,7 @@ def phase_stack(torch, seed: int):
             finally:
                 torch.cuda.set_sync_debug_mode("default")
                 del m.publish_frontiers
-        flags = ["synchroniz" in str(w.message) for w in caught]
+        flags = [_is_sync(w) for w in caught]
         syncs.append({"tick": sum(flags), "publish": sum(
             flags[marks[0]:marks[1]]) if marks else 0})
     m.tick = counted_tick
@@ -4996,7 +5041,7 @@ def stack_kernel_rows(torch, cfg, world, gen, fleet: dict, mapper: dict,
     n_samples = int(cfg.scan.range_max_m / (res * 0.5))
     out = {}
     stacks = [new_paths[k]["k1_launches_by_batch"]
-              for k in ("stack", "stack_depth", "serving")
+              for k in ("stack", "stack_depth", "serving", "scenario")
               if k in new_paths]
     for name, raster in (("sensor_model_delta", False),
                          ("sensor_model_raster", True)):
@@ -6282,6 +6327,551 @@ def phase_replay(torch, seed: int, steps: int = 40):
     return out
 
 
+#: The scenario phase: the day's schedule over STACK_WORLD's rooms at full
+#: width. The first door in the plan is door_h0 (the horizontal wall's
+#: door 8.75 m south of the spawn): from the spawn poses, 102 of the 8
+#: robots' beams cross it when it is closed, door_v0's 104, door_h1's and
+#: door_v1's none (a raycast of the closed against the open world).
+SCENARIO_STEPS = 150
+SCENARIO_DOORS = ("door_h0", "door_v0", "door_h1", "door_v1")
+SCENARIO_KILL = 100
+SCENARIO_SAMPLE_EVERY = 5
+#: Steps whose world on the card is compared with the host composition.
+SCENARIO_WORLD_CHECKS = (0, 12, 30, 62, 74, 120, 149)
+#: Host syncs are counted over the whole step (sim, brain, mapper) of a
+#: step with a crowd out (30) and of a quiet one (62: no crowd, no toggle).
+SCENARIO_SYNC_STEPS = {"crowd": 30, "quiet": 62}
+#: A step inside door_h0's first closure (steps 10-39) at which the
+#: fleet's scans must cross the closed door.
+SCENARIO_CROSS_STEP = 20
+
+
+def _scenario_config(cfg):
+    """`cfg` with map healing at its defaults (every 20 ticks, x 0.92, cap
+    2.0) and the obs tier with the JAX shared mission's staleness
+    objective."""
+    from jax_mapping_torch.config import DecayConfig, ObsConfig, SloObjective
+    return cfg.replace(
+        decay=DecayConfig(enabled=True),
+        obs=ObsConfig(enabled=True, slo=(SloObjective(
+            name="staleness", metric="tile_staleness_revs", threshold=30.0,
+            fast_window_ticks=8, slow_window_ticks=24, fast_burn=0.5,
+            slow_burn=0.25),)))
+
+
+class _Patched:
+    """Class attributes replaced for a measurement while the context is
+    open, restored after."""
+
+    def __init__(self, *triples):
+        self.triples = triples
+
+    def __enter__(self):
+        self.saved = [(cls, name, cls.__dict__[name])
+                      for cls, name, _ in self.triples]
+        for cls, name, fn in self.triples:
+            setattr(cls, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self.saved:
+            setattr(cls, name, fn)
+
+
+def _stub_plan_log(events, seed: int) -> list:
+    """The log a FaultPlan of `events` writes against a stack that takes
+    every call: the scripted schedule on the step clock."""
+    from jax_mapping_torch.resilience.faultplan import FaultPlan
+
+    class Any:
+        def __getattr__(self, name):
+            return lambda *a, **k: None
+    stub = Any()
+    stub.bus, stub.sim, stub.driver = Any(), Any(), Any()
+    stub.brain = type("B", (), {"n_robots": STACK_ROBOTS})()
+    plan = FaultPlan(list(events), seed=seed)
+    for t in range(SCENARIO_STEPS):
+        plan.apply(stub, t)
+    return list(plan.log)
+
+
+def phase_scenario(torch, seed: int):
+    """Faults and scripted world dynamics at full width:
+    `run_lifelong_mission` of SlamConfig() with decay and the obs tier on
+    STACK_WORLD's rooms, their widened doors registered, 8 robots, a
+    checkpoint dir, 150 steps of
+    `day_plan(150, doors, n_crowds=2, door_cycle=60, crowd_cycle=90,
+    kill_steps=(100,))`. Counts are zeroed before the mission and read
+    after: K1 (both modes), K2 and K3 must launch; K5 is reported."""
+    import warnings
+    import numpy as np
+    from jax_mapping_torch.bridge.launch import Stack
+    from jax_mapping_torch.bridge.mapper import MapperNode
+    from jax_mapping_torch.bridge.sim_node import SimNode
+    from jax_mapping_torch.config import SlamConfig
+    from jax_mapping_torch.obs.recorder import flight_recorder
+    from jax_mapping_torch.ops import _cuda
+    from jax_mapping_torch.scenarios import (WorldDynamics, day_plan,
+                                             run_lifelong_mission)
+    from jax_mapping_torch.sim import lidar
+    cfg = _scenario_config(SlamConfig())
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import torch_kernel_inputs as KI
+    world, doors = KI.rooms_wide_doors(1024, cfg.grid.resolution_m,
+                                       door_m=2.0, seed=1,
+                                       return_doors=True)
+    by_name = {d["name"]: d for d in doors}
+    doors = [by_name[n] for n in SCENARIO_DOORS]
+    events = day_plan(SCENARIO_STEPS, SCENARIO_DOORS, n_crowds=2,
+                      door_cycle=60, crowd_cycle=90,
+                      kill_steps=(SCENARIO_KILL,))
+    off = (cfg.grid.size_cells - world.shape[0]) // 2
+    closure_ends = {}
+    for e in events:
+        if e.kind == "door_close" and e.step + e.duration <= SCENARIO_STEPS:
+            closure_ends.setdefault(e.step + e.duration, []).append(e.name)
+    box = {"stacks": [], "step_s": [], "compose_ms": [], "uploads": [],
+           "upload_syncs": 0, "decay": [], "decay_launches": {"label_prop": 0,
+                                           "costfield_relax": 0},
+           "syncs": {}, "world_equal": {}, "occupied": {}, "cross": None}
+    orig_run, orig_world_at = Stack.run_steps, WorldDynamics.world_at
+    orig_upload, orig_decay = SimNode._upload_world, MapperNode._apply_decay
+    orig_tick = MapperNode.tick
+    occ = cfg.grid.occ_threshold
+
+    def world_at(self, step):
+        t0 = time.perf_counter()
+        try:
+            return orig_world_at(self, step)
+        finally:
+            box["compose_ms"].append((time.perf_counter() - t0) * 1e3)
+
+    def upload(self, w):
+        # Outside the steps whose syncs are counted whole, the upload's
+        # own host syncs are counted here (the sync debug mode is off).
+        counting = torch.cuda.get_sync_debug_mode() == 0
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        with warnings.catch_warnings(record=True) as caught:
+            if counting:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            ev[0].record()
+            try:
+                orig_upload(self, w)
+            finally:
+                ev[1].record()
+                if counting:
+                    torch.cuda.set_sync_debug_mode("default")
+        box["uploads"].append(((time.perf_counter() - t0) * 1e3,
+                               int(w.nbytes), ev))
+        if counting:
+            box["upload_syncs"] += sum(_is_sync(m) for m in caught)
+
+    def decay(self):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        orig_decay(self)
+        ev[1].record()
+        box["decay"].append(ev)
+
+    def tick(self):
+        n0 = self.n_decay_passes
+        l0 = {k: _cuda.LAUNCHES[k] for k in box["decay_launches"]}
+        orig_tick(self)
+        if self.n_decay_passes != n0:
+            # The publish after a decay pass recomputes every tile.
+            for k in box["decay_launches"]:
+                box["decay_launches"][k] += _cuda.LAUNCHES[k] - l0[k]
+
+    def one_step(self):
+        k = self._steps_run
+        if k in SCENARIO_SYNC_STEPS.values():
+            n_up = self.sim.n_world_updates
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    orig_run(self, 1)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            box["syncs"][k] = {
+                "syncs": sum(_is_sync(w) for w in caught),
+                "uploads": self.sim.n_world_updates - n_up}
+        else:
+            orig_run(self, 1)
+
+    def run_steps(self, n):
+        if not box["stacks"]:
+            box["stacks"].append(self)
+        for _ in range(n):
+            k = self._steps_run
+            t0 = time.perf_counter()
+            one_step(self)
+            box["step_s"].append(time.perf_counter() - t0)
+            if k in SCENARIO_WORLD_CHECKS:
+                dyn = self.sim._world_dyn
+                shadow = WorldDynamics(dyn.base, dyn.res_m,
+                                       doors=dyn.doors.values(),
+                                       seed=dyn.seed)
+                snap = dyn.snapshot()
+                for name, closed in snap["doors"].items():
+                    shadow.set_door(name, closed)
+                for cid, r in snap["crowds"].items():
+                    shadow.set_crowd(cid, r)
+                box["world_equal"][k] = bool(np.array_equal(
+                    self.sim.world.cpu().numpy(), orig_world_at(shadow, k)))
+            if k == SCENARIO_CROSS_STEP:
+                # The fleet's scans at this step's truth poses, on the card,
+                # in the sim's world (door_h0 closed) and with it open.
+                d = by_name[SCENARIO_DOORS[0]]
+                shut = self.sim.world
+                opened = shut.clone()
+                opened[d["r0"]:d["r1"], d["c0"]:d["c1"]] = False
+                poses = self.sim.sim_state.poses
+                a = lidar.simulate_scans(cfg.scan, shut, 0.05,
+                                         self.sim.n_samples, poses)
+                b = lidar.simulate_scans(cfg.scan, opened, 0.05,
+                                         self.sim.n_samples, poses)
+                box["cross"] = {"door": d["name"], "step": k,
+                                "closed": bool(shut[d["r0"]:d["r1"],
+                                                    d["c0"]:d["c1"]].all()),
+                                "beams": int((a != b).sum())}
+            done = self._steps_run
+            if done in closure_ends or done == SCENARIO_STEPS:
+                g = self.mapper.merged_grid()
+                for name in (SCENARIO_DOORS if done == SCENARIO_STEPS
+                             else closure_ends[done]):
+                    d = by_name[name]
+                    rect = g[d["r0"] + off:d["r1"] + off,
+                             d["c0"] + off:d["c1"] + off]
+                    box["occupied"].setdefault(name, []).append(
+                        [done, int((rect > occ).sum())])
+
+    ck = tempfile.mkdtemp(prefix="scenario_ckpt_")
+    mark = flight_recorder.mark()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    with _Patched((Stack, "run_steps", run_steps),
+                  (WorldDynamics, "world_at", world_at),
+                  (SimNode, "_upload_world", upload),
+                  (MapperNode, "_apply_decay", decay),
+                  (MapperNode, "tick", tick)), \
+            StageSamples("mapper.tick") as ticks, \
+            BatchCount(cfg.grid) as bc, SweepRecorder() as rec:
+        t0 = time.perf_counter()
+        rep = run_lifelong_mission(cfg, world, doors, events, SCENARIO_STEPS,
+                                   seed=seed, checkpoint_dir=ck,
+                                   n_robots=STACK_ROBOTS,
+                                   sample_every=SCENARIO_SAMPLE_EVERY)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    st = box["stacks"][0]
+    evs = flight_recorder.events_since(mark)
+    restarts = [e for e in evs if e["kind"] == "restart_epoch"]
+    up_ms = [u[0] for u in box["uploads"]]
+    up_dev = [u[2][0].elapsed_time(u[2][1]) for u in box["uploads"]]
+    decay_ms = [e[0].elapsed_time(e[1]) for e in box["decay"]]
+    expected_log = _stub_plan_log(events, seed)
+    out = {"phase": "scenario", "config": "SlamConfig(), DecayConfig("
+           "enabled=True), ObsConfig(enabled=True, staleness SLO)",
+           "world": STACK_WORLD + ", doors registered",
+           "robots": STACK_ROBOTS, "steps": SCENARIO_STEPS,
+           "plan": f"day_plan({SCENARIO_STEPS}, {list(SCENARIO_DOORS)}, "
+                   "n_crowds=2, door_cycle=60, crowd_cycle=90, "
+                   f"kill_steps=({SCENARIO_KILL},))",
+           "first_door": box["cross"],
+           "wall_s": wall, "steps_per_s": SCENARIO_STEPS / sum(box["step_s"]),
+           "mapper_tick_ms": {**_p50_p90(ticks.ms), "n": len(ticks.ms),
+                              "max": max(ticks.ms)},
+           "n_world_updates": rep.n_world_updates,
+           "compose_host_ms": {"p50": statistics.median(box["compose_ms"]),
+                               "max": max(box["compose_ms"]),
+                               "n": len(box["compose_ms"])},
+           "uploads": {"n": len(box["uploads"]),
+                       "bytes_each": sorted({u[1] for u in box["uploads"]}),
+                       "host_ms_p50": statistics.median(up_ms),
+                       "host_ms_max": max(up_ms),
+                       "device_ms_p50": statistics.median(up_dev),
+                       "device_ms_max": max(up_dev),
+                       "host_syncs": box["upload_syncs"]},
+           "decay_passes": len(decay_ms),
+           "decay_passes_restarted_mapper": rep.n_decay_passes,
+           "decay_device_ms": decay_ms,
+           "k2_k3_launches_in_decay_ticks": box["decay_launches"],
+           "mapper_restarts": rep.n_mapper_restarts,
+           "restart_epoch": rep.restart_epoch,
+           "resumed_from_checkpoint": [e["resumed_from_checkpoint"]
+                                       for e in restarts],
+           "mapper_ticks_after_restart": st.mapper._tick_no,
+           "scans_fused_after_restart": st.mapper.n_scans_fused,
+           "plan_log_len": len(rep.plan_log),
+           "spans": st.tracer.last_seq(),
+           "slo_alerts": rep.slo_alerts,
+           "launches": launches,
+           "k1_launches_by_batch": bc.n,
+           "host_syncs": {name: box["syncs"].get(k)
+                          for name, k in SCENARIO_SYNC_STEPS.items()},
+           "world_equal_at": box["world_equal"],
+           "door_occupied_cells": box["occupied"],
+           "scans_fused": rep.n_scans_fused,
+           "map_revision": rep.map_revision,
+           "cells_occupied": int((rep.grid > occ).sum()),
+           "cells_free": int((rep.grid < cfg.grid.free_threshold).sum()),
+           "checkpoint_files": rep.checkpoint_files,
+           "peak_bytes": peak}
+    emit(out)
+    check(st.device.type == "cuda" and st.sim.world.is_cuda
+          and st.mapper.shared_grid.is_cuda, "the scenario stack is not on "
+          "the card")
+    check(len(box["world_equal"]) == len(SCENARIO_WORLD_CHECKS)
+          and all(box["world_equal"].values()),
+          f"the card's world differs from the host composition: "
+          f"{box['world_equal']}")
+    quiet = out["host_syncs"]["quiet"]
+    check(quiet is not None and quiet["uploads"] == 0,
+          f"a quiet step uploaded the world: {quiet}")
+    crowd = out["host_syncs"]["crowd"]
+    check(crowd is not None and crowd["uploads"] == 1,
+          f"a crowd step did not upload once: {crowd}")
+    check(box["upload_syncs"] == 0,
+          f"the world uploads made {box['upload_syncs']} host syncs")
+    check(box["cross"] is not None and box["cross"]["closed"]
+          and box["cross"]["beams"] > 0,
+          f"the fleet's scans do not cross the closed first door: "
+          f"{box['cross']}")
+    check(rep.n_mapper_restarts == 1 and rep.restart_epoch == 1
+          and out["resumed_from_checkpoint"] == [True],
+          f"the mapper was not restarted once from the checkpoint: {out}")
+    check(out["mapper_ticks_after_restart"] > 0
+          and out["scans_fused_after_restart"] > 0,
+          "the restarted mapper did not tick")
+    for name in FLEET_KERNELS:
+        check(launches[name] > 0,
+              f"kernel {name} never launched on the scenario path")
+    check(rep.plan_log == expected_log,
+          f"the plan log is not the scripted schedule: {rep.plan_log}")
+    check(rep.n_decay_passes > 0 and rep.n_world_updates > 0,
+          "no decay pass or no world update")
+    check(bool(np.isfinite(rep.grid).all()), "scenario grid non-finite")
+    return ({"per": f"{SCENARIO_STEPS} scenario steps",
+             "k1_launches_by_batch": bc.n}, out, rec)
+
+
+#: The JAX suite's shared scenario mission (tests/test_scenarios.py).
+SCENARIO_PARITY_STEPS = 72
+SCENARIO_PARITY_POLL = 18
+
+
+def _parity_scenario_config():
+    from jax_mapping_torch.config import (DecayConfig, ObsConfig,
+                                          SloObjective, tiny_config)
+    return tiny_config().replace(
+        decay=DecayConfig(enabled=True, every_n_ticks=8, factor=0.9,
+                          evidence_cap=1.5),
+        obs=ObsConfig(enabled=True, slo=(SloObjective(
+            name="staleness", metric="tile_staleness_revs", threshold=30.0,
+            fast_window_ticks=8, slow_window_ticks=24, fast_burn=0.5,
+            slow_burn=0.25),)))
+
+
+def phase_scenario_parity(torch, seed: int):
+    """The JAX suite's shared scenario mission on the card and on the CPU
+    in this process: tiny_config, DecayConfig(True, 8, 0.9, 1.5), obs with
+    the staleness SLO, arena_with_door(96), 2 robots, door_close at step 4
+    for 16 steps, a crowd at 26 for 10 steps (0.25 m), kill_node of the
+    mapper at 48, 72 steps, a delta client polling at step 18 and at the
+    end. Plan logs, world updates, decay passes and SLO alerts equal,
+    truth within 1e-5 m, the grids at most 1e-4 of the cells apart, and
+    the span streams equal under obs/diff.py."""
+    import numpy as np
+    from jax_mapping_torch.obs.diff import diff_streams
+    from jax_mapping_torch.obs.recorder import flight_recorder
+    from jax_mapping_torch.resilience.faultplan import FaultEvent, FaultPlan
+    from jax_mapping_torch.scenarios import launch_scenario_stack
+    from jax_mapping_torch.serving.client import DeltaMapClient
+    from jax_mapping_torch.sim import world as W
+    cfg = _parity_scenario_config()
+    world, doors = W.arena_with_door(96, cfg.grid.resolution_m)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        mark = flight_recorder.mark()
+        st = launch_scenario_stack(cfg, world, doors=doors, n_robots=2,
+                                   seed=seed, http_port=0, device=dev,
+                                   checkpoint_dir=tempfile.mkdtemp(
+                                       prefix="scenario_parity_"))
+        st.brain.start_exploring()
+        st.brain.reconnect_period_s = 0.0
+        plan = FaultPlan([
+            FaultEvent(step=4, kind="door_close", name="door0",
+                       duration=16),
+            FaultEvent(step=26, kind="crowd", robot=0, duration=10,
+                       value=0.25),
+            FaultEvent(step=48, kind="kill_node", name="jax_mapper")],
+            seed=seed)
+        st.attach_fault_plan(plan)
+        client = DeltaMapClient(f"http://127.0.0.1:{st.api.port}")
+        truth = []
+        t0 = time.perf_counter()
+        for k in range(SCENARIO_PARITY_STEPS):
+            st.run_steps(1)
+            truth.append(st.sim.truth_poses())
+            if k + 1 == SCENARIO_PARITY_POLL:
+                client.poll()
+        client.poll()
+        wall = time.perf_counter() - t0
+        evs = flight_recorder.events_since(mark)
+        runs[dev] = {
+            "wall_s": wall, "truth": np.stack(truth),
+            "grid": st.mapper.merged_grid().cpu().numpy(),
+            "log": list(plan.log),
+            "counts": [st.sim.n_world_updates, st.mapper.n_decay_passes,
+                       st.supervisor.n_restarts("jax_mapper"),
+                       st.mapper.restart_epoch],
+            "slo": [(e["tick"], e["state"]) for e in evs
+                    if e["kind"] == "slo_alert"],
+            "spans": [{k: s[k] for k in ("name", "trace_id", "span_id",
+                                         "parent_span")}
+                      for s in st.tracer.spans_since(0)],
+            "client": [client.epoch, client.n_epoch_resyncs]}
+        st.shutdown()
+    a, b = runs["cuda"], runs["cpu"]
+    div = diff_streams(a["spans"], b["spans"])
+    out = {"phase": "scenario_parity",
+           "config": "tiny_config(), DecayConfig(True, 8, 0.9, 1.5), obs + "
+                     "staleness SLO, arena_with_door(96), 2 robots",
+           "steps": SCENARIO_PARITY_STEPS,
+           "steps_per_s": {d: SCENARIO_PARITY_STEPS / r["wall_s"]
+                           for d, r in runs.items()},
+           "plan_logs_equal": a["log"] == b["log"],
+           "plan_log": [d for _, d in a["log"]],
+           "counts": {"cuda": a["counts"], "cpu": b["counts"]},
+           "slo_alerts": {"cuda": a["slo"], "cpu": b["slo"]},
+           "truth_m": float(np.abs(a["truth"] - b["truth"]).max()),
+           "cells_differ": int((a["grid"] != b["grid"]).sum()),
+           "cells_total": int(a["grid"].size),
+           "spans": len(a["spans"]),
+           "span_divergence": None if div is None else div.describe(),
+           "client": {"cuda": a["client"], "cpu": b["client"]}}
+    emit(out)
+    check(out["plan_logs_equal"] and a["counts"] == b["counts"]
+          and a["slo"] == b["slo"] and a["client"] == b["client"],
+          f"scenario parity: schedules differ {out}")
+    check(a["counts"][1] > 0 and a["counts"][2] == 1 and a["slo"],
+          f"scenario parity: no decay, restart or alert {out}")
+    check(out["truth_m"] <= 1e-5, f"scenario parity: truth {out['truth_m']}")
+    check(out["cells_differ"] <= 1e-4 * out["cells_total"],
+          f"scenario parity: {out['cells_differ']} cells differ")
+    check(div is None, f"scenario parity: span streams {out}")
+    return out
+
+
+#: The JAX suite's bounded-memory corridor soak
+#: (tests/test_world.py::test_bounded_memory_corridor_soak), with the
+#: planner off: the port refuses a windowed stack with the planner.
+LIFELONG_STEPS = 800
+
+
+def _lifelong_world_config():
+    import dataclasses
+    from jax_mapping_torch.config import WorldConfig, tiny_config
+    base = tiny_config()
+    return base.replace(
+        grid=dataclasses.replace(base.grid, size_cells=768),
+        serving=dataclasses.replace(base.serving, tile_cells=32),
+        matcher=dataclasses.replace(base.matcher, min_travel_m=1e9),
+        robot=dataclasses.replace(base.robot,
+                                  speed_coeff_m_per_unit_s=0.003027,
+                                  speed_noise_frac=0.0,
+                                  lidar_warn_dist_m=0.5,
+                                  lidar_stop_dist_m=0.8),
+        recovery=dataclasses.replace(base.recovery, enabled=False),
+        planner=dataclasses.replace(base.planner, enabled=False),
+        world=WorldConfig(windowed=True, window_tiles=8, margin_tiles=3,
+                          host_tile_budget=6, retention_coarsen=1))
+
+
+def phase_lifelong_world(torch, seed: int):
+    """The corridor soak on the card: one robot patrols a 3.2 m corridor of
+    a 768^2 logical lattice through a 256^2 window (out east, back past
+    the spawn, out again), with a memory_pressure window over the return
+    leg's shift-back and two spill_corrupt rots while the spill holds the
+    outbound tiles. The device window's bytes must stay flat while the
+    distance grows; the pressure must fire and clear through the
+    FaultPlan; the rots must hit real spilled tiles, and their rehydrate
+    must degrade to unknown with a `world_spill_corrupt` event."""
+    import numpy as np
+    from jax_mapping_torch.obs.recorder import flight_recorder
+    from jax_mapping_torch.ops import _cuda
+    from jax_mapping_torch.resilience.faultplan import FaultEvent
+    from jax_mapping_torch.scenarios import run_lifelong_mission
+    from jax_mapping_torch.sim import world as W
+    cfg = _lifelong_world_config()
+    world, doors = W.corridor_course(768, cfg.grid.resolution_m,
+                                     corridor_w_m=3.2)
+    goal_script = [(0, 15.0, 0.0), (130, -15.0, 0.9), (520, 15.0, 0.0)]
+    events = [FaultEvent(step=240, kind="memory_pressure", value=0.7,
+                         duration=150),
+              FaultEvent(step=330, kind="spill_corrupt", value=2.0),
+              FaultEvent(step=500, kind="spill_corrupt", value=2.0)]
+    mark = flight_recorder.mark()
+    _cuda.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = run_lifelong_mission(cfg, world, doors, events, LIFELONG_STEPS,
+                               seed=seed, n_robots=1,
+                               checkpoint_dir=tempfile.mkdtemp(
+                                   prefix="lifelong_"),
+                               goal_script=goal_script)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    degrades = [e for e in flight_recorder.events_since(mark)
+                if e["kind"] == "world_spill_corrupt"]
+    window_bytes = (8 * 32) ** 2 * 4
+    series = rep.world_series
+    t = cfg.serving.tile_cells
+    r0, c0 = series[-1]["origin_tile"]
+    truth = world[r0 * t:r0 * t + 256, c0 * t:c0 * t + 256]
+    known = np.abs(rep.grid) > 0.5
+    out = {"phase": "lifelong_world",
+           "config": "tests/test_world.py corridor soak config, "
+                     "planner.enabled=False", "steps": LIFELONG_STEPS,
+           "wall_s": wall, "steps_per_s": LIFELONG_STEPS / wall,
+           "peak_device_window_bytes": rep.peak_device_window_bytes(),
+           "window_bytes_series": sorted({s["device_window_bytes"]
+                                          for s in series}),
+           "distance_m": rep.distance_traveled_m,
+           "origins": len({tuple(s["origin_tile"]) for s in series}),
+           "max_away_tiles": max(s["away_tiles"] for s in series),
+           "max_spill_tiles": max(s["spill_tiles"] for s in series),
+           "plan_log": [d for _, d in rep.plan_log],
+           "spill_corrupt_degrades": len(degrades),
+           "known_cells": int(known.sum()),
+           "sign_agreement": float(((rep.grid > 0.5)
+                                    == (truth > 0.5))[known].mean()),
+           "launches": dict(_cuda.LAUNCHES)}
+    emit(out)
+    check(out["peak_device_window_bytes"] == window_bytes
+          and out["window_bytes_series"] == [window_bytes],
+          f"lifelong world: the device window grew {out}")
+    dists = [s["distance_m"] for s in series]
+    check(dists == sorted(dists) and rep.distance_traveled_m > 8.0,
+          f"lifelong world: distance did not grow {out}")
+    check(any("memory_pressure" in d for d in out["plan_log"])
+          and any("clear: memory_pressure" in d for d in out["plan_log"]),
+          f"lifelong world: memory_pressure did not fire and clear {out}")
+    check(any("spill_corrupt" in d and "tile(s)" in d
+              for d in out["plan_log"]),
+          f"lifelong world: spill_corrupt rotted no spilled tile {out}")
+    check(degrades, "lifelong world: no rotted tile was read back")
+    check(out["origins"] >= 2 and out["max_spill_tiles"] > 0,
+          f"lifelong world: the window never spilled {out}")
+    return out
+
+
 def phase_ab(parent: str, seed: int) -> dict:
     """K1-K7, exact_bfs' frontier costs and 30 steps of the mission stack
     of the tree `parent` and of this one, timed in turns (parent, change,
@@ -6412,9 +7002,12 @@ def main(argv=None) -> int:
             phase_stack_depth(torch, args.seed)
         new_paths["serving"], serving_out, serving_rec = phase_serving(
             torch, args.seed, depth_out["steps_per_s"])
+        new_paths["scenario"], scenario_out, scenario_rec = \
+            phase_scenario(torch, args.seed)
         new_paths["world"], world_out, world_rec, world_k1 = phase_world(
             torch, args.seed)
         world_par, world_k1_global = phase_world_parity(torch, args.seed)
+        phase_lifelong_world(torch, args.seed)
         new_paths["world_parity"] = {
             "per": "two store walks",
             "k1_launches_by_batch": world_par["k1_launches_by_batch"]}
@@ -6432,7 +7025,8 @@ def main(argv=None) -> int:
                                        "tenant_exact_bfs":
                                            option_recs["exact_bfs"],
                                        "stack_depth": depth_rec,
-                                       "serving": serving_rec},
+                                       "serving": serving_rec,
+                                       "scenario": scenario_rec},
                               "k6": depth_k6,
                               "k6_launches_per_step":
                                   depth_out["launches"]["voxel_image"]
@@ -6442,10 +7036,12 @@ def main(argv=None) -> int:
         del mapped, world, st, vstate, bench, publisher, planned, tenancy
         del stack_rec, world_rec, world_k1, world_k1_global
         del exact_rec, option_recs, depth_rec, depth_k6, serving_rec
+        del scenario_rec
         phase_parity(torch, args.seed)
         phase_slam_parity(torch, args.seed)
         phase_voxel_parity(torch, args.seed)
         phase_stack_parity(torch, args.seed)
+        phase_scenario_parity(torch, args.seed)
         sharded, sharded_launches = phase_sharded(torch, SlamConfig(),
                                                   fleet, args.seed)
         sharded_kernel_rows(torch, SlamConfig(), args.seed, fleet, mapper,
@@ -6495,6 +7091,7 @@ def main(argv=None) -> int:
         kernels[-1]["launches_stack_depth"] = depth_out["launches"][name]
         kernels[-1]["launches_sharded"] = sharded_launches[name]
         kernels[-1]["launches_serving"] = serving_out["launches"][name]
+        kernels[-1]["launches_scenario"] = scenario_out["launches"][name]
     import torch.distributed as dist
     if dist.is_initialized():
         dist.destroy_process_group()

@@ -7,13 +7,20 @@ dashboards read either package's server. The handlers' device work (the
 tile store's gray image, pyramid and tile hashes, the `/save-map`
 threshold) runs on the stack's device; PNG encoding is host zlib.
 
-Not ported yet, and so absent as in a JAX server built without them:
-the dispatch profiler (`/status.perf`, `jax_mapping_device_*`), the
-freshness SLO engine (`/status.slo`, `jax_mapping_slo_*`) and causal
-tracing (`GET /trace` answers 404, as it does with tracing off); the
-pipeline ledger, the tenancy control plane and the cold-start status are
-hooks (`pipeline`, `tenancy`, `coldstart_status`) that nothing sets while
-`cfg.obs`, `cfg.tenancy` and `cfg.cold_start` are refused at launch.
+With the obs tier armed (a `Tracer` on the bus, the `pipeline` ledger
+and the `slo` engine, all set by launch when `cfg.obs.enabled`): every
+handler but `/trace` runs inside an `http:<route>` span, `GET /trace`
+serves the span ring as Chrome-trace events, `/status` carries
+`pipeline` and `slo`, serving responses carry the `Server-Timing`
+revision age, and `/metrics` adds the pipeline, `jax_mapping_slo_*` and
+span-count families. Without it `/trace` answers 404, as the JAX server
+does with tracing off.
+
+Not ported yet, and so absent as in a JAX server built without it: the
+dispatch profiler (`/status.perf`, `jax_mapping_device_*`; the obs
+tier's device half, ROADMAP A.9f2). The tenancy control plane and the
+cold-start status are hooks (`tenancy`, `coldstart_status`) that nothing
+sets while `cfg.tenancy` and `cfg.cold_start` are refused at launch.
 
 Re-creates the reference's management plane (SURVEY.md §1 L4) with both
 variants' routes merged:
@@ -108,7 +115,7 @@ class MapApiServer:
                  supervisor=None, recovery=None,
                  lock_timeout_s: Optional[float] = 2.0,
                  socket_timeout_s: Optional[float] = 30.0,
-                 pipeline=None):
+                 pipeline=None, slo=None):
         self.bus = bus
         self.brain = brain
         self.mapper = mapper
@@ -133,6 +140,9 @@ class MapApiServer:
         #: monotonic deltas, so a client measures observed staleness
         #: without trusting any cross-host wall clock.
         self.pipeline = pipeline
+        #: Freshness SLO engine (obs/slo.py) or None: `/status.slo` +
+        #: `jax_mapping_slo_*` metric families ride along.
+        self.slo = slo
         self.lock_timeout_s = lock_timeout_s
         #: Staged warm-up window: while a supervisor restart
         #: restores+pre-warms the mapper, serving keeps answering from
@@ -392,8 +402,26 @@ class MapApiServer:
     def handle(self, path: str, method: str = "GET",
                headers=None) -> Tuple:
         """Route a request; returns (status, content-type, body) or
-        (status, content-type, body, extra-headers-dict)."""
-        return self._handle(path, method, headers)
+        (status, content-type, body, extra-headers-dict). When causal
+        tracing is armed the whole handler runs inside an `http:<route>`
+        span, so goal publishes and checkpoint mutations made from HTTP
+        chain under the request that caused them."""
+        tracer = getattr(self.bus, "tracer", None)
+        if tracer is None:
+            return self._handle(path, method, headers)
+        route = path.split("?")[0].rstrip("/") or "/"
+        if route == "/trace":
+            # The trace poller must not trace ITSELF: a span per poll
+            # would advance the ring every request, so the /trace ETag
+            # (keyed on the span seq) could never 304.
+            return self._handle(path, method, headers)
+        if route not in self._KNOWN_ROUTES:
+            # Collapse like _record_request does: the tracer keys its
+            # seq table by span name, so raw client-controlled paths
+            # would grow it without bound.
+            route = "other"
+        with tracer.span(f"http:{route}"):
+            return self._handle(path, method, headers)
 
     def _handle(self, path: str, method: str = "GET",
                 headers=None) -> Tuple:
@@ -502,6 +530,11 @@ class MapApiServer:
                 # revisions, windowed scan→served p99, last
                 # install/delivery ticks (obs/pipeline.py).
                 body["pipeline"] = self.pipeline.status()
+            if self.slo is not None:
+                # The freshness-budget picture (`/status.slo`): per
+                # objective value vs threshold, fast/slow burn rates,
+                # firing state, and the recent alert transitions.
+                body["slo"] = self.slo.status()
             if self.extra_status is not None:
                 body.update(self.extra_status())
             return 200, "application/json", json.dumps(body).encode()
@@ -522,7 +555,7 @@ class MapApiServer:
         if route == "/metrics":
             return 200, "text/plain", self._metrics().encode()
         if route == "/trace":
-            return self._trace()
+            return self._trace(path, headers)
         if route in ("/save", "/load"):
             # Mutations are POST-only: GET /load from a link
             # prefetcher would silently replace the running map.
@@ -1138,14 +1171,39 @@ class MapApiServer:
             self._png_cache[name] = (data, time.monotonic(), key)
         return data
 
-    def _trace(self) -> Tuple:
-        """GET /trace: the tracer's span ring in the JAX package; the
-        port has no tracer yet (`cfg.obs.enabled` is refused at launch,
-        ROADMAP A.9f), so it answers as the JAX server does with tracing
-        off."""
-        return 404, "application/json", json.dumps(
-            {"error": "tracing disabled (ObsConfig.enabled=False)"}
-        ).encode()
+    def _trace(self, path: str, headers=None) -> Tuple:
+        """GET /trace?since=<seq> — the tracer's span ring as Chrome-
+        trace/Perfetto events, incrementally: only spans whose monotone
+        `seq` stamp exceeds `since` (omitted/0 = everything still in
+        the ring), plus `next` to pass as the following poll's `since`.
+        404 when tracing is off (`ObsConfig.enabled=False`).
+
+        The ETag is the span-ring head seq, read BEFORE the span content
+        (a reverse order could stamp newer spans with an older seq), and
+        the returned window is capped at that seq so body and ETag
+        agree; an empty window costs a 304 header."""
+        tracer = getattr(self.bus, "tracer", None)
+        if tracer is None:
+            return 404, "application/json", json.dumps(
+                {"error": "tracing disabled (ObsConfig.enabled=False)"}
+            ).encode()
+        from jax_mapping_torch.obs.export import chrome_events
+        q = parse_qs(urlparse(path).query)
+        try:
+            since = int(q.get("since", ["0"])[0])
+        except (ValueError, IndexError):
+            return 400, "application/json", json.dumps(
+                {"error": "since must be an integer span seq"}).encode()
+        head = tracer.last_seq()           # revision BEFORE content
+        etag = f'W/"trace-{head}-s{since}"'
+        if self._etag_hit(headers, etag):
+            return 304, "application/json", b"", {"ETag": etag}
+        spans = [s for s in tracer.spans_since(since)
+                 if s["seq"] <= head]
+        return 200, "application/json", json.dumps(
+            {"traceEvents": chrome_events(spans),
+             "next": spans[-1]["seq"] if spans else since}).encode(), \
+            {"ETag": etag}
 
     def _frontiers(self) -> Tuple[int, str, bytes]:
         with self._lock:
@@ -1544,12 +1602,18 @@ class MapApiServer:
         def obs_families():
             from jax_mapping_torch.obs.recorder import flight_recorder
             rs = flight_recorder.stats()
-            return [
+            fams = [
                 Family("jax_mapping_obs_recorder_events_total", "counter",
                        (("", str(rs["n_events"])),)),
                 Family("jax_mapping_obs_recorder_dumps_total", "counter",
                        (("", str(rs["n_dumps"])),)),
             ]
+            tracer = getattr(self.bus, "tracer", None)
+            if tracer is not None:
+                fams.append(Family("jax_mapping_obs_trace_spans_total",
+                                   "counter",
+                                   (("", str(tracer.last_seq())),)))
+            return fams
         reg.add_source(obs_families)
 
         def checkpoint_fallback_samples():
@@ -1624,6 +1688,15 @@ class MapApiServer:
             ]
             return fams
         reg.add_source(pipeline_families)
+
+        def slo_families():
+            # Freshness SLO engine (obs/slo.py): firing state, burn rates
+            # and alert counters per objective — one consistent engine
+            # snapshot per render.
+            if self.slo is None:
+                return None
+            return self.slo.metric_families()
+        reg.add_source(slo_families)
 
         return reg
 

@@ -28,9 +28,16 @@ auto-checkpoint as the voxel and keyframe sidecars.
 that port (0 picks a free one) from a thread of its own: the management
 plane's routes, the tile serving and `/map-events`.
 
+`cfg.obs.enabled` arms the obs tier's host half: a `Tracer` seeded with
+the launch seed rides the bus (deterministic span ids), the
+`PipelineLedger` stamps each revision's freshness waypoints, and an
+`SloEngine` evaluates the declared objectives once a mapper tick; the
+mapper, the HTTP API and the flight recorder get all three. An attached
+`FaultPlan` (`Stack.attach_fault_plan`) fires on `run_steps`' step clock.
+
 Not ported yet, and refused with NotImplementedError naming the ROADMAP
-item rather than silently dropped: the observability tier
-(`cfg.obs.enabled`, `cfg.obs.devprof.enabled`), the warm-restart tier
+item rather than silently dropped: the obs tier's device half, the
+dispatch profiler (`cfg.obs.devprof.enabled`), the warm-restart tier
 (`cfg.cold_start.enabled`) and the tenancy control plane
 (`cfg.tenancy.enabled`). So is the staged warm-up ladder of a mapper
 restart, which pre-warms compiled entry points: the port's restart
@@ -91,6 +98,16 @@ class Stack:
     recovery: Optional[RecoveryManager] = None   # estimator guardrails
     voxel_mapper: Optional[VoxelMapperNode] = None   # when depth_cam
     api: Optional[MapApiServer] = None       # when http_port is given
+    fault_plan: Optional[object] = None      # attached FaultPlan, if any
+    #: Causal tracing (obs/trace.Tracer) when ObsConfig.enabled; the same
+    #: object rides bus.tracer (span export, /trace).
+    tracer: Optional[object] = None
+    #: Pipeline latency ledger (obs/pipeline.PipelineLedger) when
+    #: ObsConfig.enabled: per-revision scan→served waypoint stamps.
+    pipeline: Optional[object] = None
+    #: Freshness SLO engine (obs/slo.SloEngine) when ObsConfig.enabled and
+    #: objectives are declared; evaluated once a mapper tick.
+    slo: Optional[object] = None
     #: Auto-checkpoint file the supervisor saves to and the mapper
     #: resumes from ("" = no checkpoint_dir, no auto-checkpointing).
     auto_checkpoint_path: str = ""
@@ -103,11 +120,17 @@ class Stack:
     def run_steps(self, n: int) -> None:
         """Faster-than-realtime: drive physics+brain+mapper loops directly,
         n sensor ticks (realtime=False stacks only). The planner keeps its
-        cadence RATIO (one plan per period_s of simulated control time);
-        the supervisor ticks once per step after the nodes."""
+        cadence RATIO (one plan per period_s of simulated control time).
+
+        An attached FaultPlan fires before each step on the step index;
+        the supervisor ticks once per step AFTER the nodes, so a node
+        killed at step k misses its k-th beat and the dead-declaration
+        countdown starts the same step."""
         steps_per_plan = max(1, round(self.cfg.planner.period_s
                                       * self.cfg.robot.control_rate_hz))
         for _ in range(n):
+            if self.fault_plan is not None:
+                self.fault_plan.apply(self, self._steps_run)
             self.sim.step()
             if "thymio_brain" not in self._killed:
                 self.brain.update_loop()
@@ -122,10 +145,14 @@ class Stack:
             if self.supervisor is not None:
                 self.supervisor.tick()
 
+    def attach_fault_plan(self, plan) -> None:
+        """Arm a FaultPlan: `run_steps` applies it on the step clock."""
+        self.fault_plan = plan
+
     def kill_node(self, name: str) -> None:
-        """Destroy a node mid-mission: timers cancelled, subscriptions
-        closed, its stepped tick skipped. The supervisor notices the
-        silent heartbeat and restarts it."""
+        """Destroy a node mid-mission (FaultPlan `kill_node`): timers
+        cancelled, subscriptions closed, its stepped tick skipped. The
+        supervisor notices the silent heartbeat and restarts it."""
         node = {"thymio_brain": self.brain,
                 "jax_mapper": self.mapper}.get(name)
         if node is None:
@@ -203,6 +230,7 @@ class Stack:
                 states = None                # no intact generation: blank
         new = MapperNode(self.cfg, self.bus, tf=self.tf, n_robots=n,
                          health=self.health, recovery=self.recovery,
+                         pipeline=self.pipeline, slo=self.slo,
                          device=self.device,
                          spill_dir=self.world_spill_dir or None)
         new.restart_epoch = old.restart_epoch + 1
@@ -265,10 +293,10 @@ def _refuse_unported(cfg: SlamConfig) -> None:
          "the logical grid config on the mapper's window-sized grid, in "
          "the wrong frame (ROADMAP re-anchor note); disable the planner "
          "for a windowed stack"),
-        (cfg.obs.enabled, "cfg.obs.enabled: causal tracing and the "
-         "pipeline ledger (obs/) are not ported yet (ROADMAP A.9f)"),
         (cfg.obs.devprof.enabled, "cfg.obs.devprof.enabled: the dispatch "
-         "profiler (obs/devprof.py) is not ported yet (ROADMAP A.9f)"),
+         "profiler and the cost ledger (obs/devprof.py, obs/ledger.py), "
+         "the obs tier's device half, are not ported yet (ROADMAP "
+         "A.9f2)"),
         (cfg.cold_start.enabled, "cfg.cold_start.enabled: the warm-restart "
          "tier (io/compile_cache.py, resilience/warmup.py) is not ported "
          "yet (ROADMAP A.9g)"),
@@ -293,18 +321,33 @@ def launch_sim_stack(cfg: SlamConfig, world: np.ndarray,
     idle so callers step deterministically via `Stack.run_steps`;
     realtime=True spins the executor thread. `seed` seeds the bus's loss
     weather, the fleet's spawn radii and wheel noise, and the
-    supervisor's jitter. `http_port` serves the HTTP API (0: a free
-    port, `Stack.api.port`)."""
+    supervisor's jitter, and the tracer's ids. `http_port` serves the HTTP
+    API (0: a free port, `Stack.api.port`)."""
     _refuse_unported(cfg)
     dev = resolve_device(device)
     res = world_res_m if world_res_m is not None else cfg.grid.resolution_m
+    tracer = pipeline = slo = None
+    if cfg.obs.enabled:
+        # Causal tracing: deterministic trace ids from (this seed, topic,
+        # per-topic publish seq). The freshness tier rides the same gate;
+        # the SLO engine exists only when objectives are declared.
+        # enabled=False constructs none of them.
+        from jax_mapping_torch.obs.pipeline import PipelineLedger
+        from jax_mapping_torch.obs.slo import SloEngine
+        from jax_mapping_torch.obs.trace import Tracer
+        tracer = Tracer(seed=seed, capacity=cfg.obs.trace_ring)
+        pipeline = PipelineLedger()
+        if cfg.obs.slo:
+            slo = SloEngine(cfg.obs.slo, pipeline=pipeline)
     # The always-on flight recorder follows the newest stack; its dumps
-    # go to the checkpoint dir's `postmortem/` (None: events only).
+    # go to the checkpoint dir's `postmortem/` (None: events only) and
+    # carry the tracer's spans and the ledger's records when armed.
     flight_recorder.configure(
         dump_dir=(os.path.join(checkpoint_dir, "postmortem")
                   if checkpoint_dir else None),
-        tracer=None, capacity=cfg.obs.recorder_ring)
-    bus = Bus(domain_id=cfg.domain_id, drop_prob=drop_prob, seed=seed)
+        tracer=tracer, capacity=cfg.obs.recorder_ring, pipeline=pipeline)
+    bus = Bus(domain_id=cfg.domain_id, drop_prob=drop_prob, seed=seed,
+              tracer=tracer)
     tf = TfTree()
     for i in range(n_robots):
         ns = robot_ns(i, n_robots)
@@ -333,7 +376,8 @@ def launch_sim_stack(cfg: SlamConfig, world: np.ndarray,
     world_spill_dir = (os.path.join(checkpoint_dir, "world_spill")
                        if checkpoint_dir and cfg.world.windowed else "")
     mapper = MapperNode(cfg, bus, tf=tf, n_robots=n_robots, health=health,
-                        recovery=recovery, device=dev,
+                        recovery=recovery, pipeline=pipeline, slo=slo,
+                        device=dev,
                         spill_dir=world_spill_dir or None)
     _anchor(mapper, brain.poses)
 
@@ -367,6 +411,7 @@ def launch_sim_stack(cfg: SlamConfig, world: np.ndarray,
                            mapper=mapper, voxel_mapper=voxel_mapper,
                            planner=planner, health=health,
                            supervisor=supervisor, recovery=recovery,
+                           pipeline=pipeline, slo=slo,
                            lock_timeout_s=cfg.resilience.http_lock_timeout_s)
         api.serve_thread()
 
@@ -379,7 +424,8 @@ def launch_sim_stack(cfg: SlamConfig, world: np.ndarray,
                   brain=brain, mapper=mapper, executor=executor, device=dev,
                   planner=planner, health=health, supervisor=supervisor,
                   recovery=recovery, world_spill_dir=world_spill_dir,
-                  voxel_mapper=voxel_mapper, api=api)
+                  voxel_mapper=voxel_mapper, api=api, tracer=tracer,
+                  pipeline=pipeline, slo=slo)
     if supervisor is not None:
         # The brain has no restarter: its driver link and poses cannot be
         # rebuilt; its death is declared and exported.

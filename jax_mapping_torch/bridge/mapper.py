@@ -49,8 +49,13 @@ mapper), the frontier auction runs on the planner's voxel-overlaid
 planning grid (`_frontier_basis`), keyed for the incremental pipeline by
 `frontier_grid_key_provider`.
 
-Not ported: causal tracing and the pipeline / SLO ledgers
-(`cfg.obs.enabled`, refused at launch).
+With the obs tier armed (launch passes the bus's `Tracer`, the
+`PipelineLedger` and the `SloEngine`), each tick is one `mapper.tick`
+span, each installed scan one `mapper.fuse` span parented on the scan's
+bus-delivery context, each revision's install and notify waypoints are
+stamped into the ledger, and the SLO engine evaluates once a tick after
+the body. All of it is host bookkeeping: with `enabled=False` none of it
+is constructed and the node does exactly what it did without.
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ from __future__ import annotations
 import functools
 import math
 import threading
+import time
 from typing import List, NamedTuple, Optional
 
 import numpy as np
@@ -113,10 +119,21 @@ class MapperNode(Node):
     def __init__(self, cfg: SlamConfig, bus: Bus,
                  tf: Optional[TfTree] = None, n_robots: int = 1,
                  tick_period_s: Optional[float] = None, health=None,
-                 recovery=None, device=None,
+                 recovery=None, pipeline=None, slo=None, device=None,
                  spill_dir: Optional[str] = None):
         super().__init__("jax_mapper", bus, tf)
         self.device = resolve_device(device)
+        #: Causal tracing: the bus's Tracer or None, set before any
+        #: subscription exists (`_scan_cb` captures each scan's delivery
+        #: context, so a queued scan's fuse span chains to its publish).
+        self._tracer = getattr(bus, "tracer", None)
+        #: Pipeline latency ledger (obs/pipeline.py) or None: each
+        #: revision's enqueued → installed → notified waypoints. None adds
+        #: not even a clock read.
+        self._pipeline = pipeline
+        #: Freshness SLO engine (obs/slo.py) or None: evaluated once a
+        #: tick, after the body.
+        self._slo = slo
         #: Bounded-memory world (world/store.py) or None. Windowed, the
         #: node's device config is the window-sized one, and `full_cfg`
         #: keeps the logical extent (the tile lattice, the /map origin).
@@ -129,6 +146,9 @@ class MapperNode(Node):
         self.cfg = cfg
         self.n_robots = n_robots
         self._tick_no = 0
+        #: Per-robot monotone fuse-span keys (deterministic; see
+        #: _emit_fuse_spans).
+        self._fuse_no = [0] * n_robots
         self._state_lock = threading.Lock()
         # One grid for the fleet; every state's .grid aliases it.
         self.shared_grid = G.empty_grid(cfg.grid, self.device)
@@ -160,8 +180,9 @@ class MapperNode(Node):
         self._calib_slam = [0.0] * n_robots
         self._calib_n = [0] * n_robots
         self._prev_matched = [False] * n_robots
-        #: Per-robot queued scans (see _scan_cb).
-        self._scan_q: List[List[LaserScan]] = [[] for _ in range(n_robots)]
+        #: Per-robot queued (scan, delivery context, enqueue stamp)
+        #: triples (see _scan_cb).
+        self._scan_q: List[List] = [[] for _ in range(n_robots)]
         self._prev_paired: List[Optional[Odometry]] = [None] * n_robots
         #: Shared degraded-mode registry (resilience/health.py) or None.
         self._health = health
@@ -422,6 +443,10 @@ class MapperNode(Node):
         if not self._serving_enabled:
             return
         rev = self.map_revision
+        if self._pipeline is not None and rev > 0:
+            # Notify waypoint: the revision is now fanned to listeners
+            # (idempotent for revisions already marked).
+            self._pipeline.notified(rev)
         if rev != self._last_recorded_revision:
             self._last_recorded_revision = rev
             flight_recorder.record("map_revision", revision=rev)
@@ -548,8 +573,15 @@ class MapperNode(Node):
     # -- topic callbacks -----------------------------------------------------
 
     def _scan_cb(self, i: int, msg: LaserScan) -> None:
+        # The bus made the publish context current for this callback:
+        # captured HERE, a scan that waits in the queue still chains its
+        # fuse span to the publish that produced it. The enqueue stamp is
+        # the ledger's scan→served starting waypoint (None: no ledger).
+        ctx = self._tracer.current() if self._tracer is not None else None
+        enq_t = time.perf_counter() if self._pipeline is not None \
+            else None
         with self._state_lock:
-            self._scan_q[i].append(msg)
+            self._scan_q[i].append((msg, ctx, enq_t))
 
     def _odom_cb(self, i: int, msg: Odometry) -> None:
         with self._state_lock:
@@ -599,18 +631,34 @@ class MapperNode(Node):
         """Drain queues, run the device SLAM step(s) per robot: full
         windows of `max(2, fleet.batch_scans)` queued scans through
         `slam_step_window`, the remainder scan by scan. One `mapper.tick`
-        stage (latency histogram) around the whole tick."""
+        stage (latency histogram) around the whole tick and, with tracing
+        on, one `mapper.tick` span, under which everything the tick
+        publishes chains; the SLO engine evaluates after the body."""
         self._tick_no += 1
+        if self._pipeline is not None:
+            self._pipeline.note_tick(self._tick_no)
+        t0 = time.perf_counter()
         with M.stages.stage("mapper.tick"):
-            self._tick_body()
+            if self._tracer is not None:
+                with self._tracer.span("mapper.tick", key=self._tick_no):
+                    self._tick_body()
+            else:
+                self._tick_body()
+        if self._slo is not None:
+            # Once a tick, on the step clock the burn windows count,
+            # with the tick's duration (deadline objective) and the live
+            # revision (staleness objective).
+            self._slo.evaluate(self._tick_no,
+                               tick_ms=(time.perf_counter() - t0) * 1e3,
+                               map_revision=self.map_revision)
 
     def _tick_body(self) -> None:
         self._maybe_shift_window()
         with self._state_lock:
             work: List[List] = [[] for _ in range(self.n_robots)]
             for i in range(self.n_robots):
-                for scan in sorted(self._scan_q[i],
-                                   key=lambda s: s.header.stamp):
+                for scan, ctx, enq_t in sorted(
+                        self._scan_q[i], key=lambda e: e[0].header.stamp):
                     if self.cfg.resilience.enabled and \
                             scan.header.stamp < \
                             self._last_accepted_stamp[i]:
@@ -627,7 +675,7 @@ class MapperNode(Node):
                         continue
                     # The stale watermark advances at install time
                     # (_finish_step), not here.
-                    work[i].append((scan, od))
+                    work[i].append((scan, od, ctx, enq_t))
                 self._scan_q[i].clear()
 
         # ONE host->device copy for the tick: every robot's queued scans
@@ -758,9 +806,16 @@ class MapperNode(Node):
             self.shared_grid = g
             for j in range(self.n_robots):
                 self.states[j] = self.states[j]._replace(grid=g)
+            rev = None
             if self._serving_enabled:
                 self.map_revision += 1
+                rev = self.map_revision
                 self._mark_dirty_all()
+        if self._pipeline is not None and rev is not None:
+            # A decay pass stamps its revision but is not ingest: healing
+            # must not reset the ingest-stall clock.
+            self._pipeline.installed(rev, tick=self._tick_no,
+                                     ingest=False)
         if self.world is not None:
             # Evicted tiles catch up at rehydration (one clip(x*f) a
             # missed pass, as the device's).
@@ -846,9 +901,11 @@ class MapperNode(Node):
             return
         installed = self._finish_step(i, state, r, items[-1][1], W,
                                       base_grid, base_gen,
-                                      items[-1][0].header.stamp)
+                                      items[-1][0].header.stamp,
+                                      enq_t=self._oldest_enq(items))
         if not installed:
             return
+        self._emit_fuse_spans(i, items)
         self.n_windows_fused += 1
         M.counters.inc("mapper.windows_fused")
         # A low-agreement window means evidence landed in known-free
@@ -867,8 +924,28 @@ class MapperNode(Node):
         return {"candidates": list(self._match_candidates),
                 "prune_ratio": list(self._match_prune_ratio)}
 
+    def _emit_fuse_spans(self, i: int, items: List) -> None:
+        """One instant `mapper.fuse` span per INSTALLED scan, parented on
+        the scan's bus-delivery context (sim publish -> queue -> fuse); a
+        scan without one falls back to the tick span. The key is a
+        per-robot monotone fuse counter, not the wall-clock scan stamp,
+        so two same-seed runs emit the same ids."""
+        tr = self._tracer
+        if tr is None:
+            return
+        for it in items:
+            self._fuse_no[i] += 1
+            tr.emit("mapper.fuse", parent=it[2], key=(i, self._fuse_no[i]))
+
+    @staticmethod
+    def _oldest_enq(items: List):
+        """Oldest pipeline enqueue stamp among a step's work items (the
+        worst-case freshness of its evidence); None with no ledger."""
+        return min((it[3] for it in items if it[3] is not None),
+                   default=None)
+
     def _step_single(self, i: int, item: tuple, ranges) -> None:
-        scan, od = item
+        scan, od = item[0], item[1]
         with self._state_lock:
             base_grid = self.shared_grid
             base_gen = self._state_gen[i]
@@ -897,8 +974,10 @@ class MapperNode(Node):
         if self._observe_watchdog(i, r, window=False):
             self._quarantine_items(i, [item])
             return
-        self._finish_step(i, state, r, od, 1, base_grid, base_gen,
-                          scan.header.stamp)
+        if self._finish_step(i, state, r, od, 1, base_grid, base_gen,
+                             scan.header.stamp,
+                             enq_t=self._oldest_enq([item])):
+            self._emit_fuse_spans(i, [item])
 
     def _reject_low_agreement(self, i: int,
                               items: Optional[List] = None) -> None:
@@ -1013,10 +1092,13 @@ class MapperNode(Node):
 
     def _finish_step(self, i: int, state, r: StepRead, od: Odometry,
                      n_scans: int, base_grid, base_gen: int,
-                     newest_stamp: float = -float("inf")) -> bool:
+                     newest_stamp: float = -float("inf"),
+                     enq_t: Optional[float] = None) -> bool:
         """Install the step's results; returns False when the step was
         dropped as stale. `newest_stamp` advances the robot's
-        stale-rejection watermark only when the step installs."""
+        stale-rejection watermark only when the step installs; `enq_t`
+        is the step's oldest ledger enqueue stamp."""
+        rev_installed = None
         with self._state_lock:
             if self.shared_grid is not base_grid \
                     or self._state_gen[i] != base_gen:
@@ -1053,6 +1135,7 @@ class MapperNode(Node):
                                  np.float32)
             if self._serving_enabled:
                 self.map_revision += 1
+                rev_installed = self.map_revision
                 if r.closed:
                     self._mark_dirty_all()
                 elif r.box is not None:
@@ -1075,6 +1158,11 @@ class MapperNode(Node):
             # The installed (estimate, paired odom) pair is the live
             # map->odom correction for robot i.
             self._correction[i] = (new_est, new_odo)
+        if self._pipeline is not None and rev_installed is not None:
+            # Install waypoint, outside the state lock (the ledger has its
+            # own leaf lock).
+            self._pipeline.installed(rev_installed, enq_t=enq_t,
+                                     tick=self._tick_no)
         self.n_scans_fused += n_scans
         M.counters.inc("mapper.scans_fused", n_scans)
         if r.matched:

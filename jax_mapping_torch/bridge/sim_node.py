@@ -15,6 +15,15 @@ floor provided for free. Each tick it:
   5. with `depth_cam`, renders every robot's depth image
      (`sim.depthcam`) and publishes it on `{ns}depth`.
 
+With scripted world dynamics attached (`attach_world_dynamics`, the
+`door_close` / `crowd` FaultPlan kinds through `set_door` / `set_crowd`),
+the top of each step asks `WorldDynamics.world_if_changed` for the
+composed world, on the host as in the JAX package, and uploads it to the
+device in one host-to-device copy only when it changed: a copy from
+pinned memory that the step's raycast waits for on the stream, with no
+host sync. A quiet scenario makes no copy; an active crowd makes one a
+step.
+
 The JAX package draws the wheel noise from a PRNG key carried in the
 fleet state; here a `torch.Generator` seeded from `seed` draws the (R, 2)
 standard normals on the host each step and `step_fleet` takes them as
@@ -91,9 +100,71 @@ class SimNode(Node):
         #: re-reporting (frozen data, fresh stamps).
         self._jam_cache = [None] * R
         self._fault_seed = seed
+        #: Scripted world dynamics (scenarios/dynamics.py), or None — the
+        #: static-world stack exactly. Attached once at launch, mutated
+        #: through set_door / set_crowd, consumed at the top of step().
+        self._world_dyn = None
+        self.n_world_updates = 0
         self.n_steps = 0
         if realtime:
             self.create_timer(1.0 / rate_hz, self.step)
+
+    # -- scripted world dynamics (scenarios/; FaultPlan world kinds) ---------
+
+    def attach_world_dynamics(self, dyn) -> None:
+        """Arm a WorldDynamics: its base world must be THIS sim's world
+        (same shape; the scenario engine owns composition from here on).
+        step() uploads the composed bitmap when it changes."""
+        if dyn.base.shape != tuple(self.world.shape):
+            raise ValueError(
+                f"world dynamics base {dyn.base.shape} != sim world "
+                f"{tuple(self.world.shape)}")
+        self._world_dyn = dyn
+        if self.device.type == "cuda":
+            # Two pinned staging buffers, allocated here and not on the
+            # step's path: an upload fills one while the other's copy may
+            # still be queued.
+            self._staging = [torch.empty(dyn.base.shape, dtype=torch.bool,
+                                         pin_memory=True) for _ in range(2)]
+            self._staged = [None, None]
+
+    def set_door(self, name: str, closed: bool) -> None:
+        """Close (or re-open) a registered door — the `door_close`
+        scenario kind's boundary."""
+        if self._world_dyn is None:
+            raise RuntimeError(
+                "no world dynamics attached (launch the stack with a "
+                "scenarios.WorldDynamics to script doors)")
+        self._world_dyn.set_door(name, closed)
+
+    def set_crowd(self, cid: int, radius_m) -> None:
+        """Activate/clear a moving crowd blob — the `crowd` scenario
+        kind's boundary (None radius = gone)."""
+        if self._world_dyn is None:
+            raise RuntimeError(
+                "no world dynamics attached (launch the stack with a "
+                "scenarios.WorldDynamics to script crowds)")
+        self._world_dyn.set_crowd(cid, radius_m)
+
+    def _upload_world(self, world: np.ndarray) -> None:
+        """The composed world to the device in one copy. On the card it
+        goes through a pinned staging buffer with `non_blocking`: the copy
+        is ordered on the stream before the step's raycast, and the host
+        does not wait for it. The buffers alternate; one is refilled only
+        once its last copy has run (its event; a step's own reads have
+        long waited for it by then)."""
+        if self.device.type != "cuda":
+            self.world = torch.from_numpy(world).to(self.device)
+            return
+        i = self.n_world_updates % 2
+        done = self._staged[i]
+        if done is not None and not done.query():
+            done.synchronize()
+        buf = self._staging[i]
+        buf.numpy()[...] = world
+        self.world = buf.to(self.device, non_blocking=True)
+        self._staged[i] = torch.cuda.Event()
+        self._staged[i].record()
 
     # -- adversarial sensor-fault boundary -----------------------------------
 
@@ -133,6 +204,15 @@ class SimNode(Node):
         runs; the timer drives it in realtime mode)."""
         cfg = self.cfg
         R = self.driver.n_robots
+        if self._world_dyn is not None:
+            # Scripted world mutations land BEFORE this step's physics,
+            # IR proximity, raycast and depth render (FaultPlan fires on
+            # the same step clock): a door closed at step k is solid in
+            # step k's scans.
+            new_world = self._world_dyn.world_if_changed(self.n_steps)
+            if new_world is not None:
+                self._upload_world(new_world)
+                self.n_world_updates += 1
         targets = torch.as_tensor(self.driver.targets().astype(np.float32),
                                   device=self.device)
         normals = torch.randn((R, 2), generator=self.generator)

@@ -409,8 +409,8 @@ class DevProfConfig:
 
 @_frozen
 class SloObjective:
-    """One freshness or latency objective of the JAX package's SLO engine
-    (kept for `ObsConfig.slo`'s JSON; not evaluated by the port)."""
+    """One freshness or latency objective, evaluated by the SLO engine
+    (`obs/slo.py`) once a mapper tick when `ObsConfig.enabled`."""
 
     name: str = ""
     metric: str = "scan_to_served_p99_ms"
@@ -425,8 +425,10 @@ class SloObjective:
 @_frozen
 class ObsConfig:
     """Observability. The flight recorder (`obs/recorder.py`) is always on
-    and sized by `recorder_ring`; causal tracing (`enabled`), the SLO
-    objectives and `devprof` are not ported and are refused at launch."""
+    and sized by `recorder_ring`; `enabled` arms causal tracing (a ring of
+    `trace_ring` spans), the pipeline ledger and, with `slo` objectives
+    declared, the SLO engine. `devprof` (the obs tier's device half) is
+    not ported and is refused at launch (ROADMAP A.9f2)."""
 
     enabled: bool = False
     trace_ring: int = 65536

@@ -1,10 +1,8 @@
 """Pipeline latency ledger: per-revision freshness waypoints.
 
-A copy of the JAX package's `obs/pipeline.py` (pure Python). In the port
-only `FixedHistogram` is used (by `serving/loadgen.py`): the ledger is
-wired when the obs tier is, and `cfg.obs.enabled` is still refused at
-launch (ROADMAP A.9f). The `critical-path` CLI named below is the JAX
-package's.
+A copy of the JAX package's `obs/pipeline.py` (pure Python): the ledger
+is built at launch when `cfg.obs.enabled`, and `FixedHistogram` also
+serves `serving/loadgen.py`.
 
 The question a production operator asks of a mapping service is not
 "how fast is one dispatch" (obs/devprof.py answers that) but *how stale

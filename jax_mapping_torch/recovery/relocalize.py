@@ -16,9 +16,11 @@ With `MatcherConfig.pruned` the attempt runs through the revision-keyed
 pyramid cache (`ops/pyramid.py`). Its host decisions are the JAX
 package's: each stage's cache key from `patch_origin_host`, the wide
 stage's acceptance read for the fine stage's seed, and the revision guard
-against `grid_revision`. Numpy inputs go to the grid's device. The JAX
-package also times the stages and counts pyramid builds in its metrics
-layer; the port has no such layer yet.
+against `grid_revision`. Numpy inputs go to the grid's device. Each
+stage is timed (`match.coarse_score`, `match.refine`,
+`match.pyramid_build`) and pyramid builds are counted
+(`match.pyramid_builds`), as in the JAX package; the timers add no host
+sync, so each measures the host's side of its stage.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from jax_mapping_torch.models.slam import (_loop_matcher_cfg,
 from jax_mapping_torch.ops import grid as G
 from jax_mapping_torch.ops import pyramid as PYR
 from jax_mapping_torch.ops import scan_match as M
+from jax_mapping_torch.utils import global_metrics as GM
 
 
 def relocalize_match(cfg: SlamConfig, grid: torch.Tensor,
@@ -95,12 +98,28 @@ class Relocalizer:
     @staticmethod
     def _stage_match(g_cfg, scan_cfg, m_cfg, n_levels, levels, origin,
                      ranges, guess) -> M.MatchResult:
-        """One pruned stage through the coarse/refine split."""
-        resp_top, rasters_c, mass_ref = M.pyramid_coarse_scores(
-            g_cfg, scan_cfg, m_cfg, n_levels, levels, origin, ranges, guess)
-        return M.pyramid_refine(g_cfg, scan_cfg, m_cfg, n_levels, resp_top,
-                                levels, origin, ranges, rasters_c, mass_ref,
-                                guess)
+        """One pruned stage through the coarse/refine split, timed as the
+        `match.coarse_score` and `match.refine` stages."""
+        with GM.stages.stage("match.coarse_score"):
+            resp_top, rasters_c, mass_ref = M.pyramid_coarse_scores(
+                g_cfg, scan_cfg, m_cfg, n_levels, levels, origin, ranges,
+                guess)
+        with GM.stages.stage("match.refine"):
+            return M.pyramid_refine(g_cfg, scan_cfg, m_cfg, n_levels,
+                                    resp_top, levels, origin, ranges,
+                                    rasters_c, mass_ref, guess)
+
+    def _cached_pyramid(self, key: tuple, revision: Optional[int],
+                        build: Callable) -> tuple:
+        """The pyramid cache's entry for `key`, built (and timed as the
+        `match.pyramid_build` stage, counted in `match.pyramid_builds`)
+        on a miss."""
+        def timed_build():
+            with GM.stages.stage("match.pyramid_build"):
+                levels = build()
+            GM.counters.inc("match.pyramid_builds")
+            return levels
+        return self.pyramid_cache.get(key, revision, timed_build)
 
     def _match_pruned(self, cfg: SlamConfig, grid: torch.Tensor,
                       ranges: torch.Tensor, guess: np.ndarray,
@@ -136,7 +155,7 @@ class Relocalizer:
         rev_c = None if region_rev_fn is None else fresh(region_rev_fn(
             oc[0] * f, oc[1] * f, g_c.patch_cells * f))
         origin_c = torch.tensor(oc, dtype=torch.int32, device=dev)
-        levels_c = self.pyramid_cache.get(
+        levels_c = self._cached_pyramid(
             ("wide", oc[0], oc[1]), rev_c,
             lambda: _build_wide_pyramid(cfg, lv_c, grid, origin_c))
         wide = self._stage_match(g_c, cfg.scan, m_c, lv_c, levels_c,
@@ -150,7 +169,7 @@ class Relocalizer:
         rev_f = None if region_rev_fn is None else fresh(region_rev_fn(
             of[0], of[1], cfg.grid.patch_cells))
         origin_f = torch.tensor(of, dtype=torch.int32, device=dev)
-        levels_f = self.pyramid_cache.get(
+        levels_f = self._cached_pyramid(
             ("fine", of[0], of[1]), rev_f,
             lambda: PYR.build_match_pyramid(cfg.grid, m_f, lv_f, grid,
                                             origin_f))

@@ -106,14 +106,21 @@ class EstimatorWatchdog:
     def readmit(self, robot: int) -> None:
         """Verified re-anchor: back to HEALTHY with a clean score (the
         old score described the pre-relocalization chain)."""
+        readmitted = False
         with self._lock:
             if self._state[robot] == DIVERGED:
                 self.n_readmits += 1
+                readmitted = True
                 self.transitions.append(
                     (self._n_obs[robot], robot, DIVERGED, HEALTHY))
             self._state[robot] = HEALTHY
             self._score[robot] = 0.0
             self._streak[robot] = 0
+        if readmitted:
+            # Recorded after the lock releases: the DIVERGED->HEALTHY
+            # edge closes the story the divergence dump opened.
+            from jax_mapping_torch.obs.recorder import flight_recorder
+            flight_recorder.record("watchdog_readmit", robot=robot)
 
     # -- readers -------------------------------------------------------------
 

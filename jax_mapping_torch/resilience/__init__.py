@@ -5,9 +5,10 @@
                  plus the HTTP plane's bounded-lock primitives.
 * `supervisor` — Supervisor node: heartbeat monitoring, exponential-
                  backoff restart policy, auto-checkpoint cadence.
+* `faultplan`  — FaultEvent/FaultPlan: scripted, seeded, reproducible
+                 multi-fault missions injected at existing boundaries.
 
-`faultplan` (scripted chaos) and `warmup` (the staged restart ladder)
-are not ported yet (ROADMAP A.9).
+`warmup` (the staged restart ladder) is not ported yet (ROADMAP A.9g).
 """
 
 from jax_mapping_torch.resilience.health import (  # noqa: F401
@@ -17,4 +18,8 @@ from jax_mapping_torch.resilience.health import (  # noqa: F401
 )
 from jax_mapping_torch.resilience.supervisor import (  # noqa: F401
     Heartbeater, Supervisor, beat,
+)
+from jax_mapping_torch.resilience.faultplan import (  # noqa: F401
+    KINDS, MEMORY_KINDS, SENSOR_KINDS, TENANT_KINDS, WORLD_KINDS,
+    FaultEvent, FaultPlan, random_plan,
 )

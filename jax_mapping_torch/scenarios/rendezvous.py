@@ -17,9 +17,11 @@ and merges them:
    the verified pose and one optimize, and every merged state aliases one
    grid.
 
-A host-orchestrated cold path with no random draws. The JAX package also
-times the sweep and records the handshake in its metrics layer and flight
-recorder; the port has neither yet.
+A host-orchestrated cold path with no random draws. The sweep is the
+`rendezvous.sweep` stage, attempts and merges are counted
+(`rendezvous.attempts`, `rendezvous.merges`), and every accepted attempt
+and the merge are flight-recorded (`rendezvous_accept`,
+`rendezvous_merge`), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -32,10 +34,12 @@ import numpy as np
 import torch
 
 from jax_mapping_torch.config import SlamConfig
+from jax_mapping_torch.obs.recorder import flight_recorder
 from jax_mapping_torch.ops import frontier as F
 from jax_mapping_torch.ops import grid as G
 from jax_mapping_torch.ops import posegraph as PG
 from jax_mapping_torch.recovery.relocalize import relocalize_match
+from jax_mapping_torch.utils import global_metrics as GM
 
 
 def _np(x) -> np.ndarray:
@@ -214,14 +218,16 @@ class RendezvousMerger:
         ranges_t = torch.as_tensor(ranges, device=dev)
         seeds_t = torch.as_tensor(self._seeds(), device=dev)
         best_pose, best_resp = None, -1.0
-        for seed in seeds_t:
-            res = relocalize_match(self.cfg, grid_a, ranges_t, seed)
-            head = torch.cat([res.pose[0], res.response,
-                              res.accepted.to(torch.float32)]).tolist()
-            if head[4]:
-                if head[3] > best_resp:
-                    best_resp = head[3]
-                    best_pose = np.asarray(head[:3], np.float32)
+        with GM.stages.stage("rendezvous.sweep"):
+            for seed in seeds_t:
+                res = relocalize_match(self.cfg, grid_a, ranges_t, seed)
+                head = torch.cat([res.pose[0], res.response,
+                                  res.accepted.to(torch.float32)]).tolist()
+                if head[4]:
+                    if head[3] > best_resp:
+                        best_resp = head[3]
+                        best_pose = np.asarray(head[:3], np.float32)
+        GM.counters.inc("rendezvous.attempts")
         if best_pose is None or best_resp < self.min_response:
             with self._lock:
                 self.n_attempts += 1
@@ -241,10 +247,16 @@ class RendezvousMerger:
                     # streak from this candidate.
                     self._streak.clear()
             self._streak.append(T)
-            done = len(self._streak) >= self.consecutive
+            streak_len = len(self._streak)
+            done = streak_len >= self.consecutive
             if done:
                 verified = self._streak[-1]
                 self._streak.clear()
+        # The handshake trail, recorded after the lock releases: a
+        # postmortem of a wrong-basin merge reads the whole streak.
+        flight_recorder.record("rendezvous_accept", robot=j,
+                               streak=streak_len,
+                               response=round(best_resp, 4))
         if not done:
             return False
         self._finish_merge(j, verified, best_pose)
@@ -262,6 +274,10 @@ class RendezvousMerger:
             self.merged_grid = grid
             self.merged_states = states
             self.merged = True
+        GM.counters.inc("rendezvous.merges")
+        flight_recorder.record(
+            "rendezvous_merge", robot=j,
+            transform=[round(float(v), 4) for v in T])
 
     def snapshot(self) -> dict:
         with self._lock:

@@ -27,7 +27,10 @@ cases run K2 over T grids under a mask each and K3 over T tenants' fields
 under a mask a tenant (T in 1, 2, 3, 6, both routes), and a tiny megabatch
 against its missions' solo runs on the card. The mission stack's cases run
 `launch_sim_stack` at tiny_config(2) on the card against the CPU, and a
-stalled mapper's queue through `_step_window` (K5).
+stalled mapper's queue through `_step_window` (K5). The scenario case
+drives a scripted door and crowd through the sim on the card: the card's
+world equals the host composition after every step, and its uploads make
+no host sync.
 """
 
 import dataclasses
@@ -1278,3 +1281,47 @@ def test_stack_http_routes_on_card(dev, tmp_path):
     finally:
         G.tile_hashes = orig
         st.shutdown()
+
+
+
+def test_sim_world_uploads_on_card(dev):
+    """A scripted door and crowd through the sim on the card: after every
+    step the card's world equals the host composition bit for bit, a quiet
+    step uploads nothing, and an upload makes no host sync (the sync debug
+    mode raises on one); both pinned staging buffers were used."""
+    from jax_mapping_torch.bridge.bus import Bus
+    from jax_mapping_torch.bridge.driver import SimulatedThymioDriver
+    from jax_mapping_torch.bridge.sim_node import SimNode
+    from jax_mapping_torch.scenarios import WorldDynamics
+    cfg = tiny_config()
+    world, doors = W.arena_with_door(96, 0.05)
+    sim = SimNode(cfg, Bus(), SimulatedThymioDriver(n_robots=2), world,
+                  0.05, realtime=False, device=dev)
+    sim.attach_world_dynamics(WorldDynamics(world, 0.05, doors=doors,
+                                            seed=1))
+    shadow = WorldDynamics(world, 0.05, doors=doors, seed=1)
+    upload = sim._upload_world
+
+    def strict(w):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            upload(w)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sim._upload_world = strict
+    script = {2: ("door", ("door0", True)), 5: ("crowd", (0, 0.25)),
+              9: ("crowd", (0, None)), 12: ("door", ("door0", False))}
+    uploads = []
+    for step in range(16):
+        if step in script:
+            kind, args = script[step]
+            getattr(sim, f"set_{kind}")(*args)
+            getattr(shadow, f"set_{kind}")(*args)
+        n0 = sim.n_world_updates
+        sim.step()
+        uploads.append(sim.n_world_updates - n0)
+        assert sim.world.is_cuda
+        np.testing.assert_array_equal(sim.world.cpu().numpy(),
+                                      shadow.world_at(step))
+    assert uploads == [1, 0, 1, 0, 0, 1, 1, 1, 1, 1, 0, 0, 1, 0, 0, 0]
+    assert all(e is not None and e.query() for e in sim._staged)

@@ -436,8 +436,23 @@ def test_launch_refuses_unported(what):
     """Each unported option raises, naming its ROADMAP item; depth_cam,
     ported since, launches the voxel mapper and wires the planner's
     overlay into the mapper's frontier basis; http_port, ported since,
-    serves the HTTP API on a free port until the stack shuts down."""
+    serves the HTTP API on a free port until the stack shuts down;
+    obs.enabled, ported since, launches with the tracer on the bus and
+    the pipeline ledger in the mapper (the SLO engine only with declared
+    objectives); devprof, the obs tier's device half, is refused naming
+    A.9f2."""
     cfg = tiny_config(2)
+    if what == "obs.enabled":
+        cfg = cfg.replace(obs=dataclasses.replace(cfg.obs, enabled=True))
+        st = launch_sim_stack(cfg, W.empty_arena(32, 0.05), n_robots=2,
+                              device="cpu")
+        assert st.tracer is not None and st.bus.tracer is st.tracer
+        assert st.pipeline is not None and st.mapper._pipeline is st.pipeline
+        assert st.slo is None
+        st.run_steps(2)
+        assert st.tracer.last_seq() > 0
+        st.shutdown()
+        return
     if what == "http_port":
         import json
         import urllib.request
@@ -467,7 +482,10 @@ def test_launch_refuses_unported(what):
         cfg = cfg.replace(**{section: dataclasses.replace(
             getattr(cfg, section), **kw)})
         kw = {}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    item = {"obs.devprof.enabled": "ROADMAP A.9f2",
+            "cold_start.enabled": "ROADMAP A.9g",
+            "tenancy.enabled": "ROADMAP A.9h"}.get(what, "ROADMAP")
+    with pytest.raises(NotImplementedError, match=item):
         launch_sim_stack(cfg, W.empty_arena(32, 0.05), n_robots=2,
                          device="cpu", **kw)
 

@@ -190,24 +190,30 @@ MISSION_TILE = 64
 
 
 def rooms_wide_doors(size_cells: int, resolution_m: float,
-                     door_m: float = 2.0, seed: int = 1) -> np.ndarray:
+                     door_m: float = 2.0, seed: int = 1,
+                     return_doors: bool = False):
     """`rooms_world` with each door widened to `door_m` about its centre.
     The default frontier config plans on 0.8 m cells pooled
     conservatively, which seal rooms_world's 0.5 m doors (ROADMAP C.3,
     tests/test_torch_frontier_scene.py); 2 m doors stay open to it, so the
     mission stack's fleet can be assigned the frontiers it sees through
-    them."""
+    them. With `return_doors`, (world, doors): the widened rectangles as
+    the world generators' door dicts (`scenarios.WorldDynamics`)."""
     from jax_mapping_torch.sim import world as W
     w, doors = W.rooms_with_doors(size_cells, resolution_m, seed=seed)
     half = int(round(door_m / resolution_m)) // 2
+    wide = []
     for d in doors:
         if d["r1"] - d["r0"] == 2:              # a gap in a horizontal wall
             c = (d["c0"] + d["c1"]) // 2
-            w[d["r0"]:d["r1"], c - half:c + half] = False
+            rect = (d["r0"], d["r1"], c - half, c + half)
         else:
             r = (d["r0"] + d["r1"]) // 2
-            w[r - half:r + half, d["c0"]:d["c1"]] = False
-    return w
+            rect = (r - half, r + half, d["c0"], d["c1"])
+        w[rect[0]:rect[1], rect[2]:rect[3]] = False
+        wide.append(dict(name=d["name"], r0=rect[0], r1=rect[1],
+                         c0=rect[2], c1=rect[3]))
+    return (w, wide) if return_doors else w
 
 
 def mission_grid(size=512):
