@@ -89,7 +89,7 @@ Phases, each printed as one JSON line:
   tenancy  slice 9's main path: `megabatch_tick` over missions of the
            default SlamConfig with lane health armed, mission t on
            rooms_world(4096, 0.05, seed=1 + t) with its robots near
-           walls; 10 ticks at 3 tenants (bucket 3) and at 5 in bucket 6
+           walls; 6 ticks at 3 tenants (bucket 3) and at 5 in bucket 6
            (a pad lane). Counts are zeroed before each run's ticks and
            read after: K1-K3 must launch, K2 once and K3 three times a
            tick for all tenants. Per run: tick p50/p90, ms per mission
@@ -133,7 +133,7 @@ Phases, each printed as one JSON line:
            reuses, keyframes, voxels, peak memory
   serving  slice 14's main path, map serving and the HTTP API:
            `launch_sim_stack(SlamConfig(), ..., n_robots=8, depth_cam=True,
-           http_port=0)` on the stack's world, 100 steps while 8 delta
+           http_port=0)` on the stack's world, 40 steps while 8 delta
            clients poll /tiles (336 tiles of 256 cells in 3 levels), 2
            poll /voxel-tiles (21), 2 poll /map-image and one listens on
            /map-events, every 0.1 s. Counts are zeroed before the steps
@@ -310,8 +310,30 @@ Phases, each printed as one JSON line:
   replay   `demo --record` of a tiny_config(2) stack for 40 steps, then
            `demo --replay` of the bag on the card: messages replayed, scans
            fused and dropped, cells occupied and free
+  coldstart  the obs tier's device half and the staged restart at full
+           width: the stack phase's mission with `obs.devprof` and
+           `cold_start` armed (the build cache in a fresh directory), a
+           `cache_wipe` at step 30 for 20 steps and the mapper killed at
+           step 80, 120 steps: steps/s and host syncs beside `stack`'s,
+           syncs inside the profiler (0), the top entry points by dispatch
+           time, recompiles of the last 20 steps (0), memory watermarks,
+           the warm-up reports, the restart's ms and the kill's to the
+           first fused scan, the warming window's probes, the cache's
+           counts, the cost ledger and its budget cross-check, K1/K2/K3/K5
+           launches with the warm-up's apart; then a tiny drive devprof on
+           against off (bit-equal), and the signature manifest saved
+  coldstart_resume  two fresh processes of this script resume the
+           coldstart stack from its checkpoint: cold (an empty cache root:
+           nvcc builds the five libraries) and warm (the coldstart root:
+           found, the manifest pre-warmed as `aot`); seconds from each
+           process's start to its first fused scan, libraries built; the
+           resumed grids bit-equal
 
-Then one line {"kernels": [...]} and, last, the result line
+Every phase line carries `t_s`, the seconds since the script started.
+Then one line {"kernels": [...]} (each row's launches by path, with
+`launches_coldstart` and `launches_warmup` since the coldstart phase, and
+its bound from the cost ledger's kernel arithmetic) and, last, the result
+line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero before the
 result line. Without a CUDA device, or without the package beside this
 script, it exits non-zero at once.
@@ -336,36 +358,33 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 DEV = "cuda"
 
 # Published H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and the
-# float32 rate outside the tensor cores.
+# float32 rate outside the tensor cores. The bytes and operations each
+# kernel row's bound divides by them come from the cost ledger's kernel
+# arithmetic (`jax_mapping_torch/obs/ledger.py`: `sensor_model_cost` ...
+# `voxel_summed_cost`), the one copy the ledger also counts with.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
-# Float operations of the sensor model on one cell within max range of a
-# scan (the function's work there, whatever a kernel culls; the cells are
-# counted by `sensor_kernel.model_cells`): cell centre (6), offsets and
-# range with its square root (5), the atan2 polynomial with its octant
-# reduction (30), the [0, 2pi) wrap and beam rounding (7), classification
-# (7).
-K1_OPS_PER_CELL = 55
+#: The cost ledger module (`jax_mapping_torch.obs.ledger`), bound by
+#: `bind_ledger()` once the package is on the path.
+L = None
 
-# Float operations (arithmetic and comparisons) the voxel model needs, per
-# image. Per voxel column of the region: the cell centre (6), offsets (2),
-# camera x and z (6), the in-front test and select (2), u and its rounding
-# (4), the u range test (2), the squared distance in the plane (3) and its
-# horizon test (1); a column that is behind the camera, outside the image
-# or beyond the horizon is then all zeros. Per z layer: the layer centre
-# (3), camera y (1), fy * y (1) and its square (1). Per voxel the model may
-# make non-zero (in front, inside the image in u and v, within the
-# horizon: `voxel_kernel.model_voxel_mask`; every other voxel is 0 by the
-# model's mask): v's division, offset and rounding (3), the v range test
-# (2), the squared distance (1) and horizon test (1), the depth tests (2),
-# the carve limit (2), free (2), occupied (4), the selects (2).
-VOXEL_COLUMN_OPS = 26
-VOXEL_LAYER_OPS = 6
-VOXEL_OPS = 19
+
+def bind_ledger() -> None:
+    """Bind `L` to the package's cost ledger (main does; a driver that
+    imports this script and calls phases must too)."""
+    global L
+    from jax_mapping_torch.obs import ledger
+    L = ledger
+
+
+#: The script's start, for each phase line's `t_s` (seconds since it).
+T0 = time.perf_counter()
 
 
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = dict(obj, t_s=round(time.perf_counter() - T0, 1))
     print(json.dumps(obj), flush=True)
 
 
@@ -998,7 +1017,7 @@ def phase_kernels(torch, cfg, world, mapped, seed: int, fleet: dict,
         **_sweep_times(lambda: F.label_prop(mask2, seed_lab, iters),
                        lambda: F._label_prop_plain(mask2, seed_lab, iters),
                        "label", sweeps),
-        **bound(n * n * (1 + 4 + 4), sweeps * n * n * 9))
+        **bound(*L.label_prop_cost(mask2, sweeps)))
 
     # K3: the obstacle-aware cost fields of every robot, three levels.
     R = guess.shape[0]
@@ -1027,11 +1046,10 @@ def phase_kernels(torch, cfg, world, mapped, seed: int, fleet: dict,
                        lambda: CF._relax_level_xla(blk, init, iters),
                        "relax", 2 * iters))
               for blk, init, iters in calls]
-    # The function's own work: each level reads its mask and initial fields
-    # once and writes its fields once; each sweep does 8 adds, 8 mins and
-    # a select per cell of every field.
-    n_bytes = sum(v["n"] ** 2 * (1 + 2 * 4 * R) for v in levels)
-    n_ops = sum(17 * R * v["sweeps"] * v["n"] ** 2 for v in levels)
+    # The function's own work, level by level (the ledger's K3 arithmetic).
+    costs = [L.relax_cost(blk, init, 2 * iters) for blk, init, iters in calls]
+    n_bytes = sum(c[0] for c in costs)
+    n_ops = sum(c[1] for c in costs)
     nb_ = blocked.shape[0]
     rows["costfield_relax"] = dict(
         cmp, shape=[R, nb_, nb_], blocked_cells=int(blocked.sum()),
@@ -1087,12 +1105,13 @@ def phase_kernels(torch, cfg, world, mapped, seed: int, fleet: dict,
 def _sweep_times(kernel, plain, name: str, sweeps: int) -> dict:
     """K2's or K3's times: the wrapper's call on CUDA events (`ms`, what a
     caller pays), the kernel alone from the profiler (`device_ms`), the
-    latter per sweep, and the plain version's time."""
+    latter per sweep, and the plain version's time (5 calls after 1, as
+    the voxel rows time theirs: the plain sweeps take up to 0.45 s)."""
     dev_ms = device_ms(kernel, name, per_call=True)
     return {"ms": cuda_ms(kernel), "device_ms": dev_ms,
             "us_per_sweep": (None if dev_ms is None
                              else dev_ms * 1e3 / max(1, sweeps)),
-            "plain_ms": cuda_ms(plain)}
+            "plain_ms": cuda_ms(plain, reps=5, warmup=1)}
 
 
 def sweep_edge_rows(torch, dev, R: int) -> dict:
@@ -1230,7 +1249,8 @@ def _k1_row(torch, cfg, raster: bool, ranges, poses, origins, fleet: dict,
                                            origins), "sensor_model_kernel"),
         plain_ms=cuda_ms(lambda: plain(cfg.grid, cfg.scan, ranges, poses,
                                        origins)),
-        **bound(B * (nb * 4 + 12 + 8 + P * P * 4), cells * K1_OPS_PER_CELL))
+        **bound(*L.sensor_model_cost(cfg.grid, cfg.scan, ranges, poses,
+                                     origins)))
     row["bound_share"] = row["bound_ms"] / row["ms"]
     return row
 
@@ -1723,7 +1743,6 @@ def window_kernel_rows(torch, cfg, world, mapped, seed: int,
         origins = origin.reshape(1, 2).expand(B, 2)
         cells = SK.model_cells(cfg.grid, poses, origins)
         shares = _class_shares(cfg, ranges, poses, origins, False)
-        tables = B * (nb * 4 + 12) + 8
         got = SK.window_delta(cfg.grid, cfg.scan, ranges, poses, origin)
         want = SK.window_delta_plain(cfg.grid, cfg.scan, ranges, poses,
                                      origin)
@@ -1741,7 +1760,8 @@ def window_kernel_rows(torch, cfg, world, mapped, seed: int,
                 cfg.grid, cfg.scan, ranges, poses, origin), "window_kernel"),
             plain_ms=cuda_ms(lambda: SK.window_delta_plain(
                 cfg.grid, cfg.scan, ranges, poses, origin)),
-            **bound(tables + P * P * 4, cells * (K1_OPS_PER_CELL + 1)))
+            **bound(*L.window_delta_cost(cfg.grid, cfg.scan, ranges,
+                                         poses, origin)))
         got_g, want_g = mapped.clone(), mapped.clone()
         FK.window_apply(cfg.grid, cfg.scan, got_g, ranges, poses, origin)
         FK.window_apply_plain(cfg.grid, cfg.scan, want_g, ranges, poses,
@@ -1761,8 +1781,8 @@ def window_kernel_rows(torch, cfg, world, mapped, seed: int,
                 "window_kernel"),
             plain_ms=cuda_ms(lambda: FK.window_apply_plain(
                 cfg.grid, cfg.scan, scratch, ranges, poses, origin)),
-            **bound(tables + 2 * P * P * 4,
-                    cells * (K1_OPS_PER_CELL + 1) + 3 * P * P))
+            **bound(*L.window_apply_cost(cfg.grid, cfg.scan, ranges,
+                                         poses, origin)))
         for k in ("window_delta", "window_apply"):
             r = rows[f"{k}_b{B}"]
             r["bound_share"] = r["bound_ms"] / r["ms"]
@@ -2410,7 +2430,7 @@ def _sweep_row(torch, name: str, m, init, s: int) -> dict:
                              lambda: CF._relax_sweeps_plain(m, init, s),
                              "relax", s)
         masks = m.shape[0] if m.dim() == 3 else 1
-        b = bound(n * n * (masks + 2 * 4 * R), 17 * R * s * n * n)
+        b = bound(*L.relax_cost(m, init, s))
         extra = {"fields": R, "masks": masks, "reachable_cells": int(
             (want < CF._BIG).sum())}
     else:
@@ -2421,7 +2441,7 @@ def _sweep_row(torch, name: str, m, init, s: int) -> dict:
         times = _sweep_times(lambda: F.label_sweeps(m, init, s),
                              lambda: F._label_prop_plain(
                                  m, init, (s - 1) // 2), "label", s)
-        b = bound(n * n * (1 + 4 + 4), 9 * s * n * n)
+        b = bound(*L.label_prop_cost(m, s))
         extra = {"mask_cells": int(m.sum())}
     return dict(compare(got, want), shape=list(init.shape), sweeps=s, **ran,
                 **times, **b, **extra)
@@ -2690,20 +2710,14 @@ def _voxel_cull(vox, cam, poses, origins, ny: int, nx: int,
     columns, evaluated voxels (K7 in whole z groups), and the function's
     live columns and voxels; and the operations the function needs (its
     live voxels', not the kernels')."""
-    from jax_mapping_torch.ops import voxel_kernel as VK
-    c = VK.cull_counts(vox, cam, VK.pose_table(poses), origins, ny, nx,
-                       group=group)
-    B, Z = int(poses.shape[0]), vox.size_z_cells
-    per_voxel = VOXEL_OPS + (group > 1)      # K7 adds each into its sum
+    ops, c = L.voxel_ops(vox, cam, poses, origins, ny, nx, group)
     return {"live_pairs": c["live_pairs"], "pairs": c["pairs"],
             "kept_voxel_columns": c["kept_columns"],
             "live_voxel_columns": c["model_columns"],
             "evaluated_voxels": c["evaluated_voxels"],
             "live_voxels": c["model_voxels"],
             "evaluated_per_live_voxel":
-                c["evaluated_voxels"] / max(c["model_voxels"], 1)}, (
-        B * ny * nx * VOXEL_COLUMN_OPS + B * Z * VOXEL_LAYER_OPS
-        + c["model_voxels"] * per_voxel)
+                c["evaluated_voxels"] / max(c["model_voxels"], 1)}, ops
 
 
 def _k6_row(torch, cfg, d, p, o, **extra) -> dict:
@@ -2712,7 +2726,6 @@ def _k6_row(torch, cfg, d, p, o, **extra) -> dict:
     from jax_mapping_torch.ops import voxel_kernel as VK
     vox, cam = cfg.voxel, cfg.depthcam
     Z, P = vox.size_z_cells, vox.patch_cells
-    img_bytes = cam.height_px * cam.width_px * 4 + 16 + 8
     B = int(d.shape[0])
     got = VK.image_deltas(vox, cam, d, p, o)
     want = VK.image_deltas_plain(vox, cam, d, VK.pose_table(p), o)
@@ -2728,7 +2741,7 @@ def _k6_row(torch, cfg, d, p, o, **extra) -> dict:
         ms=cuda_ms(kernel), device_ms=device_ms(kernel, "voxel_image"),
         plain_ms=cuda_ms(lambda: VK.image_deltas_plain(
             vox, cam, d, VK.pose_table(p), o), reps=5, warmup=1),
-        **bound(B * (Z * P * P * 4 + img_bytes), ops))
+        **bound(L.voxel_image_bytes(vox, cam, B), ops))
 
 
 def voxel_kernel_rows(torch, cfg, vstate, bench, voxel_out) -> dict:
@@ -2743,7 +2756,6 @@ def voxel_kernel_rows(torch, cfg, vstate, bench, voxel_out) -> dict:
     from jax_mapping_torch.ops import voxel_kernel as VK
     vox, cam = cfg.voxel, cfg.depthcam
     Z, P = vox.size_z_cells, vox.patch_cells
-    img_bytes = cam.height_px * cam.width_px * 4 + 16 + 8
     rows = {}
     per_tick = voxel_out["launches_per_tick"]["voxel_image"]
     for name, d, p, o in (
@@ -2779,7 +2791,7 @@ def voxel_kernel_rows(torch, cfg, vstate, bench, voxel_out) -> dict:
             cmp, shape=[B, Z, ny, nx], **cull, library_ms=None,
             ms=cuda_ms(kernel), device_ms=device_ms(kernel, "voxel_summed"),
             plain_ms=cuda_ms(plain, reps=5, warmup=1),
-            **bound(Z * ny * nx * 4 + B * img_bytes, ops))
+            **bound(L.voxel_summed_bytes(vox, cam, B, ny, nx), ops))
     for r in rows.values():
         r["bound_share"] = r["bound_ms"] / r["ms"]
         r["device_bound_share"] = (None if r["device_ms"] is None
@@ -3626,7 +3638,9 @@ def _parity_recovery(torch) -> dict:
 #: (active tenants, bucket) of the tenancy phase's runs: bucket 3 full,
 #: then 5 tenants in bucket 6 (one pad lane).
 TENANT_RUNS = ((3, 3), (5, 6))
-TENANT_TICKS = 10
+#: Cut from 10 (PR 9) to keep the whole smoke near 660 s with the
+#: coldstart phases; the checks count per tick and need ticks 0-3.
+TENANT_TICKS = 6
 #: The frontier options' megabatch runs, each at 3 tenants in bucket 3.
 TENANT_OPTIONS = ("exact_bfs", "decay_aware", "planned_goals")
 #: The default options at the top of the exact ladder.
@@ -4037,7 +4051,7 @@ def tenancy_kernel_rows(torch, cfg, world, gen, fleet: dict, mapper: dict,
         **_sweep_times(lambda: F.label_prop(mask2, seed_lab, iters),
                        lambda: F._label_prop_plain(mask2, seed_lab, iters),
                        "label", sweeps),
-        **bound(T * n * n * (1 + 4 + 4), T * sweeps * n * n * 9))
+        **bound(*L.label_prop_cost(mask2, sweeps)))
 
     passable, bfs_res = F.bfs_passability(fcfg, cfg.grid, free, unknown,
                                           mask)
@@ -4065,9 +4079,9 @@ def tenancy_kernel_rows(torch, cfg, world, gen, fleet: dict, mapper: dict,
                        lambda: CF._relax_level_xla(blk, init, iters),
                        "relax", 2 * iters))
               for blk, init, iters in calls]
-    F_ = T * R
-    n_bytes = sum(v["n"] ** 2 * (T + 2 * 4 * F_) for v in levels)
-    n_ops = sum(17 * F_ * v["sweeps"] * v["n"] ** 2 for v in levels)
+    costs = [L.relax_cost(blk, init, 2 * iters) for blk, init, iters in calls]
+    n_bytes = sum(c[0] for c in costs)
+    n_ops = sum(c[1] for c in costs)
     rows[f"costfield_relax_tenant_t{T}"] = dict(
         compare(got, want), shape=[T, R, n, n],
         reachable_cells=int((want < CF._BIG).sum()), levels=levels,
@@ -4585,7 +4599,9 @@ def phase_stack_depth(torch, seed: int):
 
 #: The serving phase: steps, the clients' poll period, and the steps
 #: between the /save and the /load.
-SERVING_STEPS = 100
+#: Cut from 100 (PR 14) to keep the whole smoke near 660 s with the
+#: coldstart phases; no check of the phase depends on the step count.
+SERVING_STEPS = 40
 SERVING_POLL_S = 0.1
 SERVING_SAVE_STEPS = 10
 #: Delta clients on /tiles and /voxel-tiles, whole-PNG pollers on
@@ -6872,6 +6888,457 @@ def phase_lifelong_world(torch, seed: int):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The obs tier's device half and the staged restart warm-up
+# ---------------------------------------------------------------------------
+
+#: The coldstart phase: the stack phase's mission with the dispatch
+#: profiler and the warm-restart tier armed, a cache wipe at step 30 for
+#: 20 steps and the mapper killed at step 80, 120 steps.
+COLDSTART_STEPS = 120
+COLDSTART_WIPE = (30, 20)
+COLDSTART_KILL = 80
+COLDSTART_GUARD = 20                 # the recompile guard's last steps
+COLDSTART_TOP = 8                    # entry points shown by dispatch time
+COLDSTART_INERT_STEPS = 40
+
+
+def _coldstart_config(root: str):
+    import dataclasses
+    from jax_mapping_torch.config import (ColdStartConfig, DevProfConfig,
+                                          SlamConfig)
+    cfg = SlamConfig()
+    return cfg.replace(
+        obs=dataclasses.replace(cfg.obs,
+                                devprof=DevProfConfig(enabled=True)),
+        cold_start=ColdStartConfig(enabled=True, cache_dir=root))
+
+
+class ProfilerCost:
+    """The dispatch profiler's own bookkeeping (its per-call lookup and
+    record) while the context is open: host time in it, calls, and — while
+    `count_syncs` is set — the host syncs made inside it, counted by
+    PyTorch's CUDA sync debug mode around each of those calls only (the
+    mode in force outside is restored after each)."""
+
+    def __init__(self, torch, prof):
+        self.torch, self.prof = torch, prof
+        self.syncs = self.calls = self.sync_calls = 0
+        self.s = 0.0
+        self.count_syncs = False
+
+    def _count(self, fn):
+        import warnings
+        cuda = self.torch.cuda
+
+        def counted(*args, **kwargs):
+            self.calls += 1
+            if not self.count_syncs:
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    self.s += time.perf_counter() - t0
+            mode = cuda.get_sync_debug_mode()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                cuda.set_sync_debug_mode("warn")
+                t0 = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    self.s += time.perf_counter() - t0
+                    cuda.set_sync_debug_mode(mode)
+                    self.syncs += sum(_is_sync(w) for w in caught)
+                    self.sync_calls += 1
+        return counted
+
+    def __enter__(self):
+        self.prof._fresh = self._count(self.prof._fresh)
+        self.prof._record = self._count(self.prof._record)
+        return self
+
+    def __exit__(self, *exc):
+        del self.prof._fresh, self.prof._record
+
+
+def _sim_clock(st, cfg):
+    """Stamps from a simulated clock, one control period a step (the
+    mapper's estimates follow stamp intervals; ROADMAP C). Returns the
+    patched modules' previous `time` attributes."""
+    import types
+    from jax_mapping_torch.bridge import brain as _brain
+    from jax_mapping_torch.bridge import sim_node as _sim_node
+    clock = [1000.0]
+    saved = [(m, m.time) for m in (_brain, _sim_node)]
+    for m, _ in saved:
+        m.time = types.SimpleNamespace(monotonic=lambda: clock[0])
+    step = st.sim.step
+
+    def stepped():
+        clock[0] += 1.0 / cfg.robot.control_rate_hz
+        step()
+    st.sim.step = stepped
+    return saved
+
+
+def _inert_drive(torch, devprof: bool, seed: int, steps: int):
+    """tiny_config(2) on the card for `steps` steps with simulated-clock
+    stamps: (grid, estimates, truth) on the host, and the steps' wall s."""
+    import dataclasses
+    from jax_mapping_torch.bridge.launch import launch_sim_stack
+    from jax_mapping_torch.config import DevProfConfig, tiny_config
+    from jax_mapping_torch.sim import world as W
+    cfg = tiny_config(2)
+    cfg = cfg.replace(obs=dataclasses.replace(
+        cfg.obs, devprof=DevProfConfig(enabled=devprof)))
+    world, _doors = W.rooms_with_doors(96, cfg.grid.resolution_m, seed=1)
+    st = launch_sim_stack(cfg, world, n_robots=2, seed=seed, device=DEV)
+    saved = _sim_clock(st, cfg)
+    try:
+        st.brain.start_exploring()
+        t0 = time.perf_counter()
+        st.run_steps(steps)
+        torch.cuda.synchronize()
+        return (st.mapper.shared_grid.cpu(),
+                torch.stack([s.pose for s in st.mapper.states]).cpu(),
+                st.sim.truth_poses().copy(), time.perf_counter() - t0)
+    finally:
+        for m, t in saved:
+            m.time = t
+        st.shutdown()
+
+
+def phase_coldstart(torch, seed: int, stack_out: dict):
+    """The slice at full width: `launch_sim_stack(SlamConfig(), STACK_WORLD,
+    n_robots=8, checkpoint_dir, http_port=0)` with `obs.devprof` and
+    `cold_start` armed (the build cache in a fresh directory), the stack
+    phase's operator goal, 120 steps under a FaultPlan: `cache_wipe` at
+    step 30 for 20 steps and `kill_node jax_mapper` at step 80 — the
+    mapper killed mid-mission and restarted from its checkpoint through
+    the staged warm-up, whose `warmup_hook` probes `/status` and `/tiles`
+    inside the window. Counts are zeroed before the steps and read after;
+    the warm-up's launches are counted apart. Prints steps/s beside
+    `stack`'s, host syncs of mapper ticks 10-12 beside `stack`'s and those
+    inside the profiler's own bookkeeping (must be 0), the top entry
+    points by dispatch time, recompiles over the last 20 steps (must be
+    0), the card's memory watermarks, the warm-up reports, the restart's
+    wall ms and the ms from the kill to the first fused scan after it,
+    the probes, the cache's counts, the cost ledger of the top entry
+    points with its budget cross-check, and the K1/K2/K3/K5 launches.
+    Then the bit-inert check: tiny_config(2) for 40 steps on the card,
+    devprof on against off, must give bit-equal grids and estimates.
+    Ends with `save_compile_snapshots()` for `coldstart_resume`."""
+    import json
+    import warnings
+    from jax_mapping_torch.bridge.launch import launch_sim_stack
+    from jax_mapping_torch.bridge.messages import Pose2D
+    from jax_mapping_torch.obs.ledger import CostLedger
+    from jax_mapping_torch.obs.recorder import flight_recorder
+    from jax_mapping_torch.ops import _cuda
+    from jax_mapping_torch.resilience.faultplan import FaultEvent, FaultPlan
+    td = tempfile.mkdtemp(prefix="coldstart_")
+    root = os.path.join(td, "cache")
+    cfg = _coldstart_config(root)
+    world = _stack_world(cfg.grid.resolution_m)
+    mark = flight_recorder.mark()
+    t0 = time.perf_counter()
+    st = launch_sim_stack(cfg, world, n_robots=STACK_ROBOTS, seed=seed,
+                          checkpoint_dir=td, http_port=0, device=DEV)
+    torch.cuda.synchronize()
+    launch_s = time.perf_counter() - t0
+    check(st.device.type == "cuda" and st.mapper.shared_grid.is_cuda,
+          "the coldstart stack is not on the card")
+    check(st.devprof is not None and st.devprof.installed
+          and st.compile_cache is not None and st.compile_cache.enabled,
+          "the coldstart stack armed no profiler or no build cache")
+    launch_warmup = st.warmup.snapshot()["report"]
+    probes = []
+
+    def probe(stack):
+        t0 = time.perf_counter()
+        s = json.loads(stack.api.handle("/status")[2])
+        t = json.loads(stack.api.handle("/tiles?since=-1")[2])
+        probes.append({"route_states": [s.get("state"), t.get("state")],
+                       "tiles_epoch": t.get("epoch"),
+                       "n_tiles": len(t.get("tiles", [])),
+                       "warmup_state": stack.warmup.state(),
+                       "ms": (time.perf_counter() - t0) * 1e3})
+    st.warmup_hook = probe
+    restart_ms, ckpt_ms = [], []
+    st._restart_mapper_staged = _timed(st._restart_mapper_staged,
+                                       restart_ms)
+    # The supervisor's auto-checkpoints (every 50 steps; the stack phase
+    # has no checkpoint_dir), timed to split them from the steps.
+    st.supervisor.attach_checkpointer(_timed(st.save_auto_checkpoint,
+                                             ckpt_ms))
+    wipe_at, wipe_steps = COLDSTART_WIPE
+    plan = FaultPlan([FaultEvent(step=wipe_at, kind="cache_wipe",
+                                 duration=wipe_steps),
+                      FaultEvent(step=COLDSTART_KILL, kind="kill_node",
+                                 name="jax_mapper")], seed=seed)
+    st.attach_fault_plan(plan)
+    st.brain.start_exploring()
+    st.bus.publisher("/goal_pose").publish(Pose2D(*STACK_GOAL))
+    m0 = st.mapper
+    mapper_tick = m0.tick
+    syncs = []
+
+    def counted_tick():
+        if st._steps_run not in STACK_SYNC_TICKS:
+            return mapper_tick()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                mapper_tick()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs.append(sum(_is_sync(w) for w in caught))
+    m0.tick = counted_tick
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    t_kill = t_fuse = None
+    step_ms = []
+    with ProfilerCost(torch, st.devprof) as own, \
+            StageSamples("mapper.tick") as ticks:
+        t0 = time.perf_counter()
+        for k in range(COLDSTART_STEPS):
+            if k == COLDSTART_STEPS - COLDSTART_GUARD:
+                guard_before = st.devprof.recompiles()
+            if k == COLDSTART_KILL:
+                t_kill = time.perf_counter()
+            own.count_syncs = k in STACK_SYNC_TICKS
+            ts = time.perf_counter()
+            st.run_steps(1)
+            step_ms.append((time.perf_counter() - ts) * 1e3)
+            if t_kill is not None and t_fuse is None \
+                    and st.mapper is not m0 and st.mapper.n_scans_fused:
+                torch.cuda.synchronize()
+                t_fuse = time.perf_counter()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    guard_after = st.devprof.recompiles()
+    grew = {fn: [guard_before.get(fn, 0), n]
+            for fn, n in guard_after.items()
+            if n > guard_before.get(fn, 0)}
+    wu = st.warmup.snapshot()
+    warm_launches = dict(wu["report"].get("launches", {}))
+    for k, v in launch_warmup.get("launches", {}).items():
+        warm_launches[k] = warm_launches.get(k, 0) + v
+    mission = {k: v - warm_launches.get(k, 0) for k, v in launches.items()}
+    snap = st.devprof.snapshot()
+    top = sorted(snap, key=lambda n: -snap[n]["total_ms"])[:COLDSTART_TOP]
+    events = flight_recorder.events_since(mark)
+    epochs = [e for e in events if e["kind"] == "restart_epoch"]
+    cache = st.compile_cache.status()
+    t1 = time.perf_counter()
+    ledger = CostLedger(st.devprof)
+    costs = ledger.collect()
+    ledger_s = time.perf_counter() - t1
+    violations = ledger.cross_check()
+    new = st.mapper
+    out = {"phase": "coldstart", "config": "SlamConfig() + obs.devprof + "
+           "cold_start", "world": STACK_WORLD, "robots": STACK_ROBOTS,
+           "steps": COLDSTART_STEPS,
+           "faults": [list(e) for e in plan.log],
+           "launch_s": launch_s, "wall_s": wall,
+           "steps_per_s": COLDSTART_STEPS / wall,
+           "steps_per_s_without_checkpoints_and_restart":
+               COLDSTART_STEPS / (wall - (sum(ckpt_ms) + sum(restart_ms))
+                                  / 1e3),
+           "checkpoint_ms": ckpt_ms,
+           "stack_steps_per_s": stack_out["steps_per_s"],
+           "step_ms": _p50_p90(step_ms),
+           "mapper_tick_ms": _p50_p90(ticks.ms[1:]),
+           "stack_mapper_tick_ms": stack_out["mapper_tick_ms"],
+           "host_syncs_per_mapper_tick": syncs,
+           "stack_host_syncs_per_mapper_tick": [
+               s["tick"] for s in stack_out["host_syncs_per_mapper_tick"]],
+           "sync_ticks": list(STACK_SYNC_TICKS),
+           "profiler_own_syncs": own.syncs,
+           "profiler_own_sync_calls": own.sync_calls,
+           "profiler_calls": own.calls,
+           "profiler_ms_per_step": own.s * 1e3 / COLDSTART_STEPS,
+           "top_dispatch": {n: snap[n] for n in top},
+           "entry_points_dispatched": len(snap),
+           "recompiles_last_steps": grew,
+           "recompile_guard_steps": COLDSTART_GUARD,
+           "recompiles_total": sum(st.devprof.recompiles().values()),
+           "memory": st.devprof.memory_stats(),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "launch_warmup": launch_warmup,
+           "restart_warmup": {k: wu["report"].get(k) for k in (
+               "n_in_process", "n_prewarmed", "n_aot", "n_errors",
+               "warm_s", "readiness_violations", "errors", "launches")},
+           "restart_ms": restart_ms,
+           "restart_ms_without_probe": [
+               r - sum(p["ms"] for p in probes) for r in restart_ms],
+           "kill_to_first_fuse_ms": (None if t_fuse is None
+                                     else (t_fuse - t_kill) * 1e3),
+           "probes": probes,
+           "restart_epochs": epochs,
+           "cache_counts": cache["counts"], "wipe_refs": cache["wipe_refs"],
+           "fingerprint": cache["fingerprint"],
+           "ledger_s": ledger_s,
+           "ledger_entries": sum(len(v) for v in costs.values()),
+           "ledger_top": {n: [{k: e.get(k) for k in (
+               "signature", "flops", "bytes_accessed", "aten_ops",
+               "kernels", "error")} for e in costs.get(n, [])]
+               for n in top},
+           "ledger_errors": {n: [e["error"] for e in es if "error" in e]
+                             for n, es in costs.items()
+                             if any("error" in e for e in es)},
+           "budget_violations": violations,
+           "launches": launches, "launches_mission": mission,
+           "launches_warmup": warm_launches,
+           "scans_fused_after_restart": new.n_scans_fused,
+           "restart_epoch": new.restart_epoch}
+    check(bool(torch.isfinite(new.shared_grid).all()),
+          "coldstart grid non-finite")
+    check(len(probes) == 1 and probes[0]["route_states"]
+          == ["warming", "warming"] and probes[0]["tiles_epoch"] == 0
+          and probes[0]["n_tiles"] > 0,
+          f"the warming window did not serve epoch 0 with tiles: {probes}")
+    check(len(epochs) == 1 and epochs[0]["resumed_from_checkpoint"]
+          and new.restart_epoch == 1 and new.n_scans_fused > 0,
+          f"the restart did not resume from the checkpoint and tick "
+          f"on: {epochs}, fused {new.n_scans_fused}")
+    check(not grew, f"steady-state recompiles over the last "
+          f"{COLDSTART_GUARD} steps: {grew}")
+    check(own.syncs == 0 and own.sync_calls > 0,
+          f"the profiler's bookkeeping made {own.syncs} host syncs")
+    check(cache["wipe_refs"] == 0 and cache["counts"].get("wipes") == 1
+          and cache["counts"].get("files_wiped", 0) > 0,
+          f"the cache_wipe window left {cache}")
+    check(out["memory"] is not None and all(
+        v["bytes_in_use"] > 0 for v in out["memory"].values()),
+        f"no memory watermarks on the card: {out['memory']}")
+    for name in ("sensor_model_delta", "sensor_model_raster",
+                 "label_prop", "costfield_relax"):
+        check(mission[name] > 0,
+              f"kernel {name} never launched on the coldstart path")
+    check(wu["report"]["n_errors"] == 0,
+          f"the restart's warm-up failed: {wu['report'].get('errors')}")
+
+    saved = st.save_compile_snapshots()
+    st.shutdown()
+    # Bit-inert: the profiler armed changes nothing the mission computes.
+    off = _inert_drive(torch, False, seed, COLDSTART_INERT_STEPS)
+    on = _inert_drive(torch, True, seed, COLDSTART_INERT_STEPS)
+    inert = {"steps": COLDSTART_INERT_STEPS,
+             "grid_equal": bool(torch.equal(off[0], on[0])),
+             "estimates_equal": bool(torch.equal(off[1], on[1])),
+             "truth_equal": bool((off[2] == on[2]).all()),
+             "wall_s_off": off[3], "wall_s_on": on[3]}
+    out["bit_inert"] = inert
+    out["snapshots"] = saved
+    emit(out)
+    check(all(inert[k] for k in ("grid_equal", "estimates_equal",
+                                 "truth_equal")),
+          f"devprof is not bit-inert on the card: {inert}")
+    check(saved["n_saved"] > 0,
+          f"no manifest saved: {saved}")
+    return out, {"dir": td, "root": root, "cfg": cfg}
+
+
+def coldstart_child(torch, cfg_path: str, ckpt_dir: str, out_npy: str,
+                    seed: int) -> int:
+    """One `coldstart_resume` process: launch the coldstart stack on its
+    cache root (the launch-time warm-up pre-warms the root's manifest),
+    build every kernel library (found in a warm root, built by nvcc in a
+    cold one), kill and restart the mapper from the coldstart phase's
+    checkpoint through the staged warm-up, save the resumed grid, then
+    step until a scan is fused. Prints one JSON line."""
+    import numpy as np
+    from jax_mapping_torch.bridge.launch import launch_sim_stack
+    from jax_mapping_torch.config import SlamConfig
+    from jax_mapping_torch.ops import _cuda
+    with open(cfg_path) as f:
+        cfg = SlamConfig.from_json(f.read())
+    world = _stack_world(cfg.grid.resolution_m)
+    st = launch_sim_stack(cfg, world, n_robots=STACK_ROBOTS, seed=seed,
+                          checkpoint_dir=ckpt_dir, device=DEV)
+    launch_warmup = st.warmup.snapshot()["report"]
+    build_s = _cuda.build_all()
+    st.kill_node("jax_mapper")
+    st.restart_mapper()
+    torch.cuda.synchronize()
+    np.save(out_npy, st.mapper.merged_grid().cpu().numpy())
+    st.brain.start_exploring()
+    steps = 0
+    while st.mapper.n_scans_fused == 0 and steps < 20:
+        st.run_steps(1)
+        steps += 1
+    torch.cuda.synchronize()
+    t_fuse = time.time()
+    cache = st.compile_cache.status()
+    emit({"first_fuse_wall": t_fuse, "steps_to_fuse": steps,
+          "scans_fused": st.mapper.n_scans_fused,
+          "builds": cache["counts"].get("builds", 0),
+          "builds_found": cache["counts"].get("builds_found", 0),
+          "build_s": build_s, "fingerprint": cache["fingerprint"],
+          "launch_warmup": {k: launch_warmup.get(k) for k in (
+              "n_in_process", "n_prewarmed", "n_aot", "n_errors", "warm_s",
+              "readiness_violations", "errors", "launches")},
+          "restart_warmup": st.warmup.snapshot()["report"]})
+    st.shutdown()
+    return 0
+
+
+def phase_coldstart_resume(torch, seed: int, cs: dict) -> dict:
+    """A resume in a fresh process, cold and warm: two processes of this
+    script (`--coldstart-child`), each launching the coldstart stack from
+    the coldstart phase's checkpoint, resuming, pre-warming and fusing one
+    scan. Cold: an empty cache root, so nvcc builds the five libraries.
+    Warm: the coldstart phase's root, so they are found and the
+    manifest's signatures pre-warm as `aot`. Seconds from each process's
+    start to its first fused scan, libraries built, the warm-up reports;
+    the two resumed grids must be bit-equal."""
+    import dataclasses
+    import numpy as np
+    runs = {}
+    for label, root in (("cold", os.path.join(cs["dir"], "cold_cache")),
+                        ("warm", cs["root"])):
+        cfg = cs["cfg"].replace(cold_start=dataclasses.replace(
+            cs["cfg"].cold_start, cache_dir=root))
+        cfg_path = os.path.join(cs["dir"], f"{label}.json")
+        with open(cfg_path, "w") as f:
+            f.write(cfg.to_json())
+        npy = os.path.join(cs["dir"], f"{label}_resumed.npy")
+        spawn = time.time()
+        r = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--coldstart-child",
+             cfg_path, cs["dir"], npy, "--seed", str(seed)],
+            capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            raise Failed(f"coldstart_resume {label} process failed: "
+                         f"{r.stderr[-3000:]}")
+        child = json.loads(r.stdout.strip().splitlines()[-1])
+        child["seconds_to_first_fuse"] = child.pop("first_fuse_wall") - spawn
+        runs[label] = child
+    grids = {k: np.load(os.path.join(cs["dir"], f"{k}_resumed.npy"))
+             for k in runs}
+    out = {"phase": "coldstart_resume", "runs": runs,
+           "resumed_grids_equal": bool(np.array_equal(grids["cold"],
+                                                      grids["warm"])),
+           "resumed_occupied_cells": int((grids["warm"] > 0.5).sum())}
+    emit(out)
+    check(runs["cold"]["builds"] == 5,
+          f"the cold process built {runs['cold']['builds']} libraries, not 5")
+    check(runs["warm"]["builds"] == 0,
+          f"the warm process built {runs['warm']['builds']} libraries")
+    check(runs["warm"]["launch_warmup"]["n_aot"] > 0,
+          "the warm process pre-warmed no manifest signature")
+    check(out["resumed_grids_equal"] and out["resumed_occupied_cells"] > 0,
+          "the cold and warm processes resumed different maps")
+    for label, run in runs.items():
+        check(run["scans_fused"] > 0, f"the {label} process fused no scan")
+    return out
+
+
 def phase_ab(parent: str, seed: int) -> dict:
     """K1-K7, exact_bfs' frontier costs and 30 steps of the mission stack
     of the tree `parent` and of this one, timed in turns (parent, change,
@@ -6948,6 +7415,9 @@ def main(argv=None) -> int:
                     "unpacked checkout) against this tree, in turns")
     ap.add_argument("--kernel-times", metavar="TREE",
                     help=argparse.SUPPRESS)    # one turn of --ab
+    ap.add_argument("--coldstart-child", nargs=3,
+                    metavar=("CFG", "CKPT_DIR", "OUT_NPY"),
+                    help=argparse.SUPPRESS)    # one coldstart_resume process
     args = ap.parse_args(argv)
 
     if not os.path.isdir(os.path.join(HERE, "jax_mapping_torch", "csrc")):
@@ -6962,6 +7432,9 @@ def main(argv=None) -> int:
     if args.kernel_times:
         emit(kernel_times(torch, args.seed))
         return 0
+    bind_ledger()
+    if args.coldstart_child:
+        return coldstart_child(torch, *args.coldstart_child, args.seed)
     if args.ab:
         try:
             phase_device(torch)
@@ -7050,6 +7523,8 @@ def main(argv=None) -> int:
         phase_dryrun(torch)
         phase_sharded_ranks(torch, args.seed)
         phase_replay(torch, args.seed)
+        coldstart_out, cs = phase_coldstart(torch, args.seed, stack_out)
+        phase_coldstart_resume(torch, args.seed, cs)
         # The mission stack's modules the phases above did not import.
         import jax_mapping_torch.demo  # noqa: F401
         import jax_mapping_torch.resilience  # noqa: F401
@@ -7092,6 +7567,10 @@ def main(argv=None) -> int:
         kernels[-1]["launches_sharded"] = sharded_launches[name]
         kernels[-1]["launches_serving"] = serving_out["launches"][name]
         kernels[-1]["launches_scenario"] = scenario_out["launches"][name]
+        kernels[-1]["launches_coldstart"] = \
+            coldstart_out["launches_mission"][name]
+        kernels[-1]["launches_warmup"] = \
+            coldstart_out["launches_warmup"].get(name, 0)
     import torch.distributed as dist
     if dist.is_initialized():
         dist.destroy_process_group()

@@ -8,6 +8,18 @@ import numpy as np
 import torch
 
 
+def entry_point(fn=None, *, static=()):
+    """Mark `fn` as an entry point of the port: the counterpart of one of
+    the JAX package's jitted functions, which the dispatch profiler
+    (`obs/devprof.py`) wraps and the warm-up pre-warms. `static` names
+    the arguments JAX's jit holds static (they key a variant by value).
+    Sets one attribute and returns `fn` itself: no wrapper, no cost."""
+    def mark(f):
+        f.__entry_point__ = tuple(static)
+        return f
+    return mark(fn) if fn is not None else mark
+
+
 def resolve_device(device=None) -> torch.device:
     """The device an entry point builds its state on: CUDA unless the
     caller names another. Asking for CUDA without a card raises; the port

@@ -30,7 +30,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from jax_mapping_torch._util import resolve_device
+from jax_mapping_torch._util import entry_point, resolve_device
 from jax_mapping_torch.bridge.bus import Bus
 from jax_mapping_torch.bridge.driver import (
     LEDS_TOP, MOTOR_LEFT_SPEED, MOTOR_LEFT_TARGET, MOTOR_RIGHT_SPEED,
@@ -59,6 +59,7 @@ def robot_ns(i: int, n_robots: int) -> str:
     return "" if n_robots == 1 else f"robot{i}/"
 
 
+@entry_point(static=("cfg",))
 def brain_tick(cfg: SlamConfig, poses, wheel_raw, prox, ranges,
                exploring, goals_xy, goal_valid, dt):
     """One control tick for R robots, on the inputs' device.

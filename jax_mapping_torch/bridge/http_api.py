@@ -16,11 +16,18 @@ revision age, and `/metrics` adds the pipeline, `jax_mapping_slo_*` and
 span-count families. Without it `/trace` answers 404, as the JAX server
 does with tracing off.
 
-Not ported yet, and so absent as in a JAX server built without it: the
-dispatch profiler (`/status.perf`, `jax_mapping_device_*`; the obs
-tier's device half, ROADMAP A.9f2). The tenancy control plane and the
-cold-start status are hooks (`tenancy`, `coldstart_status`) that nothing
-sets while `cfg.tenancy` and `cfg.cold_start` are refused at launch.
+With the dispatch profiler (`devprof`, set by launch when
+`cfg.obs.devprof.enabled`): `/status.perf` carries the per-entry-point
+dispatch accounting, the recompile counters, the card's memory
+watermarks (None on the CPU) and the cost ledger collected so far (a
+handler never collects), and `/metrics` adds
+`jax_mapping_device_dispatch_total`, `jax_mapping_device_dispatch_seconds`,
+`jax_mapping_jit_recompiles_total` and, on the card,
+`jax_mapping_device_memory_bytes`. With the warm-restart tier, launch
+sets `coldstart_status` (`/status.cold_start`), and a staged restart's
+warming window stamps `/status` and `/tiles` with `state=warming`. The
+tenancy control plane is a hook (`tenancy`) that nothing sets while
+`cfg.tenancy` is refused at launch (ROADMAP A.9h).
 
 Re-creates the reference's management plane (SURVEY.md §1 L4) with both
 variants' routes merged:
@@ -112,7 +119,7 @@ class MapApiServer:
                  extra_status: Optional[Callable[[], dict]] = None,
                  mapper=None, checkpoint_dir: str = "checkpoints",
                  voxel_mapper=None, planner=None, health=None,
-                 supervisor=None, recovery=None,
+                 supervisor=None, recovery=None, devprof=None,
                  lock_timeout_s: Optional[float] = 2.0,
                  socket_timeout_s: Optional[float] = 30.0,
                  pipeline=None, slo=None):
@@ -134,6 +141,16 @@ class MapApiServer:
         #: quarantine/relocalization counters, anti-stuck ladder and
         #: frontier blacklist ride along on /status and /metrics.
         self.recovery = recovery
+        #: Dispatch profiler (obs/devprof.py): per-entry-point dispatch
+        #: accounting, recompile counters, memory watermarks and the
+        #: collected-so-far cost ledger ride along on /status (`perf`)
+        #: and /metrics (`jax_mapping_device_*`). The ledger exports what
+        #: collect() already gathered — a handler never collects.
+        self.devprof = devprof
+        self.cost_ledger = None
+        if devprof is not None:
+            from jax_mapping_torch.obs.ledger import CostLedger
+            self.cost_ledger = CostLedger(devprof)
         #: Pipeline latency ledger (obs/pipeline.py) or None: serving
         #: routes stamp first-client-delivery waypoints and answer
         #: with `Server-Timing`-style revision-age headers — SERVER
@@ -519,6 +536,19 @@ class MapApiServer:
                     body["plan_reachable_by_robot"] = {
                         str(k): v for k, v in
                         self.planner.reachable_by_robot.items()}
+            if self.devprof is not None:
+                # Device-side performance picture (`/status.perf`):
+                # dispatch attribution, live recompile counters, the
+                # card's memory watermarks (None on the CPU) and the
+                # cost-ledger entries collected so far.
+                body["perf"] = {
+                    "dispatch": self.devprof.snapshot(),
+                    "recompiles": self.devprof.recompiles(),
+                    "memory": self.devprof.memory_stats(),
+                    "cost_ledger": self.cost_ledger.snapshot(),
+                    "cost_ledger_uncollected":
+                        self.cost_ledger.n_uncollected(),
+                }
             if self.tenancy is not None:
                 # Mission multi-tenancy picture: per-tenant lifecycle
                 # state, serving (epoch, revision) namespaces, bucket
@@ -1615,6 +1645,42 @@ class MapApiServer:
                                    (("", str(tracer.last_seq())),)))
             return fams
         reg.add_source(obs_families)
+
+        def devprof_families():
+            # Dispatch attribution (obs/devprof.py): call counts and
+            # host-time histograms per entry point (one family sliced by
+            # fn label, the HIST_EDGES_S grid), recompile counters, and
+            # the card's memory watermarks (family omitted on the CPU).
+            if self.devprof is None:
+                return None
+            from jax_mapping_torch.obs.registry import (
+                labeled_histogram_samples)
+            hists = self.devprof.histograms()
+            recs = self.devprof.recompiles()
+            fams = [
+                Family("jax_mapping_device_dispatch_total", "counter",
+                       tuple((f'{{fn="{fn}"}}', str(h["count"]))
+                             for fn, h in hists.items())),
+                Family("jax_mapping_device_dispatch_seconds",
+                       "histogram",
+                       tuple(s for fn, h in hists.items()
+                             for s in labeled_histogram_samples(
+                                 f'fn="{fn}"', h["edges_s"],
+                                 h["buckets"], h["sum_s"],
+                                 h["count"]))),
+                Family("jax_mapping_jit_recompiles_total", "counter",
+                       tuple((f'{{fn="{fn}"}}', str(n))
+                             for fn, n in recs.items())),
+            ]
+            mem = self.devprof.memory_stats()
+            if mem is not None:
+                fams.append(Family(
+                    "jax_mapping_device_memory_bytes", "gauge",
+                    tuple((f'{{device="{d}",stat="{k}"}}', str(v))
+                          for d, stats in mem.items()
+                          for k, v in sorted(stats.items()))))
+            return fams
+        reg.add_source(devprof_families)
 
         def checkpoint_fallback_samples():
             # Which retention slot checkpoint loads actually resumed

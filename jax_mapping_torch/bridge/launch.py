@@ -35,16 +35,24 @@ the launch seed rides the bus (deterministic span ids), the
 mapper, the HTTP API and the flight recorder get all three. An attached
 `FaultPlan` (`Stack.attach_fault_plan`) fires on `run_steps`' step clock.
 
-Not ported yet, and refused with NotImplementedError naming the ROADMAP
-item rather than silently dropped: the obs tier's device half, the
-dispatch profiler (`cfg.obs.devprof.enabled`), the warm-restart tier
-(`cfg.cold_start.enabled`) and the tenancy control plane
-(`cfg.tenancy.enabled`). So is the staged warm-up ladder of a mapper
-restart, which pre-warms compiled entry points: the port's restart
-rebuilds and resumes the mapper at once (`Stack.restart_mapper`).
-A windowed stack with the planner is refused too: the JAX package's
-planner plans with the logical grid config on the mapper's window-sized
-grid, in the wrong frame (ROADMAP re-anchor note).
+`cfg.obs.devprof.enabled` arms the obs tier's device half: a
+`DispatchProfiler` (`obs/devprof.py`) wraps the package's entry points
+process-wide once the stack is built (after any launch-time warm-up),
+and the HTTP API exports it (`/status.perf`, the `jax_mapping_device_*`
+families). `cfg.cold_start.enabled` arms the warm-restart tier: a
+`CompileCacheManager` (`io/compile_cache.py`) under
+`cold_start.cache_dir` (else `<checkpoint_dir>/compile_cache`) holds the
+kernel build cache and the signature manifest, and a launch-time
+`StagedWarmup` pre-warms the manifest's signatures. A mapper restart
+always goes through the staged warm-up (`Stack.restart_mapper`): while
+it restores and pre-warms, the HTTP API answers from the prior epoch with
+`state=warming`.
+
+Refused with NotImplementedError naming the ROADMAP item rather than
+silently dropped: the tenancy control plane (`cfg.tenancy.enabled`,
+A.9h), and a windowed stack with the planner: the JAX package's planner
+plans with the logical grid config on the mapper's window-sized grid, in
+the wrong frame (ROADMAP re-anchor note).
 """
 
 from __future__ import annotations
@@ -114,6 +122,22 @@ class Stack:
     #: Where the windowed world's evicted tiles spill ("" = host LRU
     #: only); a restarted mapper reopens the same spill file.
     world_spill_dir: str = ""
+    #: Dispatch profiler (obs/devprof.DispatchProfiler) when
+    #: ObsConfig.devprof.enabled — wraps the entry points process-wide;
+    #: shutdown() uninstalls so a later stack can own the wrappers.
+    devprof: Optional[object] = None
+    #: Warm-restart storage tier (io/compile_cache.CompileCacheManager)
+    #: when ColdStartConfig.enabled: the kernel build cache, the
+    #: signature manifest, the cache_wipe fault boundary.
+    compile_cache: Optional[object] = None
+    #: The staged warm-up state machine (resilience/warmup.StagedWarmup)
+    #: of restart_mapper's restore -> warm -> ready ladder; made on the
+    #: first restart when launch did not make one.
+    warmup: Optional[object] = None
+    #: Called with the stack DURING the warming stage of a staged
+    #: restart (serving still answering from the prior epoch with
+    #: state=warming). Exceptions are contained; the restart proceeds.
+    warmup_hook: Optional[object] = None
     _killed: Set[str] = dataclasses.field(default_factory=set)
     _steps_run: int = 0
 
@@ -200,23 +224,43 @@ class Stack:
                                   config_json=self.cfg.to_json())
 
     def restart_mapper(self) -> None:
-        """The supervisor's mapper restarter: rebuild the MapperNode,
-        resume it from the newest intact auto-checkpoint generation
-        (`load_checkpoint_with_fallback`), re-anchor each robot's chain at
-        the BRAIN's live pose (odometry kept integrating while the mapper
-        was down), and swap it into the executor and the planner. With no
+        """The supervisor's mapper restarter, a STAGED warm-up: rebuild the
+        MapperNode, resume it from the newest intact auto-checkpoint
+        generation (`load_checkpoint_with_fallback`), pre-warm the entry
+        points in priority order (`resilience/warmup.py`), and only then
+        swap it into the executor, the planner and the API — which is
+        what re-admits it (the supervisor's fresh heartbeat grace starts
+        when this returns). While it restores and warms, the API answers
+        from the OLD node's last epoch with `state=warming` instead of
+        blocking. Each robot's chain re-anchors at the BRAIN's live pose
+        (odometry kept integrating while the mapper was down). With no
         intact checkpoint the map restarts blank at the same anchors.
 
         Windowed, the window re-anchors from the checkpoint's `.world`
         manifest before the states install, and the brain's world-frame
         anchors move into the window frame; a missing, corrupt or drifted
         manifest degrades to the boot origin with a
-        `world_sidecar_degraded` flight event. The JAX package's staged
-        warm-up (pre-warming compiled entry points while serving the old
-        epoch) is not ported (ROADMAP A.9g): the restart is immediate."""
+        `world_sidecar_degraded` flight event."""
+        if self.warmup is None:
+            from jax_mapping_torch.resilience.warmup import StagedWarmup
+            self.warmup = StagedWarmup(cache=self.compile_cache,
+                                       devprof=self.devprof,
+                                       device=self.device)
+        wu = self.warmup
+        if self.api is not None:
+            self.api.set_warming(True)
+        try:
+            self._restart_mapper_staged(wu)
+        finally:
+            if self.api is not None:
+                self.api.set_warming(False)
+        wu.mark_ready()
+
+    def _restart_mapper_staged(self, wu) -> None:
         n = self.mapper.n_robots
         old = self.mapper
         old.destroy()
+        wu.begin_restore()
         states, used_path = None, None
         if self.auto_checkpoint_path:
             from jax_mapping_torch.io.checkpoint import (
@@ -228,6 +272,20 @@ class Stack:
                         old.checkpoint_template())
             except (FileNotFoundError, CheckpointCorrupt):
                 states = None                # no intact generation: blank
+        # Pre-warm BEFORE the new node enters service, fusion first; an
+        # in-process restart finds every signature warm. The profiler
+        # re-baselines inside prewarm.
+        wu.begin_warming()
+        wu.prewarm(self.devprof.signatures() if self.devprof is not None
+                   else {})
+        if self.warmup_hook is not None:
+            # Observe the degraded-serving window (prior epoch content,
+            # state=warming) from inside it.
+            try:
+                self.warmup_hook(self)
+            except Exception:                # noqa: BLE001
+                import traceback
+                traceback.print_exc()
         new = MapperNode(self.cfg, self.bus, tf=self.tf, n_robots=n,
                          health=self.health, recovery=self.recovery,
                          pipeline=self.pipeline, slo=self.slo,
@@ -271,10 +329,29 @@ class Stack:
             self.api.rebind_mapper(new)
         self._killed.discard("jax_mapper")
 
+    def save_compile_snapshots(self) -> dict:
+        """Write the signature manifest of every (entry point, captured
+        signature) the dispatch profiler observed, and the loaded kernel
+        libraries, into the warm-restart tier. Explicit only (CLI,
+        tests, the smoke); needs both the tier and the profiler, else
+        reports an empty pass."""
+        if self.compile_cache is None or self.devprof is None:
+            return {"n_saved": 0, "n_failed": 0, "n_uncallable": 0,
+                    "n_libraries": 0, "names": []}
+        return self.compile_cache.save_aot(self.devprof.signatures())
+
     def shutdown(self) -> None:
         if self.api is not None:
             self.api.shutdown()
         self.executor.shutdown()
+        if self.compile_cache is not None:
+            # The build directory is process-global: the next stack owns
+            # it. (The warm pool installs no wrapper to take off.)
+            self.compile_cache.disable()
+        if self.devprof is not None:
+            # After the HTTP plane and executor stop: no worker thread is
+            # mid-dispatch through a wrapper being unbound.
+            self.devprof.uninstall()
 
 
 def _anchor(mapper: MapperNode, poses: np.ndarray) -> None:
@@ -293,13 +370,6 @@ def _refuse_unported(cfg: SlamConfig) -> None:
          "the logical grid config on the mapper's window-sized grid, in "
          "the wrong frame (ROADMAP re-anchor note); disable the planner "
          "for a windowed stack"),
-        (cfg.obs.devprof.enabled, "cfg.obs.devprof.enabled: the dispatch "
-         "profiler and the cost ledger (obs/devprof.py, obs/ledger.py), "
-         "the obs tier's device half, are not ported yet (ROADMAP "
-         "A.9f2)"),
-        (cfg.cold_start.enabled, "cfg.cold_start.enabled: the warm-restart "
-         "tier (io/compile_cache.py, resilience/warmup.py) is not ported "
-         "yet (ROADMAP A.9g)"),
         (cfg.tenancy.enabled, "cfg.tenancy.enabled: the tenancy control "
          "plane (tenancy/controlplane.py) is not ported yet (ROADMAP A.9h)"),
     ]
@@ -326,6 +396,22 @@ def launch_sim_stack(cfg: SlamConfig, world: np.ndarray,
     _refuse_unported(cfg)
     dev = resolve_device(device)
     res = world_res_m if world_res_m is not None else cfg.grid.resolution_m
+    compile_cache = None
+    if cfg.cold_start.enabled:
+        # The build cache attaches before anything builds a kernel, so
+        # every library this launch builds lands in it. Failures degrade
+        # to the default build directory, never block the launch.
+        cache_root = cfg.cold_start.cache_dir or (
+            os.path.join(checkpoint_dir, "compile_cache")
+            if checkpoint_dir else "")
+        if cache_root:
+            from jax_mapping_torch.io.compile_cache import \
+                CompileCacheManager
+            compile_cache = CompileCacheManager(
+                cfg.cold_start, cache_root, config_json=cfg.to_json(),
+                device=dev)
+            compile_cache.enable()
+            compile_cache.evict_lru()
     tracer = pipeline = slo = None
     if cfg.obs.enabled:
         # Causal tracing: deterministic trace ids from (this seed, topic,
@@ -339,6 +425,13 @@ def launch_sim_stack(cfg: SlamConfig, world: np.ndarray,
         pipeline = PipelineLedger()
         if cfg.obs.slo:
             slo = SloEngine(cfg.obs.slo, pipeline=pipeline)
+    devprof = None
+    if cfg.obs.devprof.enabled:
+        # Built here, INSTALLED at the end of launch, after the
+        # launch-time warm-up, so that its baseline holds what the
+        # warm-up dispatched. enabled=False builds nothing.
+        from jax_mapping_torch.obs.devprof import DispatchProfiler
+        devprof = DispatchProfiler(cfg.obs.devprof, tracer=tracer)
     # The always-on flight recorder follows the newest stack; its dumps
     # go to the checkpoint dir's `postmortem/` (None: events only) and
     # carry the tracer's spans and the ledger's records when armed.
@@ -411,7 +504,7 @@ def launch_sim_stack(cfg: SlamConfig, world: np.ndarray,
                            mapper=mapper, voxel_mapper=voxel_mapper,
                            planner=planner, health=health,
                            supervisor=supervisor, recovery=recovery,
-                           pipeline=pipeline, slo=slo,
+                           devprof=devprof, pipeline=pipeline, slo=slo,
                            lock_timeout_s=cfg.resilience.http_lock_timeout_s)
         api.serve_thread()
 
@@ -420,12 +513,39 @@ def launch_sim_stack(cfg: SlamConfig, world: np.ndarray,
         ([planner] if planner is not None else []) + \
         ([supervisor] if supervisor is not None else [])
     executor = Executor(nodes)
+    warmup = None
+    if compile_cache is not None:
+        # Launch-time staged warm-up (a resume process): pre-warm the
+        # manifest's signatures through the build cache BEFORE devprof
+        # installs, so that the profiler's baseline holds them (a warm
+        # boot must not report its cold-start repayment as recompiles).
+        from jax_mapping_torch.resilience.warmup import StagedWarmup
+        warmup = StagedWarmup(cache=compile_cache, devprof=devprof,
+                              device=dev)
+        if cfg.cold_start.prewarm_on_launch:
+            warmup.begin_warming()
+            warmup.prewarm()
+            warmup.mark_ready()
+    if devprof is not None:
+        devprof.install()
     stack = Stack(cfg=cfg, bus=bus, tf=tf, driver=driver, sim=sim,
                   brain=brain, mapper=mapper, executor=executor, device=dev,
                   planner=planner, health=health, supervisor=supervisor,
                   recovery=recovery, world_spill_dir=world_spill_dir,
                   voxel_mapper=voxel_mapper, api=api, tracer=tracer,
-                  pipeline=pipeline, slo=slo)
+                  pipeline=pipeline, slo=slo, devprof=devprof,
+                  compile_cache=compile_cache, warmup=warmup)
+    if api is not None and (compile_cache is not None
+                            or warmup is not None):
+        # /status `cold_start`: cache counters, pool stats, the warm-up
+        # report (a closure over the stack, so a later staged restart's
+        # state shows live).
+        api.coldstart_status = lambda: {
+            "cache": (stack.compile_cache.status()
+                      if stack.compile_cache is not None else None),
+            "warmup": (stack.warmup.snapshot()
+                       if stack.warmup is not None else None),
+        }
     if supervisor is not None:
         # The brain has no restarter: its driver link and poses cannot be
         # rebuilt; its death is declared and exported.

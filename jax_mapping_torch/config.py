@@ -180,6 +180,23 @@ class FrontierConfig:
 
 
 @_frozen
+class AnalysisConfig:
+    """Canonical scenario of the compile budget (`obs/ledger.py`
+    `measure_scenario`, the JAX package's `analysis/compilebudget.py`):
+    a deterministic tiny-config stack drive whose per-entry-point variant
+    counts the committed `obs/compile_budget.json` pins. Not part of
+    `SlamConfig`: it configures the measurement, not the stack."""
+
+    budget_n_robots: int = 2
+    budget_world_cells: int = 96      # plank_course arena edge
+    budget_steps: int = 16            # exploration steps driven
+    budget_seed: int = 3
+    # Tenant counts stepped through `megabatch_step` at the micro_config
+    # mission shape: 5 and 6 share the 6-bucket, so exactly two variants.
+    budget_tenant_counts: Tuple[int, ...] = (3, 5, 6)
+
+
+@_frozen
 class FleetConfig:
     """Multi-robot scaling."""
 
@@ -371,9 +388,13 @@ class ResilienceConfig:
 
 @_frozen
 class ColdStartConfig:
-    """Warm-restart tier of the JAX package (persistent compile cache,
-    executable snapshots, staged warm-up). Kept for its JSON; the port
-    has no compile cache to warm and refuses `enabled` at launch."""
+    """Warm-restart tier (`io/compile_cache.py`, `resilience/warmup.py`):
+    the kernel build cache under `cache_dir` (else
+    `<checkpoint_dir>/compile_cache`), bounded to `max_cache_bytes`; a
+    manifest of the dispatched signatures (`aot_snapshots`) that a
+    resumed process pre-warms; the staged warm-up at launch
+    (`prewarm_on_launch`). `enabled=False` builds none of it; a mapper
+    restart still goes through the staged warm-up."""
 
     enabled: bool = False
     cache_dir: str = ""
@@ -397,8 +418,12 @@ class DecayConfig:
 
 @_frozen
 class DevProfConfig:
-    """Dispatch profiling of the JAX package's jitted entry points. Kept
-    for its JSON; the port refuses `enabled` at launch."""
+    """Dispatch profiling of the port's entry points (`obs/devprof.py`):
+    host time a call, call counts, compiled variants (new signature keys)
+    and their signatures, up to `max_signatures_per_fn`, for the cost
+    ledger and the warm-up; `device:<fn>` spans with `trace_spans`; the
+    card's allocator watermarks with `memory_stats`. `enabled=False`
+    builds nothing."""
 
     enabled: bool = False
     capture_signatures: bool = True
@@ -427,8 +452,8 @@ class ObsConfig:
     """Observability. The flight recorder (`obs/recorder.py`) is always on
     and sized by `recorder_ring`; `enabled` arms causal tracing (a ring of
     `trace_ring` spans), the pipeline ledger and, with `slo` objectives
-    declared, the SLO engine. `devprof` (the obs tier's device half) is
-    not ported and is refused at launch (ROADMAP A.9f2)."""
+    declared, the SLO engine. `devprof` arms the obs tier's device half,
+    the dispatch profiler, on its own gate."""
 
     enabled: bool = False
     trace_ring: int = 65536

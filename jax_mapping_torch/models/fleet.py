@@ -26,7 +26,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from jax_mapping_torch._util import const, resolve_device
+from jax_mapping_torch._util import const, entry_point, resolve_device
 from jax_mapping_torch.config import SlamConfig, ensure_valid_mode
 from jax_mapping_torch.models.explorer import PolicyOut, frontier_policy
 from jax_mapping_torch.models.slam import _verify_loop
@@ -406,6 +406,7 @@ def _tick_finish(cfg: SlamConfig, state: FleetState, pre: _TickPre,
     return state2, diag
 
 
+@entry_point(static=("cfg", "world_res_m"))
 def fleet_step(cfg: SlamConfig, state: FleetState, world_res_m: float,
                world: torch.Tensor,
                wheel_normals: Optional[torch.Tensor] = None,

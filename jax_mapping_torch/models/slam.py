@@ -36,7 +36,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from jax_mapping_torch._util import const, resolve_device
+from jax_mapping_torch._util import const, entry_point, resolve_device
 from jax_mapping_torch.config import SlamConfig, ensure_valid_mode
 from jax_mapping_torch.ops import grid as G
 from jax_mapping_torch.ops import posegraph as PG
@@ -163,6 +163,7 @@ def _skip_diag(dev) -> SlamDiag:
                     match_prune_ratio=z)
 
 
+@entry_point(static=("cfg",))
 def slam_step(cfg: SlamConfig, state: SlamState, ranges: torch.Tensor,
               wheel_left, wheel_right, dt) -> tuple:
     """One control-period update of one robot: odometry, the key-scan
@@ -257,6 +258,7 @@ def slam_step(cfg: SlamConfig, state: SlamState, ranges: torch.Tensor,
     return st2, diag
 
 
+@entry_point(static=("cfg",))
 def slam_step_window(cfg: SlamConfig, state: SlamState,
                      ranges_w: torch.Tensor, wheels_w: torch.Tensor,
                      dts_w) -> tuple:
@@ -298,6 +300,7 @@ def slam_step_window(cfg: SlamConfig, state: SlamState,
     return st2, diag._replace(window_agreement=agreement)
 
 
+@entry_point(static=("cfg",))
 def scan_agreement(cfg: SlamConfig, grid: torch.Tensor, ranges: torch.Tensor,
                    pose: torch.Tensor) -> torch.Tensor:
     """Pre-fusion map agreement (0-d) of one scan (beams,) at pose (3,)."""

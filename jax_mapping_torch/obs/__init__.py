@@ -25,19 +25,29 @@ Port of the JAX package's `obs` package, host half (stdlib only):
                fast/slow burn-rate alerting; alerts flight-recorded, on
                `/status.slo` and `jax_mapping_slo_*`.
 
+* `devprof`  — `DispatchProfiler`: the device half's dispatch
+               attribution over the port's marked entry points (host
+               time a call, recompiles as new signature keys, captured
+               signatures, the card's memory watermarks). Gated by
+               `ObsConfig.devprof.enabled`.
+* `ledger`   — `CostLedger`: FLOPs and bytes per captured signature, from
+               an aten-op count on zeros and the kernels' own arithmetic;
+               `cross_check` against the port's compile budget.
+
 `python -m jax_mapping_torch.obs` is the CLI (diff two dumps, export a
 dump to a Perfetto-loadable trace, the critical path of a dump's
-pipeline records). The device half — the dispatch profiler
-(`obs/devprof.py`) and the cost ledger (`obs/ledger.py`) — is not ported
-yet (ROADMAP A.9f2): `ObsConfig.devprof.enabled` is refused at launch.
+pipeline records, the cost ledger of the canonical scenario). Importing
+this package imports no torch.
 """
 
+from jax_mapping_torch.obs.devprof import DispatchProfiler  # noqa: F401
 from jax_mapping_torch.obs.diff import (  # noqa: F401
     Divergence, diff_dumps, diff_streams, normalize_events,
 )
 from jax_mapping_torch.obs.export import (  # noqa: F401
     chrome_events, dump_to_chrome, write_chrome_trace,
 )
+from jax_mapping_torch.obs.ledger import CostLedger  # noqa: F401
 from jax_mapping_torch.obs.pipeline import (  # noqa: F401
     FixedHistogram, PipelineLedger,
 )

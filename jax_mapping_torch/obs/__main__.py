@@ -1,8 +1,9 @@
 """`python -m jax_mapping_torch.obs` — the postmortem CLI.
 
 Port of the JAX package's `obs/__main__.py`, with its subcommands (pure
-stdlib, fast start; no torch import). The dumps and streams are the same
-format in both packages, so either CLI reads either package's dumps.
+stdlib, fast start; only `cost-ledger` imports torch). The dumps and
+streams are the same format in both packages, so either CLI reads either
+package's dumps.
 
     diff A.json B.json     Trace-diff two flight-recorder dumps (or raw
                            {"events": [...], "spans": [...]} documents)
@@ -28,12 +29,15 @@ format in both packages, so either CLI reads either package's dumps.
                            same-seed runs). Exit 0 identical/ok, 1 on
                            structural divergence, 2 on usage/no
                            records.
-    cost-ledger [-o OUT]   The JAX package's static XLA cost ledger over
-                           the dispatch profiler. The port's dispatch
-                           profiler and cost ledger are the obs tier's
-                           device half, not ported yet (ROADMAP
-                           A.9f2): the subcommand is refused by name,
-                           exit 2.
+    cost-ledger [-o OUT] [--budget JSON] [--device DEV]
+                           Drive the canonical compile-budget scenario
+                           (obs/ledger.py measure_scenario) under the
+                           dispatch profiler on DEV (default cuda),
+                           collect the cost ledger (FLOPs, bytes per
+                           entry point and variant) and print it as
+                           JSON (or write it to OUT). With --budget,
+                           cross-check it against that compile budget:
+                           exit 1 on violations.
 
 Postmortem workflow: a chaos gate fails -> the
 recorder auto-dumped to the checkpoint dir -> `diff` the failing run's
@@ -109,6 +113,39 @@ def _critical_path(dump_path: str, baseline_path: Optional[str]) -> int:
     return 1
 
 
+def _cost_ledger(out: Optional[str], budget: Optional[str],
+                 device: str) -> int:
+    """The cost-ledger subcommand (see module docstring)."""
+    import contextlib
+
+    from jax_mapping_torch._util import resolve_device
+    from jax_mapping_torch.obs.ledger import run_cost_ledger
+    try:
+        resolve_device(device)          # no card: say so, no fallback
+    except RuntimeError as ex:
+        print(f"cost-ledger: {ex}", file=sys.stderr)
+        return 2
+    # The stack logs bring-up lines to stdout: keep stdout one document.
+    with contextlib.redirect_stdout(sys.stderr):
+        measured, profiler, ledger = run_cost_ledger(device=device)
+    doc = {"measured": measured, "recompiles": profiler.recompiles(),
+           "dispatch": profiler.snapshot(), "ledger": ledger.snapshot()}
+    viol = []
+    if budget is not None:
+        viol = ledger.cross_check(budget)
+        doc["violations"] = viol
+    text = json.dumps(doc, indent=1, sort_keys=True)
+    if out:
+        with open(out, "w") as f:
+            f.write(text + "\n")
+        print(f"wrote {out} ({len(doc['ledger'])} entry points)")
+    else:
+        print(text)
+    for line in viol:
+        print(line, file=sys.stderr)
+    return 1 if viol else 0
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m jax_mapping_torch.obs",
@@ -124,10 +161,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     e.add_argument("dump")
     e.add_argument("-o", "--out", default=None)
     c = sub.add_parser("cost-ledger",
-                       help="not ported: the cost ledger is the obs "
-                            "tier's device half (ROADMAP A.9f2)")
+                       help="FLOPs/bytes per entry point of the "
+                            "canonical scenario")
     c.add_argument("-o", "--out", default=None)
     c.add_argument("--budget", default=None, metavar="JSON")
+    c.add_argument("--device", default="cuda")
     k = sub.add_parser("critical-path",
                        help="per-revision scan→served critical path "
                             "from a dump's pipeline records")
@@ -158,10 +196,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         if args.cmd == "critical-path":
             return _critical_path(args.dump, args.baseline)
         if args.cmd == "cost-ledger":
-            print("cost-ledger: the dispatch profiler and the cost ledger "
-                  "(obs/devprof.py, obs/ledger.py) are not ported yet "
-                  "(ROADMAP A.9f2)", file=sys.stderr)
-            return 2
+            return _cost_ledger(args.out, args.budget, args.device)
     except (OSError, ValueError, KeyError) as ex:
         print(f"error: {ex}", file=sys.stderr)
         return 2

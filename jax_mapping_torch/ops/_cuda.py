@@ -7,6 +7,10 @@ source, the shared headers (`csrc/*.cuh`) and the flags, so a checkout
 builds each kernel once. Nothing is
 built or loaded when this module is imported: the first call that needs
 a kernel builds it (or `build_all()` builds every kernel in parallel).
+`set_build_dir` points the builds at another directory (the warm-restart
+tier's persistent cache, `io/compile_cache.py`); a library already
+loaded in the process stays loaded. `BUILDS` counts the libraries nvcc
+built and those found already built.
 
 Every wrapper adds to its entry in `LAUNCHES` the number of kernel grids
 it launched, and nowhere else, so a caller can reset the counts, drive a
@@ -31,7 +35,8 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-BUILD_DIR = _PKG / "_build"
+DEFAULT_BUILD_DIR = _PKG / "_build"
+BUILD_DIR = DEFAULT_BUILD_DIR
 
 #: Kernel library name -> source file in csrc/.
 SOURCES = {
@@ -71,8 +76,23 @@ ROUTES: Dict[str, Dict[str, int]] = {"label_prop": {},
 OWN_ERRORS = {-2: "no cluster of this size fits on the card "
                   "(cudaOccupancyMaxActiveClusters is 0)"}
 
+#: Library -> kernels of `LAUNCHES` it launches.
+KERNELS = {
+    "sensor_model": ("sensor_model_delta", "sensor_model_raster"),
+    "label_prop": ("label_prop",),
+    "costfield_relax": ("costfield_relax",),
+    "window_fuse": ("window_delta", "window_apply"),
+    "voxel_model": ("voxel_image", "voxel_summed"),
+}
+
+#: Libraries nvcc built in this process, and libraries found built.
+BUILDS: Dict[str, int] = {"built": 0, "found": 0}
+
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+#: The cost ledger's per-thread sink (`obs/ledger.py`): kernels launched
+#: on this thread while it is set report their bytes and operations.
+_cost = threading.local()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -114,6 +134,46 @@ def reset_launches() -> None:
         r.clear()
 
 
+def note_cost(name: str, cost) -> None:
+    """Report a kernel's work to the cost ledger when one collects on this
+    thread: `cost()` gives (bytes, operations), and the sink calls it. A
+    launch computes nothing otherwise."""
+    sink = getattr(_cost, "sink", None)
+    if sink is not None:
+        sink(name, cost)
+
+
+def set_cost_sink(sink) -> None:
+    """Install (or with None remove) this thread's cost sink."""
+    _cost.sink = sink
+
+
+def libraries_of(kernels) -> frozenset:
+    """The libraries that launch these kernel names."""
+    return frozenset(lib for lib, ks in KERNELS.items()
+                     if any(k in kernels for k in ks))
+
+
+def loaded(name: str) -> bool:
+    """Whether library `name` is loaded in this process."""
+    with _lock:
+        return name in _libs
+
+
+def loaded_paths() -> Dict[str, Path]:
+    """Each loaded library's file."""
+    with _lock:
+        return {n: Path(lib._name) for n, lib in _libs.items()}
+
+
+def set_build_dir(path=None) -> None:
+    """Build and look for libraries under `path` from now on (None: the
+    package's `_build/`). Loaded libraries stay loaded."""
+    global BUILD_DIR
+    with _lock:
+        BUILD_DIR = Path(path) if path is not None else DEFAULT_BUILD_DIR
+
+
 def nvcc_path() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -125,21 +185,27 @@ def nvcc_path() -> str:
                        "toolkit (nvcc on PATH or under /usr/local/cuda)")
 
 
-def _target(name: str) -> Path:
+def source_hash(name: str) -> str:
+    """Hash of a library's source, the shared headers and NVCC_FLAGS: its
+    file name under the build directory."""
     src = (CSRC / SOURCES[name]).read_bytes()
     headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
-    h = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()
-                       ).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{h}.so"
+    return hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()
+                          ).hexdigest()[:16]
+
+
+def _target(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{source_hash(name)}.so"
 
 
 def _start_build(name: str):
     """Start nvcc for one source unless its library exists; returns
     (target, Popen or None, temp path)."""
     out = _target(name)
-    if out.exists():
+    if out.exists() and out.stat().st_size > 0:
+        BUILDS["found"] += 1
         return out, None, None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     with open(out.with_suffix(".log"), "w") as log:
         proc = subprocess.Popen(
@@ -158,6 +224,7 @@ def _finish_build(name: str, out: Path, proc, tmp) -> None:
             f"nvcc failed for {SOURCES[name]} (exit {rc}):\n"
             + out.with_suffix(".log").read_text()[-4000:])
     os.replace(tmp, out)
+    BUILDS["built"] += 1
 
 
 def build_all() -> Dict[str, float]:

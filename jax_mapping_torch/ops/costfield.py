@@ -22,7 +22,8 @@ from __future__ import annotations
 
 import torch
 
-from jax_mapping_torch._util import shift2d
+from jax_mapping_torch._util import entry_point, shift2d
+from jax_mapping_torch.obs import ledger
 from jax_mapping_torch.ops import _cuda
 
 _BIG = 1e9
@@ -110,6 +111,8 @@ def relax_sweeps(blocked: torch.Tensor, init: torch.Tensor, n_sweeps: int):
     ran = _cuda.sweep_call("costfield_relax", _cuda.ptr(blk), _cuda.ptr(init),
                            _cuda.ptr(out), _cuda.ptr(scratch), R, n,
                            n_sweeps, R // T)
+    _cuda.note_cost("costfield_relax",
+                    lambda: ledger.relax_cost(blocked, init, n_sweeps))
     return out, ran
 
 
@@ -150,6 +153,7 @@ def _seed(init: torch.Tensor, robot_rc: torch.Tensor, blocked: torch.Tensor,
     return out
 
 
+@entry_point(static=("levels", "refine_iters"))
 def cost_fields(blocked: torch.Tensor, robot_rc: torch.Tensor,
                 levels: int = 3, refine_iters: int = 8,
                 relax=relax_level) -> torch.Tensor:
@@ -205,6 +209,7 @@ def cost_fields(blocked: torch.Tensor, robot_rc: torch.Tensor,
     return d.reshape(T, G, n, n) if batched else d
 
 
+@entry_point(static=("iters",))
 def warm_cost_fields(blocked: torch.Tensor, robot_rc: torch.Tensor,
                      prev_fields: torch.Tensor, iters: int) -> torch.Tensor:
     """`cost_fields` warm-started from a previous solve's fields: each

@@ -31,8 +31,9 @@ from typing import NamedTuple
 
 import torch
 
-from jax_mapping_torch._util import const, div, shift2d
+from jax_mapping_torch._util import const, div, entry_point, shift2d
 from jax_mapping_torch.config import FrontierConfig, GridConfig
+from jax_mapping_torch.obs import ledger
 from jax_mapping_torch.ops import _cuda
 from jax_mapping_torch.ops import costfield as CF
 
@@ -168,6 +169,8 @@ def label_sweeps(mask: torch.Tensor, seed: torch.Tensor, n_sweeps: int):
     ran = _cuda.sweep_call("label_prop", _cuda.ptr(m), _cuda.ptr(seed),
                            _cuda.ptr(out), _cuda.ptr(scratch), T, n,
                            n_sweeps)
+    _cuda.note_cost("label_prop",
+                    lambda: ledger.label_prop_cost(mask, n_sweeps))
     return out, ran
 
 
@@ -491,6 +494,7 @@ def _refuse_batched(**args) -> None:
                              "tenant megabatch)")
 
 
+@entry_point(static=("cfg", "grid_cfg"))
 def compute_frontiers(cfg: FrontierConfig, grid_cfg: GridConfig,
                       logodds: torch.Tensor,
                       robot_poses: torch.Tensor) -> FrontierResult:

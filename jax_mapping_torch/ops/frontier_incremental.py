@@ -33,7 +33,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from jax_mapping_torch._util import resolve_device
+from jax_mapping_torch._util import entry_point, resolve_device
 from jax_mapping_torch.config import FrontierConfig, GridConfig
 from jax_mapping_torch.ops import costfield as CF
 from jax_mapping_torch.ops import frontier as F
@@ -68,6 +68,7 @@ def _tiles(x: torch.Tensor, t: int) -> torch.Tensor:
     return x.view(nt, t, nt, t).transpose(1, 2)
 
 
+@entry_point(static=("fcfg", "grid_cfg", "tile_cells"))
 def _refresh_tiles(fcfg: FrontierConfig, grid_cfg: GridConfig,
                    tile_cells: int, logodds: torch.Tensor, free, occ,
                    unknown, stale, tile_rc: torch.Tensor) -> torch.Tensor:
@@ -92,6 +93,7 @@ def _refresh_tiles(fcfg: FrontierConfig, grid_cfg: GridConfig,
     return (~u).reshape(M, -1).any(dim=1)
 
 
+@entry_point(static=("fcfg", "grid_cfg", "tile_cells"))
 def _refresh_full(fcfg: FrontierConfig, grid_cfg: GridConfig,
                   tile_cells: int, logodds: torch.Tensor, stale):
     """Dense dirt: one full-grid coarsen (and stale mask) and the per-tile
@@ -110,6 +112,7 @@ def _crop_masks(free, unknown, origin_rc: tuple, span: int):
             unknown[r0:r0 + span, c0:c0 + span])
 
 
+@entry_point(static=("fcfg", "grid_cfg", "span"))
 def _crop_blocked(fcfg: FrontierConfig, grid_cfg: GridConfig, span: int,
                   free, unknown, origin_rc: tuple) -> torch.Tensor:
     """The crop's BFS blocked mask, which the carried fields depend on.
@@ -130,6 +133,7 @@ def _crop_stale(fcfg: FrontierConfig, stale, origin_rc: tuple, span: int):
     return stale[r0:r0 + span, c0:c0 + span]
 
 
+@entry_point(static=("fcfg", "grid_cfg", "span"))
 def _compute_crop(fcfg: FrontierConfig, grid_cfg: GridConfig, span: int,
                   free, unknown, stale, origin_rc: tuple,
                   poses: torch.Tensor):
@@ -139,6 +143,7 @@ def _compute_crop(fcfg: FrontierConfig, grid_cfg: GridConfig, span: int,
         return_fields=True, stale=_crop_stale(fcfg, stale, origin_rc, span))
 
 
+@entry_point(static=("fcfg", "grid_cfg", "span", "warm_iters"))
 def _compute_crop_warm(fcfg: FrontierConfig, grid_cfg: GridConfig,
                        span: int, warm_iters: int, free, unknown, stale,
                        origin_rc: tuple, poses: torch.Tensor,

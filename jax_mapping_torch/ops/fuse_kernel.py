@@ -38,7 +38,9 @@ from typing import Optional, Tuple
 
 import torch
 
+from jax_mapping_torch._util import entry_point
 from jax_mapping_torch.config import GridConfig, ScanConfig
+from jax_mapping_torch.obs import ledger
 from jax_mapping_torch.ops import _cuda
 from jax_mapping_torch.ops import sensor_kernel as SK
 
@@ -96,6 +98,7 @@ def window_apply_plain(grid_cfg: GridConfig, scan_cfg: ScanConfig,
                          grid_cfg.logodds_max))
 
 
+@entry_point(static=("grid_cfg", "scan_cfg"))
 def window_apply(grid_cfg: GridConfig, scan_cfg: ScanConfig,
                  grid_arr: torch.Tensor, ranges_b: torch.Tensor,
                  poses_b: torch.Tensor, origin_rc: torch.Tensor) -> None:
@@ -119,6 +122,8 @@ def window_apply(grid_cfg: GridConfig, scan_cfg: ScanConfig,
                *SK.model_args(grid_cfg, scan_cfg), grid_cfg.logodds_min,
                grid_cfg.logodds_max, entry="window_apply_launch")
     _cuda.count_launch("window_apply")
+    _cuda.note_cost("window_apply", lambda: ledger.window_apply_cost(
+        grid_cfg, scan_cfg, ranges_b, poses_b, origin_rc))
 
 
 def window_fused(grid_cfg: GridConfig, scan_cfg: ScanConfig,
@@ -160,6 +165,7 @@ def patch_span_tiles(grid_cfg: GridConfig, tile_cells: int) -> int:
     return min(span, grid_cfg.size_cells // tile_cells)
 
 
+@entry_point(static=("grid_cfg", "tile_cells"))
 def touched_tile_box(grid_cfg: GridConfig, tile_cells: int,
                      poses_xy: torch.Tensor,
                      pad_cells: torch.Tensor) -> torch.Tensor:
@@ -183,6 +189,7 @@ def touched_tile_box(grid_cfg: GridConfig, tile_cells: int,
     return torch.stack([t0[0], t1[0], t0[1], t1[1]]).to(torch.int32)
 
 
+@entry_point(static=("grid_cfg", "scan_cfg", "tile_cells"))
 def fuse_scans_window_touched(grid_cfg: GridConfig, scan_cfg: ScanConfig,
                               tile_cells: int, grid_arr: torch.Tensor,
                               ranges_b: torch.Tensor, poses_b: torch.Tensor
@@ -211,6 +218,7 @@ def fuse_scans_window_touched(grid_cfg: GridConfig, scan_cfg: ScanConfig,
     return new, tile_rc, G.tile_hashes(region, tile_cells)
 
 
+@entry_point(static=("grid_cfg", "scan_cfg", "tile_cells"))
 def fuse_scans_touched(grid_cfg: GridConfig, scan_cfg: ScanConfig,
                        tile_cells: int, grid_arr: torch.Tensor,
                        ranges_b: torch.Tensor, poses_b: torch.Tensor,

@@ -31,7 +31,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from jax_mapping_torch._util import const, div
+from jax_mapping_torch._util import const, div, entry_point
 from jax_mapping_torch.config import GridConfig, ScanConfig
 from jax_mapping_torch.ops import sensor_kernel as SK
 from jax_mapping_torch.ops import trig
@@ -315,6 +315,7 @@ def _classify_fold(grid_cfg: GridConfig, scan_cfg: ScanConfig,
         FK.stream_fold(grid_cfg, scan_cfg, grid_arr, r, p, m, clamp, t)
 
 
+@entry_point(static=("grid_cfg", "scan_cfg"))
 def fuse_scans_masked(grid_cfg: GridConfig, scan_cfg: ScanConfig,
                       grid_arr: torch.Tensor, ranges_b: torch.Tensor,
                       poses_b: torch.Tensor, mask_b: torch.Tensor,
@@ -346,6 +347,7 @@ def fuse_scans_bucketed(grid_cfg: GridConfig, scan_cfg: ScanConfig,
     return fuse_scans_masked(grid_cfg, scan_cfg, grid_arr, r, p, m)
 
 
+@entry_point(static=("grid_cfg", "scan_cfg"))
 def fuse_scan(grid_cfg: GridConfig, scan_cfg: ScanConfig,
               grid_arr: torch.Tensor, ranges: torch.Tensor,
               pose: torch.Tensor) -> torch.Tensor:
@@ -357,6 +359,7 @@ def fuse_scan(grid_cfg: GridConfig, scan_cfg: ScanConfig,
     return out
 
 
+@entry_point(static=("grid_cfg", "scan_cfg"))
 def fuse_scans(grid_cfg: GridConfig, scan_cfg: ScanConfig,
                grid_arr: torch.Tensor, ranges_b: torch.Tensor,
                poses_b: torch.Tensor) -> torch.Tensor:
@@ -367,6 +370,7 @@ def fuse_scans(grid_cfg: GridConfig, scan_cfg: ScanConfig,
     return out
 
 
+@entry_point(static=("grid_cfg", "scan_cfg"))
 def scan_deltas_full(grid_cfg: GridConfig, scan_cfg: ScanConfig,
                      ranges_b: torch.Tensor,
                      poses_b: torch.Tensor) -> torch.Tensor:
@@ -378,6 +382,7 @@ def scan_deltas_full(grid_cfg: GridConfig, scan_cfg: ScanConfig,
     return out
 
 
+@entry_point(static=("grid_cfg", "scan_cfg"))
 def fuse_scans_window(grid_cfg: GridConfig, scan_cfg: ScanConfig,
                       grid_arr: torch.Tensor, ranges_b: torch.Tensor,
                       poses_b: torch.Tensor) -> torch.Tensor:
@@ -402,6 +407,7 @@ def fuse_scans_window(grid_cfg: GridConfig, scan_cfg: ScanConfig,
     return out
 
 
+@entry_point(static=("grid_cfg", "scan_cfg"))
 def fuse_scans_window_checked(grid_cfg: GridConfig, scan_cfg: ScanConfig,
                               grid_arr: torch.Tensor, ranges_b: torch.Tensor,
                               poses_b: torch.Tensor) -> torch.Tensor:
@@ -433,6 +439,7 @@ def coarse_grid_config(grid_cfg: GridConfig, factor: int) -> GridConfig:
         patch_cells=min(grid_cfg.patch_cells, size))
 
 
+@entry_point(static=("factor",))
 def downsample_max(grid_arr: torch.Tensor, factor: int) -> torch.Tensor:
     """Log-odds grid -> factor x coarser by block max."""
     n0, n1 = grid_arr.shape
@@ -444,6 +451,7 @@ def downsample_max(grid_arr: torch.Tensor, factor: int) -> torch.Tensor:
 # Map-side functions: decay, merge, export, serving tiles
 # ---------------------------------------------------------------------------
 
+@entry_point
 def decay_grid(grid_arr: torch.Tensor, factor: float,
                cap: float) -> torch.Tensor:
     """One map-healing pass: every cell's log-odds times `factor`, clamped
@@ -469,6 +477,7 @@ def _select3(a: torch.Tensor, b: torch.Tensor, va: int, vb: int,
     return out.masked_fill_(b, vb).masked_fill_(a, va)
 
 
+@entry_point(static=("grid_cfg",))
 def to_occupancy(grid_cfg: GridConfig, grid_arr: torch.Tensor
                  ) -> torch.Tensor:
     """Log-odds -> int8 {-1 unknown, 0 free, 100 occupied}."""
@@ -477,6 +486,7 @@ def to_occupancy(grid_cfg: GridConfig, grid_arr: torch.Tensor
                     torch.int8)
 
 
+@entry_point(static=("grid_cfg",))
 def to_gray(grid_cfg: GridConfig, grid_arr: torch.Tensor) -> torch.Tensor:
     """Log-odds -> uint8 gray in grid orientation (row 0 = min-y): 127
     unknown, 255 free, 0 occupied."""
@@ -485,6 +495,7 @@ def to_gray(grid_cfg: GridConfig, grid_arr: torch.Tensor) -> torch.Tensor:
                     torch.uint8)
 
 
+@entry_point
 def downsample_gray(img: torch.Tensor) -> torch.Tensor:
     """uint8 gray image -> 2x coarser by block priority: occupied (0) >
     free (255) > unknown (127)."""
@@ -512,6 +523,7 @@ def _mul32(v: torch.Tensor, w) -> torch.Tensor:
 _HASH_CHUNK_CELLS = 1 << 21
 
 
+@entry_point(static=("tile_cells",))
 def tile_hashes(arr: torch.Tensor, tile_cells: int) -> torch.Tensor:
     """(H, W) array -> (H//t, W//t, 2) per-tile content hashes: the JAX
     package's two multiplicative-weight uint32 lanes, with wraparound.

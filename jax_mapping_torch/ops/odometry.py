@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import torch
 
-from jax_mapping_torch._util import div
+from jax_mapping_torch._util import div, entry_point
 from jax_mapping_torch.config import RobotConfig
 
 
@@ -37,6 +37,7 @@ def rk2_step(robot: RobotConfig, pose: torch.Tensor, left_units: torch.Tensor,
     ], dim=-1)
 
 
+@entry_point(static=("robot",))
 def integrate(robot: RobotConfig, pose0: torch.Tensor,
               left_units: torch.Tensor, right_units: torch.Tensor,
               dts: torch.Tensor) -> torch.Tensor:
@@ -50,6 +51,7 @@ def integrate(robot: RobotConfig, pose0: torch.Tensor,
     return torch.stack(traj) if traj else pose0.new_zeros((0, 3))
 
 
+@entry_point(static=("robot",))
 def integrate_fleet(robot: RobotConfig, poses0: torch.Tensor,
                     left_units: torch.Tensor, right_units: torch.Tensor,
                     dts: torch.Tensor) -> torch.Tensor:

@@ -17,7 +17,7 @@ from typing import NamedTuple
 
 import torch
 
-from jax_mapping_torch._util import div
+from jax_mapping_torch._util import div, entry_point
 from jax_mapping_torch.config import (FrontierConfig, GridConfig,
                                       PlannerConfig, VoxelConfig)
 from jax_mapping_torch.ops import frontier as F
@@ -50,6 +50,7 @@ def _cell_to_world(grid_cfg: GridConfig, res: float,
                        dim=-1)
 
 
+@entry_point(static=("fcfg", "grid_cfg", "pcfg"))
 def goal_field(pcfg: PlannerConfig, fcfg: FrontierConfig,
                grid_cfg: GridConfig, logodds: torch.Tensor,
                goal_xy: torch.Tensor) -> torch.Tensor:
@@ -70,6 +71,7 @@ def goal_field(pcfg: PlannerConfig, fcfg: FrontierConfig,
                                    device=passable.device))
 
 
+@entry_point(static=("fcfg", "grid_cfg", "pcfg"))
 def descend_field(pcfg: PlannerConfig, fcfg: FrontierConfig,
                   grid_cfg: GridConfig, dist: torch.Tensor,
                   goal_xy: torch.Tensor, start_xy: torch.Tensor
@@ -114,6 +116,7 @@ def descend_field(pcfg: PlannerConfig, fcfg: FrontierConfig,
                       arrived=arrived)
 
 
+@entry_point(static=("grid_cfg", "pcfg", "vox_cfg"))
 def overlay_voxel_obstacles(pcfg: PlannerConfig, grid_cfg: GridConfig,
                             vox_cfg: VoxelConfig, logodds: torch.Tensor,
                             voxel_grid: torch.Tensor) -> torch.Tensor:
@@ -147,6 +150,7 @@ def overlay_voxel_obstacles(pcfg: PlannerConfig, grid_cfg: GridConfig,
     return out
 
 
+@entry_point(static=("fcfg", "grid_cfg", "pcfg"))
 def plan_to_goal(pcfg: PlannerConfig, fcfg: FrontierConfig,
                  grid_cfg: GridConfig, logodds: torch.Tensor,
                  goal_xy: torch.Tensor, start_xy: torch.Tensor

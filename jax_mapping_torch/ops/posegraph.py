@@ -19,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from jax_mapping_torch._util import const, full_f32
+from jax_mapping_torch._util import const, entry_point, full_f32
 from jax_mapping_torch.config import LoopClosureConfig
 from jax_mapping_torch.ops.odometry import (pose_between, pose_compose,
                                             wrap_angle)
@@ -308,6 +308,7 @@ def _assemble(g: PoseGraph):
     return J, r, w
 
 
+@entry_point(static=("cfg",))
 def optimize(cfg: LoopClosureConfig, g: PoseGraph) -> PoseGraph:
     """Damped Gauss-Newton over each whole graph, pose 0 gauge-fixed by
     a strong prior; `cfg.gn_iters` iterations, Cholesky solves."""

@@ -23,10 +23,12 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from jax_mapping_torch._util import entry_point
 from jax_mapping_torch.config import GridConfig, MatcherConfig
 from jax_mapping_torch.ops import scan_match as M
 
 
+@entry_point(static=("grid_cfg", "m_cfg", "n_levels"))
 def build_match_pyramid(grid_cfg: GridConfig, m_cfg: MatcherConfig,
                         n_levels: int, grid_arr: torch.Tensor,
                         origin_rc: torch.Tensor) -> Tuple[torch.Tensor, ...]:

@@ -33,7 +33,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as Fn
 
-from jax_mapping_torch._util import const, div, full_f32
+from jax_mapping_torch._util import const, div, entry_point, full_f32
 from jax_mapping_torch.config import GridConfig, MatcherConfig, ScanConfig
 from jax_mapping_torch.ops import grid as G
 from jax_mapping_torch.ops import sensor_kernel as SK
@@ -391,6 +391,7 @@ def _bnb_winner(m_cfg: MatcherConfig, levels, resp_top: torch.Tensor,
 # Matching
 # ---------------------------------------------------------------------------
 
+@entry_point(static=("grid_cfg", "m_cfg", "scan_cfg"))
 def match_batch(grid_cfg: GridConfig, scan_cfg: ScanConfig,
                 m_cfg: MatcherConfig, grid_arr: torch.Tensor,
                 ranges_b: torch.Tensor, guesses_b: torch.Tensor,
@@ -425,6 +426,7 @@ def match_batch(grid_cfg: GridConfig, scan_cfg: ScanConfig,
                                  ranges_b, guesses_b)
 
 
+@entry_point(static=("grid_cfg", "m_cfg", "scan_cfg"))
 def match(grid_cfg: GridConfig, scan_cfg: ScanConfig, m_cfg: MatcherConfig,
           grid_arr: torch.Tensor, ranges: torch.Tensor,
           guess_pose: torch.Tensor) -> MatchResult:
@@ -685,6 +687,7 @@ def _bnb_finish(grid_cfg: GridConfig, scan_cfg: ScanConfig,
 # None of them writes into `levels`: the cache hands one pyramid to every
 # later attempt.
 
+@entry_point(static=("grid_cfg", "m_cfg", "n_levels", "scan_cfg"))
 def pyramid_coarse_scores(grid_cfg: GridConfig, scan_cfg: ScanConfig,
                           m_cfg: MatcherConfig, n_levels: int, levels,
                           origin: torch.Tensor, ranges: torch.Tensor,
@@ -719,6 +722,7 @@ def pyramid_refine(grid_cfg: GridConfig, scan_cfg: ScanConfig,
                        ranges[None], guess_pose[None], n_levels)
 
 
+@entry_point(static=("grid_cfg", "m_cfg", "n_levels", "scan_cfg"))
 def match_with_pyramid(grid_cfg: GridConfig, scan_cfg: ScanConfig,
                        m_cfg: MatcherConfig, n_levels: int, levels,
                        origin: torch.Tensor, ranges: torch.Tensor,

@@ -36,8 +36,9 @@ import math
 
 import torch
 
-from jax_mapping_torch._util import const, div
+from jax_mapping_torch._util import const, div, entry_point
 from jax_mapping_torch.config import GridConfig, ScanConfig
+from jax_mapping_torch.obs import ledger
 from jax_mapping_torch.ops import _cuda
 
 #: Scans of one window kernel launch; larger windows are summed as
@@ -66,6 +67,7 @@ def scan_rasters_plain(grid_cfg: GridConfig, scan_cfg: ScanConfig,
     return G.raster_patch(grid_cfg, scan_cfg, ranges_b, poses_b, origins_rc)
 
 
+@entry_point(static=("grid_cfg", "scan_cfg"))
 def scan_deltas(grid_cfg: GridConfig, scan_cfg: ScanConfig,
                 ranges_b: torch.Tensor, poses_b: torch.Tensor,
                 origins_rc: torch.Tensor) -> torch.Tensor:
@@ -77,6 +79,7 @@ def scan_deltas(grid_cfg: GridConfig, scan_cfg: ScanConfig,
                    raster=False)
 
 
+@entry_point(static=("grid_cfg", "scan_cfg"))
 def scan_rasters(grid_cfg: GridConfig, scan_cfg: ScanConfig,
                  ranges_b: torch.Tensor, poses_b: torch.Tensor,
                  origins_rc: torch.Tensor) -> torch.Tensor:
@@ -92,6 +95,7 @@ def scan_rasters(grid_cfg: GridConfig, scan_cfg: ScanConfig,
 _MAX_B_PER_LAUNCH = 65535
 
 
+@entry_point(static=("grid_cfg", "scan_cfg", "raster"))
 def _launch(grid_cfg: GridConfig, scan_cfg: ScanConfig,
             ranges_b: torch.Tensor, poses_b: torch.Tensor,
             origins_rc: torch.Tensor, raster: bool) -> torch.Tensor:
@@ -112,8 +116,10 @@ def _launch(grid_cfg: GridConfig, scan_cfg: ScanConfig,
         "sensor_model", int(raster), _cuda.ptr(ranges_b), _cuda.ptr(poses_b),
         _cuda.ptr(origins_rc), _cuda.ptr(out), B, P, nb,
         *model_args(grid_cfg, scan_cfg))
-    _cuda.count_launch("sensor_model_raster" if raster
-                       else "sensor_model_delta")
+    kernel = "sensor_model_raster" if raster else "sensor_model_delta"
+    _cuda.count_launch(kernel)
+    _cuda.note_cost(kernel, lambda: ledger.sensor_model_cost(
+        grid_cfg, scan_cfg, ranges_b, poses_b, origins_rc))
     return out
 
 
@@ -154,6 +160,7 @@ def window_delta_plain(grid_cfg: GridConfig, scan_cfg: ScanConfig,
     return acc
 
 
+@entry_point(static=("grid_cfg", "scan_cfg"))
 def window_delta(grid_cfg: GridConfig, scan_cfg: ScanConfig,
                  ranges_b: torch.Tensor, poses_b: torch.Tensor,
                  origin_rc: torch.Tensor) -> torch.Tensor:
@@ -184,6 +191,8 @@ def window_delta(grid_cfg: GridConfig, scan_cfg: ScanConfig,
                P, scan_cfg.padded_beams, *model_args(grid_cfg, scan_cfg),
                entry="window_delta_launch")
     _cuda.count_launch("window_delta")
+    _cuda.note_cost("window_delta", lambda: ledger.window_delta_cost(
+        grid_cfg, scan_cfg, ranges_b, poses_b, origin_rc))
     return out
 
 

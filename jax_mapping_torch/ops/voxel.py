@@ -34,7 +34,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from jax_mapping_torch._util import div, resolve_device
+from jax_mapping_torch._util import div, entry_point, resolve_device
 from jax_mapping_torch.config import DepthCamConfig, VoxelConfig
 
 # ---------------------------------------------------------------------------
@@ -198,6 +198,7 @@ def _check_patch_coverage(vox: VoxelConfig, cam: DepthCamConfig) -> None:
             f"patch_cells or shrink max_range_m")
 
 
+@entry_point(static=("cam", "vox"))
 def fuse_depth(vox: VoxelConfig, cam: DepthCamConfig, grid: torch.Tensor,
                depth: torch.Tensor, pose_xyyaw: torch.Tensor) -> torch.Tensor:
     """Fuse ONE depth image taken from a planar pose [x, y, yaw] through
@@ -209,6 +210,7 @@ def fuse_depth(vox: VoxelConfig, cam: DepthCamConfig, grid: torch.Tensor,
     return apply_patch(vox, grid, delta, origin.tolist())
 
 
+@entry_point(static=("cam", "vox"))
 def fuse_depths(vox: VoxelConfig, cam: DepthCamConfig, grid: torch.Tensor,
                 depths_b: torch.Tensor, poses_b: torch.Tensor
                 ) -> torch.Tensor:
@@ -224,6 +226,7 @@ def fuse_depths(vox: VoxelConfig, cam: DepthCamConfig, grid: torch.Tensor,
     return fuse_depths_xla(vox, cam, grid, depths_b, poses_b)
 
 
+@entry_point(static=("cam", "vox"))
 def fuse_depths_xla(vox: VoxelConfig, cam: DepthCamConfig,
                     grid: torch.Tensor, depths_b: torch.Tensor,
                     poses_b: torch.Tensor) -> torch.Tensor:
@@ -251,6 +254,7 @@ def fuse_depths_xla(vox: VoxelConfig, cam: DepthCamConfig,
 # Export
 # ---------------------------------------------------------------------------
 
+@entry_point(static=("vox",))
 def to_occupancy(vox: VoxelConfig, grid: torch.Tensor) -> torch.Tensor:
     """Log-odds -> int8 {-1 unknown, 0 free, 100 occupied}."""
     out = torch.full(grid.shape, -1, dtype=torch.int8, device=grid.device)
@@ -266,6 +270,7 @@ def _z_centres(vox: VoxelConfig) -> np.ndarray:
             * np.float32(vox.resolution_m) + np.float32(oz))
 
 
+@entry_point(static=("vox",))
 def height_map(vox: VoxelConfig, grid: torch.Tensor) -> torch.Tensor:
     """(Y, X) f32 metres: the top of occupied space in each column, -1.0
     where the column holds no occupied voxel."""
@@ -279,6 +284,7 @@ def height_map(vox: VoxelConfig, grid: torch.Tensor) -> torch.Tensor:
     return torch.where(top1 > 0, h, -1.0).to(torch.float32)
 
 
+@entry_point(static=("vox", "z_max_m", "z_min_m"))
 def obstacle_slice(vox: VoxelConfig, grid: torch.Tensor, z_min_m: float,
                    z_max_m: float) -> torch.Tensor:
     """(Y, X) bool: any occupied voxel in the height band."""

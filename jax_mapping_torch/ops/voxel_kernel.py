@@ -57,8 +57,9 @@ from __future__ import annotations
 
 import torch
 
-from jax_mapping_torch._util import div
+from jax_mapping_torch._util import div, entry_point
 from jax_mapping_torch.config import DepthCamConfig, VoxelConfig
+from jax_mapping_torch.obs import ledger
 from jax_mapping_torch.ops import _cuda
 
 LANES = 128      # the JAX kernel's lane count, kept in its limits
@@ -359,6 +360,7 @@ def _check_inputs(vox: VoxelConfig, cam: DepthCamConfig,
     _cuda.check_cuda(origins, "origins", torch.int32, (B, 2))
 
 
+@entry_point(static=("cam", "vox"))
 def image_deltas(vox: VoxelConfig, cam: DepthCamConfig,
                  depths_b: torch.Tensor, poses_b: torch.Tensor,
                  origins_yx: torch.Tensor) -> torch.Tensor:
@@ -384,9 +386,12 @@ def image_deltas(vox: VoxelConfig, cam: DepthCamConfig,
                _cuda.ptr(origins_yx), _cuda.ptr(out), B, P, P,
                *model_args(vox, cam), entry="voxel_image_launch")
     _cuda.count_launch("voxel_image")
+    _cuda.note_cost("voxel_image", lambda: ledger.voxel_image_cost(
+        vox, cam, poses_b, origins_yx))
     return out
 
 
+@entry_point(static=("cam", "vox"))
 def window_delta(vox: VoxelConfig, cam: DepthCamConfig,
                  depths_b: torch.Tensor, poses_b: torch.Tensor,
                  origin_yx: torch.Tensor) -> torch.Tensor:
@@ -430,9 +435,12 @@ def _summed_delta(vox: VoxelConfig, cam: DepthCamConfig,
                _cuda.ptr(origins_b), _cuda.ptr(out), B, ny, nx,
                *model_args(vox, cam), entry="voxel_summed_launch")
     _cuda.count_launch("voxel_summed")
+    _cuda.note_cost("voxel_summed", lambda: ledger.voxel_summed_cost(
+        vox, cam, poses_b, origins_b, ny, nx))
     return out
 
 
+@entry_point(static=("cam", "nx", "ny", "vox"))
 def region_delta(vox: VoxelConfig, cam: DepthCamConfig,
                  depths_b: torch.Tensor, poses_b: torch.Tensor, y0,
                  ny: int, nx: int) -> torch.Tensor:
@@ -477,6 +485,7 @@ def window_fits(vox: VoxelConfig, poses_b: torch.Tensor,
 # The kernel engine's batch fuse
 # ---------------------------------------------------------------------------
 
+@entry_point(static=("cam", "vox"))
 def fuse_depths(vox: VoxelConfig, cam: DepthCamConfig, grid: torch.Tensor,
                 depths_b: torch.Tensor, poses_b: torch.Tensor
                 ) -> torch.Tensor:

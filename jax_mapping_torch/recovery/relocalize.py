@@ -32,6 +32,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from jax_mapping_torch._util import entry_point
 from jax_mapping_torch.config import RecoveryConfig, SlamConfig
 from jax_mapping_torch.models.slam import (_loop_matcher_cfg,
                                            _loop_wide_cfgs, scan_agreement)
@@ -41,6 +42,7 @@ from jax_mapping_torch.ops import scan_match as M
 from jax_mapping_torch.utils import global_metrics as GM
 
 
+@entry_point(static=("cfg",))
 def relocalize_match(cfg: SlamConfig, grid: torch.Tensor,
                      ranges: torch.Tensor,
                      guess: torch.Tensor) -> M.MatchResult:
@@ -58,6 +60,7 @@ def relocalize_match(cfg: SlamConfig, grid: torch.Tensor,
                    ranges, seed)
 
 
+@entry_point(static=("cfg", "n_levels"))
 def _build_wide_pyramid(cfg: SlamConfig, n_levels: int, grid: torch.Tensor,
                         origin_c: torch.Tensor):
     """The wide stage's pyramid for one coarse-patch region: the

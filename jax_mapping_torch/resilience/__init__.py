@@ -7,8 +7,10 @@
                  backoff restart policy, auto-checkpoint cadence.
 * `faultplan`  — FaultEvent/FaultPlan: scripted, seeded, reproducible
                  multi-fault missions injected at existing boundaries.
-
-`warmup` (the staged restart ladder) is not ported yet (ROADMAP A.9g).
+* `warmup`     — StagedWarmup: the staged restart path — restore,
+                 pre-warm the entry points in priority order through the
+                 io/compile_cache.py tiers, readiness-gate against the
+                 compile budget, and only then re-admit the node.
 """
 
 from jax_mapping_torch.resilience.health import (  # noqa: F401
@@ -22,4 +24,7 @@ from jax_mapping_torch.resilience.supervisor import (  # noqa: F401
 from jax_mapping_torch.resilience.faultplan import (  # noqa: F401
     KINDS, MEMORY_KINDS, SENSOR_KINDS, TENANT_KINDS, WORLD_KINDS,
     FaultEvent, FaultPlan, random_plan,
+)
+from jax_mapping_torch.resilience.warmup import (  # noqa: F401
+    StagedWarmup, warmup_order,
 )

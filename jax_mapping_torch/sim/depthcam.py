@@ -21,7 +21,7 @@ import functools
 import numpy as np
 import torch
 
-from jax_mapping_torch._util import div, linspace_f32
+from jax_mapping_torch._util import div, entry_point, linspace_f32
 from jax_mapping_torch.config import DepthCamConfig
 from jax_mapping_torch.ops.voxel import camera_pose
 
@@ -51,6 +51,7 @@ def _rays(cam: DepthCamConfig, n_samples: int, device: str):
                                  device=device) for a in (*rays, ts))
 
 
+@entry_point(static=("cam", "n_samples", "wall_height_m", "world_res_m"))
 def render_depths(cam: DepthCamConfig, world: torch.Tensor,
                   world_res_m: float, n_samples: int,
                   poses_xyyaw: torch.Tensor,
@@ -72,6 +73,7 @@ def render_depths(cam: DepthCamConfig, world: torch.Tensor,
     return out
 
 
+@entry_point(static=("cam", "n_samples", "wall_height_m", "world_res_m"))
 def render_depth(cam: DepthCamConfig, world: torch.Tensor,
                  world_res_m: float, n_samples: int,
                  pose_xyyaw: torch.Tensor,

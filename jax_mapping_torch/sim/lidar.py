@@ -16,7 +16,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from jax_mapping_torch._util import div, linspace_f32
+from jax_mapping_torch._util import div, entry_point, linspace_f32
 from jax_mapping_torch.config import ScanConfig
 
 
@@ -57,6 +57,7 @@ def _ranges(scan_cfg: ScanConfig, world: torch.Tensor, world_res_m: float,
     return torch.where(any_hit, rs[first], 0.0), any_hit, idx < scan_cfg.n_beams
 
 
+@entry_point(static=("n_samples", "scan_cfg", "world_res_m"))
 def simulate_scans(scan_cfg: ScanConfig, world: torch.Tensor,
                    world_res_m: float, n_samples: int,
                    poses: torch.Tensor, tenant=None) -> torch.Tensor:
@@ -69,6 +70,7 @@ def simulate_scans(scan_cfg: ScanConfig, world: torch.Tensor,
     return torch.where(live, r, 0.0).to(torch.float32)
 
 
+@entry_point(static=("n_samples", "scan_cfg", "world_res_m"))
 def simulate_scan(scan_cfg: ScanConfig, world: torch.Tensor,
                   world_res_m: float, n_samples: int, pose: torch.Tensor,
                   noise: Optional[torch.Tensor] = None,

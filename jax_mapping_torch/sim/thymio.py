@@ -16,7 +16,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from jax_mapping_torch._util import linspace_f32
+from jax_mapping_torch._util import entry_point, linspace_f32
 from jax_mapping_torch.config import RobotConfig
 from jax_mapping_torch.ops.odometry import rk2_step
 
@@ -44,6 +44,7 @@ def init_fleet(robot: RobotConfig, n_robots: int, device,
                                                   device=device))
 
 
+@entry_point(static=("robot",))
 def step_fleet(robot: RobotConfig, state: FleetSimState,
                targets: torch.Tensor, dt: float,
                speed_noise_frac: float = 0.05,

@@ -43,6 +43,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from jax_mapping_torch._util import entry_point
 from jax_mapping_torch.config import SlamConfig, ensure_valid_mode
 from jax_mapping_torch.models import fleet as FL
 
@@ -225,6 +226,7 @@ def _normals(batch: TenantBatch, wheel_normals, generator) -> torch.Tensor:
                            device=batch.states.grid.device).reshape(B, R, 2)
 
 
+@entry_point(static=("cfg", "world_res_m"))
 def megabatch_step(cfg: SlamConfig, batch: TenantBatch, world_res_m: float,
                    wheel_normals: Optional[torch.Tensor] = None,
                    generator: Optional[torch.Generator] = None):

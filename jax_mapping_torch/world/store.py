@@ -44,6 +44,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from jax_mapping_torch._util import entry_point
 from jax_mapping_torch.config import SlamConfig
 from jax_mapping_torch.obs.recorder import flight_recorder
 from jax_mapping_torch.utils import global_metrics as M
@@ -61,6 +62,7 @@ _SCHEDULE_CAP = 65536
 # Window primitives
 # ---------------------------------------------------------------------------
 
+@entry_point
 def shift_window(grid: torch.Tensor, dr_cells: int,
                  dc_cells: int) -> torch.Tensor:
     """The window shifted by (dr, dc) CELLS in logical space, as a new
@@ -79,6 +81,7 @@ def shift_window(grid: torch.Tensor, dr_cells: int,
     return out
 
 
+@entry_point(static=("t",))
 def extract_tiles(grid: torch.Tensor, slots: Sequence[Tile],
                   t: int) -> np.ndarray:
     """(n, t, t) host copy of the window tiles at `slots` (window-tile
@@ -87,6 +90,7 @@ def extract_tiles(grid: torch.Tensor, slots: Sequence[Tile],
                         for r, c in slots]).cpu().numpy()
 
 
+@entry_point(static=("t",))
 def scatter_tiles(grid: torch.Tensor, hits: Sequence[tuple],
                   t: int) -> None:
     """Write host tiles into `grid` IN PLACE at their window slots: one
@@ -658,6 +662,7 @@ class WorldStore:
 
     # -- store-level fusion at global coordinates ----------------------------
 
+    @entry_point
     def fuse_scan_global(self, window_grid: torch.Tensor, ranges,
                          pose_world) -> torch.Tensor:
         """Fuse one scan into the window with the inverse sensor model at

@@ -1325,3 +1325,104 @@ def test_sim_world_uploads_on_card(dev):
                                       shadow.world_at(step))
     assert uploads == [1, 0, 1, 0, 0, 1, 1, 1, 1, 1, 0, 0, 1, 0, 0, 0]
     assert all(e is not None and e.query() for e in sim._staged)
+
+
+def _sim_clock_run(cfg, dev, steps, seed):
+    """tiny stack on the card with stamps from a simulated clock (one
+    control period a step): (grid, estimates, truth, devprof snapshot)."""
+    import types
+    from jax_mapping_torch.bridge import brain as _brain
+    from jax_mapping_torch.bridge import sim_node as _sim_node
+    from jax_mapping_torch.bridge.launch import launch_sim_stack
+    world, _doors = W.rooms_with_doors(96, cfg.grid.resolution_m, seed=1)
+    st = launch_sim_stack(cfg, world, n_robots=2, seed=seed, device=dev)
+    clock = [1000.0]
+    saved = [(m, m.time) for m in (_brain, _sim_node)]
+    for m, _ in saved:
+        m.time = types.SimpleNamespace(monotonic=lambda: clock[0])
+    step = st.sim.step
+
+    def stepped():
+        clock[0] += 1.0 / cfg.robot.control_rate_hz
+        step()
+    st.sim.step = stepped
+    try:
+        st.brain.start_exploring()
+        st.run_steps(steps)
+        torch.cuda.synchronize()
+        return (st.mapper.shared_grid.cpu(),
+                torch.stack([s.pose for s in st.mapper.states]).cpu(),
+                st.sim.truth_poses().copy(),
+                None if st.devprof is None else st.devprof.snapshot())
+    finally:
+        for m, t in saved:
+            m.time = t
+        st.shutdown()
+
+
+def test_devprof_is_bit_inert_on_card(dev):
+    """tiny_config(2), 40 steps on the card: the dispatch profiler armed
+    gives bit-equal grids, estimates and truth to the stack without it,
+    and attributes the mission's K1-K3 entry points."""
+    from jax_mapping_torch.config import DevProfConfig
+    cfg = tiny_config(2)
+    off = _sim_clock_run(cfg, dev, 40, 0)
+    on = _sim_clock_run(cfg.replace(obs=dataclasses.replace(
+        cfg.obs, devprof=DevProfConfig(enabled=True))), dev, 40, 0)
+    assert torch.equal(off[0], on[0]) and torch.equal(off[1], on[1])
+    np.testing.assert_array_equal(off[2], on[2])
+    assert off[3] is None
+    assert on[3]["jax_mapping_torch.models.slam.slam_step"]["count"] > 0
+
+
+def test_cost_ledger_counts_kernels_on_card(dev):
+    """On the card the ledger sees K1 through its wrapper's arithmetic
+    (the mode cannot see a ctypes launch): the entry's kernel bytes and
+    operations equal `sensor_model_cost` on the same zeros."""
+    from jax_mapping_torch.config import DevProfConfig
+    from jax_mapping_torch.obs import CostLedger, DispatchProfiler
+    from jax_mapping_torch.obs import ledger as L
+    cfg = tiny_config()
+    prof = DispatchProfiler(DevProfConfig(enabled=True))
+    prof.install()
+    try:
+        ranges, poses, origins = (t.to(dev) for t in _scan_batch(cfg, 5, 1))
+        SK.scan_deltas(cfg.grid, cfg.scan, ranges, poses, origins)
+        name = "jax_mapping_torch.ops.sensor_kernel.scan_deltas"
+        (entry,) = CostLedger(prof).collect()[name]
+    finally:
+        prof.uninstall()
+    k = entry["kernels"]["sensor_model_delta"]
+    z = torch.zeros_like
+    want = L.sensor_model_cost(cfg.grid, cfg.scan, z(ranges), z(poses),
+                               z(origins))
+    assert k["launches"] == 1
+    assert (k["bytes"], k["flops"]) == (float(want[0]), float(want[1]))
+    assert entry["flops"] >= k["flops"]
+
+
+def test_warmup_prewarms_kernel_signatures_on_card(dev, tmp_path):
+    """A signature this process never dispatched pre-warms on zeros on
+    the card: its kernels launch (counted in the report, apart from the
+    mission's), its libraries are loaded, and a second warm-up finds it
+    `in_process`."""
+    from jax_mapping_torch.obs import devprof as DP
+    from jax_mapping_torch.resilience.warmup import StagedWarmup
+    cfg = tiny_config()
+    name = "jax_mapping_torch.ops.sensor_kernel.scan_rasters"
+    ranges, poses, origins = (t.to(dev) for t in _scan_batch(cfg, 7, 2))
+    sig = DP.abstract_signature(
+        (cfg.grid, cfg.scan, ranges, poses, origins), {},
+        ("grid_cfg", "scan_cfg", "ranges_b", "poses_b", "origins_rc"),
+        ("grid_cfg", "scan_cfg"))
+    seen = DP._SEEN
+    DP._SEEN = {}
+    try:
+        rep = StagedWarmup(device=dev).prewarm({name: [sig]})
+        assert rep["n_prewarmed"] == 1 and rep["n_errors"] == 0
+        assert rep["launches"] == {"sensor_model_raster": 1}
+        assert _cuda.loaded("sensor_model")
+        rep2 = StagedWarmup(device=dev).prewarm({name: [sig]})
+        assert rep2["n_in_process"] == 1 and rep2["launches"] == {}
+    finally:
+        DP._SEEN = seen

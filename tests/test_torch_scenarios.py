@@ -7,10 +7,14 @@ crowds x steps, and the registrations refuse the same things.
 
 The shared mission is the JAX suite's (`tests/test_scenarios.py`,
 `scenario_mission`): tiny_config with `DecayConfig(True, 8, 0.9, 1.5)`,
-the obs tier with its staleness SLO (devprof off), `arena_with_door(96)`,
-2 robots, a `door_close` at step 4 for 16 steps, a `crowd` at step 26 for
-10 steps, a `kill_node` of the mapper at step 48, 72 steps, a delta client
-polling at step 18 and at the end. Wheel noise is off
+the obs tier with its staleness SLO, `arena_with_door(96)`, 2 robots, a
+`door_close` at step 4 for 16 steps, a `crowd` at step 26 for 10 steps, a
+`kill_node` of the mapper at step 48, 72 steps, a delta client polling at
+step 18 and at the end, and a `warmup_hook` that probes `/status` and
+`/tiles` inside the staged restart's warming window. The dispatch profiler
+is armed on the port's side only: JAX's fails under jax 0.9.0
+(`obs/devprof.py:71`), and the profiler is bit-inert, so the span streams
+must stay equal. Wheel noise is off
 (`speed_noise_frac=0`: JAX's PRNG draws cannot be reproduced) and the
 message stamps come from a simulated clock, one control period a step, in
 both packages (ROADMAP C.4). The JAX reference runs in a fresh
@@ -30,8 +34,8 @@ import numpy as np
 import pytest
 import torch
 
-from jax_mapping_torch.config import (DecayConfig, ObsConfig, SloObjective,
-                                      tiny_config)
+from jax_mapping_torch.config import (DecayConfig, DevProfConfig, ObsConfig,
+                                      SloObjective, tiny_config)
 from jax_mapping_torch.resilience.faultplan import FaultEvent, FaultPlan
 from jax_mapping_torch.scenarios import (DoorSpec, WorldDynamics,
                                          launch_scenario_stack)
@@ -92,9 +96,24 @@ def sim_clock(modules, st, cfg):
 
 def drive_mission(st, plan, client, to_numpy):
     """The mission's steps and polls; returns its artifacts."""
+    import json
     st.brain.start_exploring()
     st.brain.reconnect_period_s = 0.0
     st.attach_fault_plan(plan)
+    probe = {}
+
+    def probe_warming_window(stack):
+        # Inside the staged restart's warming stage: the old node
+        # destroyed, the new one not yet bound.
+        s = json.loads(stack.api.handle("/status")[2])
+        t = json.loads(stack.api.handle("/tiles?since=-1")[2])
+        probe.update(status_state=s.get("state"),
+                     tiles_state=t.get("state"), tiles_epoch=t.get("epoch"),
+                     n_tiles=len(t.get("tiles", [])),
+                     warmup_state=stack.warmup.state(),
+                     old_epoch=stack.mapper.restart_epoch)
+
+    st.warmup_hook = probe_warming_window
     art = {"truth": []}
     for k in range(MISSION_STEPS):
         st.run_steps(1)
@@ -113,6 +132,7 @@ def drive_mission(st, plan, client, to_numpy):
     art["client_state"] = np.array([client.epoch, client.n_epoch_resyncs,
                               client.revision,
                               st.mapper.serving_revision()])
+    art["warm_probe"] = json.dumps(probe, sort_keys=True)
     return art
 
 
@@ -189,7 +209,9 @@ def ref(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def mission(ref, tmp_path_factory):
-    """The port's shared mission on the CPU, from the JAX stack's spawn."""
+    """The port's shared mission on the CPU, from the JAX stack's spawn,
+    with the dispatch profiler armed."""
+    import dataclasses
     import json
 
     from jax_mapping_torch import interop
@@ -199,6 +221,8 @@ def mission(ref, tmp_path_factory):
     from jax_mapping_torch.serving.client import DeltaMapClient
 
     cfg = mission_config(tiny_config, DecayConfig, ObsConfig, SloObjective)
+    cfg = cfg.replace(obs=dataclasses.replace(
+        cfg.obs, devprof=DevProfConfig(enabled=True)))
     world, doors = W.arena_with_door(96, cfg.grid.resolution_m)
     td = str(tmp_path_factory.mktemp("scenario_ckpt"))
     mark = flight_recorder.mark()
@@ -412,6 +436,48 @@ def test_quiet_scenario_stack_equals_plain_stack():
         st.shutdown()
 
 
+@pytest.mark.parametrize("seed", [0, 3])
+def test_devprof_is_bit_inert(seed):
+    """tiny_config(2), 40 steps on rooms_with_doors(96): the stack with
+    the dispatch profiler armed gives bit-equal grids, estimates and
+    truth to the stack without it. (Before the shared mission, which
+    holds the process's one profiler while it lives.)"""
+    import dataclasses
+
+    from jax_mapping_torch.bridge import brain as _brain
+    from jax_mapping_torch.bridge import sim_node as _sim_node
+    from jax_mapping_torch.bridge.launch import launch_sim_stack
+    cfg = tiny_config(2)
+    world, _doors = W.rooms_with_doors(96, cfg.grid.resolution_m, seed=1)
+    runs = []
+    for on in (False, True):
+        c = cfg.replace(obs=dataclasses.replace(
+            cfg.obs, devprof=DevProfConfig(enabled=on)))
+        st = launch_sim_stack(c, world, n_robots=2, seed=seed,
+                              device="cpu")
+        # Stamps from the simulated clock: wall-clock stamp intervals
+        # move the estimates by an ulp between any two runs (ROADMAP C).
+        saved = sim_clock((_brain, _sim_node), st, c)
+        try:
+            st.brain.start_exploring()
+            st.run_steps(40)
+            runs.append((st.mapper.shared_grid.clone(),
+                         torch.stack([s.pose for s in st.mapper.states]),
+                         st.sim.truth_poses().copy(),
+                         st.mapper.n_scans_fused,
+                         None if st.devprof is None
+                         else st.devprof.snapshot()))
+        finally:
+            for m, t in saved:
+                m.time = t
+            st.shutdown()
+    (g0, p0, t0, n0, off), (g1, p1, t1, n1, on) = runs
+    assert off is None and len(on) >= 4
+    assert torch.equal(g0, g1) and torch.equal(p0, p1)
+    np.testing.assert_array_equal(t0, t1)
+    assert n0 == n1 > 0
+
+
 # ----------------------------------------- the shared mission, held to JAX
 
 def test_mission_plan_log_and_counters_equal_jax(ref, mission):
@@ -529,6 +595,122 @@ def test_scenario_plan_log_is_the_script(mission):
 def test_scenario_checkpoint_files_are_generations_only(mission):
     names = sorted(os.listdir(mission["ckpt_dir"]))
     assert "auto_checkpoint.npz" in names and "postmortem" in names
+
+
+def test_mission_warming_window_equals_jax(ref, mission):
+    """The staged restart's warming window answered the same in both
+    packages: states, the prior epoch and its tile count."""
+    import json
+    assert json.loads(mission["warm_probe"]) == \
+        json.loads(str(ref["warm_probe"]))
+
+
+def test_scenario_degraded_serving_window_reports_warming(mission):
+    """DURING the staged restart's warming stage, /status and /tiles keep
+    answering — from the prior epoch — and stamp `state=warming` instead
+    of blocking. The probe ran inside the warmup_hook, after the old node
+    was destroyed and before the new one was bound."""
+    import json
+    probe = json.loads(mission["warm_probe"])
+    assert probe, "warmup_hook never fired — staged restart regressed"
+    assert probe["warmup_state"] == "warming"
+    assert probe["status_state"] == "warming"
+    assert probe["tiles_state"] == "warming"
+    # Prior-epoch content: the window serves the PRE-restart epoch (0)
+    # with real tiles; after the mission the stack serves epoch 1.
+    assert probe["old_epoch"] == 0
+    assert probe["tiles_epoch"] == 0
+    assert probe["n_tiles"] > 0, "warming window served no content"
+    st = mission["stack"]
+    post = json.loads(st.api.handle("/tiles?since=-1")[2])
+    assert post["epoch"] == 1 and "state" not in post
+    post_status = json.loads(st.api.handle("/status")[2])
+    assert "state" not in post_status
+    assert st.warmup is not None and st.warmup.state() == "ready"
+
+
+def test_scenario_staged_warmup_recorded_and_clean(mission):
+    """The staged restart walked restore -> warming -> ready on the flight
+    recorder, and the in-process warm-up reported no errors (this process
+    dispatched every signature: everything skips as in_process)."""
+    kinds = [e["kind"] for e in mission["events"]]
+    assert "warmup_stage" in kinds and "warmup_ready" in kinds
+    stages = [(e["old"], e["new"]) for e in mission["events"]
+              if e["kind"] == "warmup_stage"]
+    assert stages == [("idle", "restoring"), ("restoring", "warming"),
+                      ("warming", "ready")]
+    snap = mission["stack"].warmup.snapshot()
+    assert snap["state"] == "ready"
+    rep = snap["report"]
+    assert rep["n_errors"] == 0 and rep["n_in_process"] == rep["n_warmed"]
+    assert rep["n_in_process"] >= 4 and rep["launches"] == {}
+
+
+# ------------------------------------- JAX's devprof mission tests, on the port
+
+def test_devprof_live_dispatch_attribution(mission):
+    """The dispatch profiler attributed wall time and call counts to the
+    real entry points, and `/status.perf` + the `/metrics` device families
+    expose them (memory absent on the CPU)."""
+    import json
+    import re
+    st = mission["stack"]
+    assert st.devprof is not None and st.devprof.installed
+    snap = st.devprof.snapshot()
+    assert len(snap) >= 4, sorted(snap)
+    for fn in ("jax_mapping_torch.sim.lidar.simulate_scans",
+               "jax_mapping_torch.bridge.brain.brain_tick"):
+        assert snap[fn]["count"] > 10, (fn, snap.get(fn))
+        assert snap[fn]["total_ms"] > 0
+    status = json.loads(st.api.handle("/status")[2])
+    perf = status["perf"]
+    assert perf["dispatch"] and perf["recompiles"] is not None
+    assert perf["memory"] is None                # CPU: graceful None
+    assert isinstance(perf["cost_ledger_uncollected"], int)
+    assert perf["cost_ledger_uncollected"] > 0 and perf["cost_ledger"] == {}
+    text = st.api.handle("/metrics")[2].decode()
+    assert "# TYPE jax_mapping_device_dispatch_total counter" in text
+    assert ("# TYPE jax_mapping_device_dispatch_seconds histogram"
+            in text)
+    assert "# TYPE jax_mapping_jit_recompiles_total counter" in text
+    assert re.search(
+        r'jax_mapping_device_dispatch_seconds_bucket\{fn="jax_mapping_'
+        r'torch\.[A-Za-z_.]+",le="0.00025"\} \d+', text)
+    assert "jax_mapping_device_memory_bytes" not in text  # CPU
+
+
+def test_devprof_live_recompile_guard(mission):
+    """After the mission's warm-up, continued stepping of the live stack
+    mints ZERO new variants in any profiled entry point; the budgeted
+    entry points the mission dispatched all carry recompile telemetry."""
+    from jax_mapping_torch.obs.ledger import Budget, default_budget_path
+    st = mission["stack"]
+    before = st.devprof.recompiles()
+    st.run_steps(4)
+    after = st.devprof.recompiles()
+    grew = {fn: (before.get(fn, 0), n) for fn, n in after.items()
+            if n > before.get(fn, 0)}
+    assert not grew, (
+        f"steady-state stepping recompiled: {grew} — runtime shape "
+        "churn")
+    budget = Budget.load(default_budget_path())
+    dispatched = set(st.devprof.snapshot())
+    covered = [e["name"] for e in budget.entries
+               if e["name"] in dispatched]
+    assert covered, "mission dispatched no budget-listed functions?"
+    for name in covered:
+        assert name in after
+
+
+def test_devprof_mission_metrics_include_stage_fold(mission):
+    """The folded hot stages report from the live mission: frontier
+    recomputes ran, so the `frontier.recompute` stage histogram is in the
+    exposition (and the retired hand-built gauge is not)."""
+    text = mission["metrics"]
+    assert "jax_mapping_stage_frontier_recompute_seconds_count" in text
+    assert "jax_mapping_frontier_recompute_ms " not in text
+
+
 
 
 # ------------------------------ JAX's obs-tier mission tests, on the port

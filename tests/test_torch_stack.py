@@ -439,9 +439,61 @@ def test_launch_refuses_unported(what):
     serves the HTTP API on a free port until the stack shuts down;
     obs.enabled, ported since, launches with the tracer on the bus and
     the pipeline ledger in the mapper (the SLO engine only with declared
-    objectives); devprof, the obs tier's device half, is refused naming
-    A.9f2."""
+    objectives); obs.devprof.enabled, ported since, launches with the
+    dispatch profiler installed over the entry points, exported on
+    /status.perf, and uninstalled at shutdown; cold_start.enabled, ported
+    since, launches with the build cache under <checkpoint_dir>/
+    compile_cache and a launch-time warm-up on /status.cold_start, and
+    shutdown points the builds back at the package's default."""
     cfg = tiny_config(2)
+    if what == "obs.devprof.enabled":
+        import json
+
+        from jax_mapping_torch.models import slam as S
+        from jax_mapping_torch.obs import devprof as DP
+        cfg = cfg.replace(obs=dataclasses.replace(
+            cfg.obs, devprof=dataclasses.replace(cfg.obs.devprof,
+                                                 enabled=True)))
+        st = launch_sim_stack(cfg, W.empty_arena(32, 0.05), n_robots=2,
+                              device="cpu", http_port=0)
+        try:
+            assert st.devprof is not None and st.devprof.installed
+            assert isinstance(vars(S)["slam_step"], DP._ProfiledFn)
+            st.run_steps(2)
+            assert st.devprof.snapshot()[
+                "jax_mapping_torch.sim.lidar.simulate_scans"]["count"] == 2
+            perf = json.loads(st.api.handle("/status")[2])["perf"]
+            assert perf["memory"] is None and perf["dispatch"]
+        finally:
+            st.shutdown()
+        assert not st.devprof.installed
+        assert not isinstance(vars(S)["slam_step"], DP._ProfiledFn)
+        return
+    if what == "cold_start.enabled":
+        import json
+        import tempfile
+
+        from jax_mapping_torch.ops import _cuda
+        cfg = cfg.replace(cold_start=dataclasses.replace(
+            cfg.cold_start, enabled=True))
+        with tempfile.TemporaryDirectory() as td:
+            st = launch_sim_stack(cfg, W.empty_arena(32, 0.05),
+                                  n_robots=2, device="cpu", http_port=0,
+                                  checkpoint_dir=td)
+            try:
+                root = os.path.join(td, "compile_cache")
+                assert st.compile_cache.root == root
+                assert st.compile_cache.enabled
+                assert _cuda.BUILD_DIR == _cuda.Path(root, "cuda")
+                assert st.warmup.state() == "ready"
+                cs = json.loads(st.api.handle("/status")[2])["cold_start"]
+                assert cs["cache"]["fingerprint"] and \
+                    cs["warmup"]["state"] == "ready"
+                st.run_steps(2)
+            finally:
+                st.shutdown()
+            assert _cuda.BUILD_DIR == _cuda.DEFAULT_BUILD_DIR
+        return
     if what == "obs.enabled":
         cfg = cfg.replace(obs=dataclasses.replace(cfg.obs, enabled=True))
         st = launch_sim_stack(cfg, W.empty_arena(32, 0.05), n_robots=2,
@@ -474,17 +526,11 @@ def test_launch_refuses_unported(what):
         return
     kw = dict(LAUNCH_REFUSED[what])
     section = kw.pop("cfg", None)
-    if section == "devprof":
-        cfg = cfg.replace(obs=dataclasses.replace(
-            cfg.obs, devprof=dataclasses.replace(cfg.obs.devprof,
-                                                 enabled=True)))
-    elif section is not None:
+    if section is not None:
         cfg = cfg.replace(**{section: dataclasses.replace(
             getattr(cfg, section), **kw)})
         kw = {}
-    item = {"obs.devprof.enabled": "ROADMAP A.9f2",
-            "cold_start.enabled": "ROADMAP A.9g",
-            "tenancy.enabled": "ROADMAP A.9h"}.get(what, "ROADMAP")
+    item = {"tenancy.enabled": "ROADMAP A.9h"}.get(what, "ROADMAP")
     with pytest.raises(NotImplementedError, match=item):
         launch_sim_stack(cfg, W.empty_arena(32, 0.05), n_robots=2,
                          device="cpu", **kw)
