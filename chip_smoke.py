@@ -328,10 +328,33 @@ Phases, each printed as one JSON line:
            found, the manifest pre-warmed as `aot`); seconds from each
            process's start to its first fused scan, libraries built; the
            resumed grids bit-equal
+  tenancy_plane  the tenancy control plane on a launched stack
+           (`launch_sim_stack` of the default SlamConfig with
+           TenancyConfig(enabled, lane_health, journal), a checkpoint
+           dir, http_port=0, 8 robots on the stack world): tenants A-D
+           of the default config (mission t on rooms_world(4096, 0.05,
+           seed=1 + t)) admitted, suspended, resumed, C poisoned by a
+           FaultPlan into quarantine and readmitted by its probe, a
+           `controlplane_crash`, D evicted with a checkpoint. Admission
+           ms (with and without a pre-warm) by bucket, tick p50/p90 at
+           buckets 3 and 6, checkpoint_all and restore ms, host syncs a
+           tick (megabatch_tick's and the plane's own, which must be 0),
+           K1-K3 launches with the pre-warms' apart, peak memory; every
+           tenant bit-equal to its solo run, the restored set with its
+           epochs advanced, a /tiles?tenant=A client resynced
+  ld06_wire  8 robots' raycasts on the card through `encode_packets`,
+           the C++ parser (scans/s) and one `Ld06IngestNode` a robot
+           into the mapper of the `ros_launch` live stack on the card,
+           with scripted odometry: 12 ticks of one rotation a robot and
+           two bursts of 16 (K5); mapper tick p50; decoded ranges within
+           0.01 m of the raycast, and the grid bit-equal to the same
+           mapper fed the decoded messages directly
 
 Every phase line carries `t_s`, the seconds since the script started.
 Then one line {"kernels": [...]} (each row's launches by path, with
-`launches_coldstart` and `launches_warmup` since the coldstart phase, and
+`launches_coldstart` and `launches_warmup` since the coldstart phase,
+`launches_tenancy_plane`, `launches_tenancy_plane_warmup` and
+`launches_ld06` since the tenancy_plane and ld06_wire phases, and
 its bound from the cost ledger's kernel arithmetic) and, last, the result
 line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero before the
@@ -7339,6 +7362,489 @@ def phase_coldstart_resume(torch, seed: int, cs: dict) -> dict:
     return out
 
 
+#: The tenancy control plane's mission (phase_tenancy_plane): 8 robots a
+#: tenant, tenants A-D of the default SlamConfig on rooms_world(4096,
+#: 0.05, seed=1 + t); ticks after each step of the script.
+PLANE_TENANTS = ("A", "B", "C", "D")
+PLANE_TICKS = {"abc": 6, "abcd": 6, "suspend_b": 4, "resume_b": 4}
+#: Ticks the quarantined tenant waits for its probe, at most (the
+#: default readmit_probe_ticks is 8).
+PLANE_PROBE_TICKS = 10
+PLANE_AFTER_CRASH_TICKS = 2
+
+
+def _plane_solo(torch, cfg, state, world, seed: int, n: int):
+    """A tenant's solo oracle: `fleet_step` from its admitted state for n
+    ticks, its noise from a generator seeded as the plane seeds it."""
+    from jax_mapping_torch.models import fleet as FL
+    g = torch.Generator().manual_seed(seed)
+    for _ in range(n):
+        state, _d = FL.fleet_step(cfg, state, cfg.grid.resolution_m, world,
+                                  generator=g)
+    return state
+
+
+class _PlaneSyncs:
+    """Host syncs of one `plane.step(1)`, split into those inside its
+    `megabatch_tick` call and the plane's own."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.rows = []
+
+    def step(self, plane) -> None:
+        import warnings
+        from jax_mapping_torch.tenancy import megabatch as MB
+        torch, orig, marks = self.torch, MB.megabatch_tick, []
+
+        def marked(*a, **k):
+            marks.append(len(caught))
+            try:
+                return orig(*a, **k)
+            finally:
+                marks.append(len(caught))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            MB.megabatch_tick = marked
+            try:
+                plane.step(1)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                MB.megabatch_tick = orig
+        flags = [_is_sync(w) for w in caught]
+        inside = sum(flags[marks[0]:marks[1]])
+        self.rows.append({"megabatch_tick": inside,
+                          "plane_own": sum(flags) - inside})
+
+
+def phase_tenancy_plane(torch, seed: int):
+    """The tenancy control plane's path, the plane as a stack serves
+    it: `launch_sim_stack` of the default SlamConfig with
+    TenancyConfig(enabled=True, lane_health=True, journal=True), a
+    checkpoint dir, http_port=0, 8 robots on the stack phase's world.
+    The plane admits tenants A-D (missions of the default config, mission
+    t on rooms_world(4096, 0.05, seed=1 + t), robots near walls): A, B, C
+    (bucket 3), 6 ticks; D (bucket 6), 6 ticks; B suspended (bucket 3),
+    4 ticks; B resumed, 4 ticks; a FaultPlan poisons C for 3 plan steps
+    (quarantine), ticks until C's probe readmits it; the plan's
+    `controlplane_crash` rebuilds the plane from its journal; 2 ticks; D
+    evicted with a checkpoint. Checks: A, B (across its suspension), C
+    (its good ticks) and D each bit-equal to its solo `fleet_step` run
+    with its own generator's normals, which is what each co-tenant of C
+    would be in a no-fault twin; the crash restores all four with every
+    epoch advanced; a `/tiles?tenant=A` delta client resyncs across it
+    and its mosaic equals A's map; /status.tenancy counts the script;
+    the plane adds no host sync to `megabatch_tick`'s. Counts are zeroed
+    before the first admission and read after the eviction; the
+    admission pre-warms' launches are counted apart."""
+    import json as _json
+    import numpy as np
+    from jax_mapping_torch.bridge.launch import launch_sim_stack
+    from jax_mapping_torch.config import SlamConfig, TenancyConfig
+    from jax_mapping_torch.io.checkpoint import load_checkpoint
+    from jax_mapping_torch.models import fleet as FL
+    from jax_mapping_torch.ops import _cuda
+    from jax_mapping_torch.ops import grid as G
+    from jax_mapping_torch.resilience import warmup as WU
+    from jax_mapping_torch.resilience.faultplan import FaultEvent, FaultPlan
+    from jax_mapping_torch.serving.client import DeltaMapClient
+    from jax_mapping_torch.tenancy import controlplane as CP
+    cfg = SlamConfig().replace(tenancy=TenancyConfig(
+        enabled=True, lane_health=True, journal=True))
+    ckdir = tempfile.mkdtemp(prefix="tenancy_plane_")
+    st = launch_sim_stack(cfg, _stack_world(cfg.grid.resolution_m),
+                          n_robots=STACK_ROBOTS, http_port=0, seed=seed,
+                          checkpoint_dir=ckdir)
+    plane = st.tenancy
+    check(plane is not None and plane.device.type == "cuda"
+          and st.api.tenancy is plane, "tenancy_plane: no plane on the card")
+    states, worlds = _tenant_missions(torch, cfg, len(PLANE_TENANTS), seed)
+    init = dict(zip(PLANE_TENANTS, states))
+    wmap = dict(zip(PLANE_TENANTS, worlds))
+    seeds = {t: seed + 300 + i for i, t in enumerate(PLANE_TENANTS)}
+    good = {t: 0 for t in PLANE_TENANTS}     # ticks each solo run takes
+    tick_ms, admissions, warm = {}, [], {}
+    syncs = _PlaneSyncs(torch)
+    orig_prewarm = WU.StagedWarmup.prewarm
+
+    def counted_prewarm(self, *a, **k):
+        rep = orig_prewarm(self, *a, **k)
+        for name, v in rep["launches"].items():
+            warm[name] = warm.get(name, 0) + v
+        return rep
+
+    def admit(tid):
+        n0 = plane.n_prewarms
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plane.admit(tid, wmap[tid], seed=seeds[tid], state=init[tid])
+        torch.cuda.synchronize()
+        admissions.append({"tenant": tid, "op": "admit",
+                           "bucket": plane.status()["bucket_capacity"],
+                           "prewarmed": plane.n_prewarms > n0,
+                           "ms": (time.perf_counter() - t0) * 1e3})
+
+    def tick(n, live, count_syncs=False):
+        for k in range(n):
+            cap = int(plane.live_batch().active.shape[0])
+            t0 = time.perf_counter()
+            if count_syncs and 1 <= k <= 3:
+                syncs.step(plane)
+            else:
+                plane.step(1)
+            torch.cuda.synchronize()
+            tick_ms.setdefault(cap, []).append(
+                (time.perf_counter() - t0) * 1e3)
+            for t in live:
+                good[t] += 1
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_launches()
+    WU.StagedWarmup.prewarm = counted_prewarm
+    try:
+        for t in "ABC":
+            admit(t)
+        tick(PLANE_TICKS["abc"], "ABC", count_syncs=True)
+        admit("D")
+        tick(PLANE_TICKS["abcd"], "ABCD", count_syncs=True)
+        plane.suspend("B")
+        bucket_suspended = plane.status()["bucket_capacity"]
+        tick(PLANE_TICKS["suspend_b"], "ACD")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plane.resume("B")
+        torch.cuda.synchronize()
+        admissions.append({"tenant": "B", "op": "resume",
+                           "bucket": plane.status()["bucket_capacity"],
+                           "prewarmed": False,
+                           "ms": (time.perf_counter() - t0) * 1e3})
+        tick(PLANE_TICKS["resume_b"], "ABCD")
+        client = DeltaMapClient(f"http://127.0.0.1:{st.api.port}",
+                                route="/tiles?tenant=A")
+        client.poll()
+        epoch_before = client.epoch
+        # The fault script: C poisoned for 3 plan steps from step 0;
+        # the crash once C is back.
+        plan = FaultPlan([FaultEvent(step=0, kind="tenant_poison",
+                                     name="C", duration=3)])
+        quarantined_at = readmitted_at = None
+        for k in range(3 + PLANE_PROBE_TICKS):
+            plan.apply(st, k)
+            tick(1, "ABD")
+            life = plane.tenant_lifecycle("C")
+            if life == "quarantined" and quarantined_at is None:
+                quarantined_at = k
+            if quarantined_at is not None and life == "active":
+                readmitted_at = k
+                break
+        check(quarantined_at is not None and readmitted_at is not None,
+              f"tenancy_plane: C quarantined at {quarantined_at}, "
+              f"readmitted at {readmitted_at}")
+        status_before = _json.loads(st.api.handle("/status")[2])["tenancy"]
+        epochs_before = {t: plane.epoch(t) for t in PLANE_TENANTS}
+        t_ck, t_rs = [], []
+        orig_ckpt, orig_restore = plane.checkpoint_all, CP.TenantControlPlane.restore
+        plane.checkpoint_all = lambda: _timed(orig_ckpt, t_ck)()
+
+        def timed_restore(self):
+            return _timed(lambda: orig_restore(self), t_rs)()
+        CP.TenantControlPlane.restore = timed_restore
+        try:
+            crash = FaultPlan([FaultEvent(step=0,
+                                          kind="controlplane_crash")])
+            crash.apply(st, 0)
+        finally:
+            CP.TenantControlPlane.restore = orig_restore
+        old, plane = plane, st.tenancy
+        check(plane is not old and st.api.tenancy is plane,
+              "tenancy_plane: the crash did not swap the plane")
+        restored = {t: plane.tenant_lifecycle(t) for t in PLANE_TENANTS}
+        epochs_after = {t: plane.epoch(t) for t in PLANE_TENANTS}
+        del old
+        tick(PLANE_AFTER_CRASH_TICKS, "ABCD")
+        client.poll()
+        mosaic_equal = bool(np.array_equal(
+            client.image(0), G.to_gray(cfg.grid, plane.tenant_grid("A"))
+            .cpu().numpy()))
+        states_now = {t: plane.tenant_state(t) for t in "ABC"}
+        path = plane.evict("D", checkpoint=True)
+        status_after = _json.loads(st.api.handle("/status")[2])["tenancy"]
+    finally:
+        WU.StagedWarmup.prewarm = orig_prewarm
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    like = FL.init_fleet_state(cfg, device=DEV,
+                               radius_uniforms=torch.zeros(
+                                   cfg.fleet.n_robots))
+    d_final, _cfg = load_checkpoint(path, like)
+    states_now["D"] = d_final
+    equal = {}
+    for t in PLANE_TENANTS:
+        solo = _plane_solo(torch, cfg, init[t], wmap[t], seeds[t], good[t])
+        equal[t] = _tree_equal(torch, states_now[t], solo)
+        del solo
+    st.shutdown()
+    plane_launches = {k: v - warm.get(k, 0) for k, v in launches.items()}
+    out = {
+        "phase": "tenancy_plane",
+        "config": "SlamConfig(), TenancyConfig(enabled, lane_health, "
+                  "journal)", "robots_per_tenant": cfg.fleet.n_robots,
+        "admissions": admissions,
+        "tick_ms_by_bucket": {str(b): _p50_p90(v) | {"n": len(v)}
+                              for b, v in sorted(tick_ms.items())},
+        "bucket_after_suspend": bucket_suspended,
+        "c_quarantined_at_plan_step": quarantined_at,
+        "c_readmitted_at_plan_step": readmitted_at,
+        "checkpoint_all_ms": t_ck[0] if t_ck else None,
+        "restore_ms": t_rs[0] if t_rs else None,
+        "restored": restored, "epochs_before": epochs_before,
+        "epochs_after": epochs_after,
+        "client": {"epoch_before": epoch_before, "epoch_after": client.epoch,
+                   "n_epoch_resyncs": client.n_epoch_resyncs,
+                   "mosaic_equal_live": mosaic_equal},
+        "solo_ticks": good, "bit_equal_solo": equal,
+        "host_syncs_per_tick": syncs.rows,
+        "launches": plane_launches, "launches_warmup": warm,
+        "peak_bytes": peak,
+        "status_before_crash": {k: status_before[k] for k in (
+            "n_active", "n_suspended", "n_evicted", "n_admitted",
+            "n_suspended", "n_resumed", "n_quarantined", "n_prewarms",
+            "bucket_capacity", "warmed_buckets")},
+        "status_after_evict": {k: status_after[k] for k in (
+            "n_active", "n_evicted", "n_admitted", "bucket_capacity")},
+        "evict_checkpoint": os.path.basename(path)}
+    emit(out)
+    check(all(equal.values()), f"tenancy_plane: tenants off their solo "
+          f"runs: {equal}")
+    check(all(v == "active" for v in restored.values()),
+          f"tenancy_plane: restore {restored}")
+    check(all(epochs_after[t] > epochs_before[t] for t in PLANE_TENANTS),
+          "tenancy_plane: an epoch did not advance across the crash")
+    check(client.n_epoch_resyncs == 1 and mosaic_equal,
+          "tenancy_plane: the /tiles?tenant=A client did not resync")
+    sb = status_before
+    check((sb["n_admitted"], sb["n_suspended"], sb["n_resumed"],
+           sb["n_quarantined"], sb["n_active"], sb["bucket_capacity"])
+          == (4, 1, 1, 1, 4, 6), f"tenancy_plane: /status {sb}")
+    check((status_after["n_active"], status_after["n_evicted"],
+           status_after["bucket_capacity"]) == (3, 1, 3),
+          f"tenancy_plane: /status after evict {status_after}")
+    check(bucket_suspended == 3, "tenancy_plane: no compaction on suspend")
+    check(all(r["plane_own"] == 0 for r in syncs.rows),
+          f"tenancy_plane: the plane added host syncs {syncs.rows}")
+    for name in ("sensor_model_delta", "sensor_model_raster", "label_prop",
+                 "costfield_relax"):
+        check(plane_launches.get(name, 0) > 0,
+              f"tenancy_plane: {name} never launched")
+    return out
+
+
+#: The LD06 wire path (phase_ld06_wire): 8 robots' rotations, then
+#: mapper ticks of one rotation per robot, then two bursts of 16 (a
+#: window of `fleet.batch_scans` scans: `_step_window`, K5).
+LD06_ROBOTS = 8
+LD06_SCHEDULE = (1,) * 12 + (16, 16)
+LD06_STEP_M = 0.03                   # a robot's travel between rotations
+LD06_DT_S = 0.1                      # between rotations' stamps
+
+
+def _ld06_drive(torch, cfg, seed: int):
+    """The rotations: poses (n, R, 3) on the card, each robot driving
+    straight from a pose near a wall and turning 0.02 rad a rotation, and
+    their raycast (n, R, beams) on the host."""
+    from jax_mapping_torch.sim import lidar
+    res = cfg.grid.resolution_m
+    world = torch.as_tensor(_stack_world(res), device=DEV)
+    gen = torch.Generator().manual_seed(seed + 17)
+    start = _poses_near_walls(torch, cfg, world, LD06_ROBOTS, gen)
+    n = sum(LD06_SCHEDULE) + 1
+    k = torch.arange(n, dtype=torch.float32, device=DEV)[:, None]
+    th0 = start[:, 2][None]
+    poses = torch.stack([start[:, 0][None] + LD06_STEP_M * k * torch.cos(th0),
+                         start[:, 1][None] + LD06_STEP_M * k * torch.sin(th0),
+                         th0 + 0.02 * k], -1)
+    n_samples = int(cfg.scan.range_max_m / (res * 0.5))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scans = lidar.simulate_scans(cfg.scan, world, res, n_samples,
+                                 poses.reshape(-1, 3))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    host = scans[:, :cfg.scan.n_beams].cpu().numpy().reshape(
+        n, LD06_ROBOTS, -1)
+    return poses.cpu().numpy(), host, ms
+
+
+def _ld06_mapper(torch, cfg, start):
+    """The port's `ros_launch` live stack (mapper, planner, TF) on the
+    card, idle executor; every chain anchored at its row of `start`."""
+    from jax_mapping_torch import ros_launch
+    stack = ros_launch._launch_live_stack(cfg, n_robots=LD06_ROBOTS,
+                                          device=DEV, realtime=False)
+    p = torch.as_tensor(start, device=stack.mapper.device)
+    m = stack.mapper
+    for i, s in enumerate(m.states):
+        m.states[i] = s._replace(pose=p[i])
+    return stack
+
+
+def phase_ld06_wire(torch, seed: int):
+    """A real LD06's wire path: the port's `simulate_scans`
+    on the card for 8 robots on the stack phase's world, each rotation
+    through `encode_packets` into wire bytes, the port's C++ parser
+    (scans/s through it alone), and one `Ld06IngestNode` a robot
+    publishing onto the bus of the port's `ros_launch` live stack, whose
+    mapper runs on the card; scripted odometry on the bus, stamps from a
+    simulated clock. Mapper ticks take one rotation a robot, then two
+    bursts of 16 (`_step_window`, K5). Counts are zeroed before the ticks
+    and read after: K1 and K5 must launch. Checks: decoded ranges within
+    0.01 m of the raycast on >= 90% of the beams the raycast hit (the JAX
+    package's test_native check; a beam whose decoded angle rounds into
+    its neighbour's bin takes the neighbour's range at a wall's edge);
+    the card grid and poses bit-equal to a second live stack's mapper fed
+    the decoded messages directly."""
+    from types import SimpleNamespace
+    import numpy as np
+    from jax_mapping_torch.bridge import ld06_node as LN
+    from jax_mapping_torch.bridge.brain import robot_ns
+    from jax_mapping_torch.bridge.messages import (Header, Odometry,
+                                                   Pose2D, Twist)
+    from jax_mapping_torch.config import SlamConfig
+    from jax_mapping_torch.native import Ld06Parser, encode_packets
+    from jax_mapping_torch.ops import _cuda
+    cfg = SlamConfig()
+    R = LD06_ROBOTS
+    poses, ranges, raycast_ms = _ld06_drive(torch, cfg, seed)
+    n_rot = poses.shape[0]
+    t0 = time.perf_counter()
+    wires = [[encode_packets(ranges[j, i].astype(np.float64),
+                             timestamp_ms=int(100 * j))
+              for i in range(R)] for j in range(n_rot)]
+    encode_ms = (time.perf_counter() - t0) * 1e3
+    parser = Ld06Parser(n_beams=cfg.scan.n_beams)
+    n_parsed = 0
+    t0 = time.perf_counter()
+    for j in range(n_rot):
+        for i in range(R):
+            parser.feed(wires[j][i])
+            while parser.take_scan() is not None:
+                n_parsed += 1
+    parse_s = time.perf_counter() - t0
+    stamps = [LD06_DT_S * (j + 1) for j in range(n_rot)]
+
+    def odometry(bus, j):
+        for i in range(R):
+            x, y, th = (float(v) for v in poses[j, i])
+            bus.publisher(f"{robot_ns(i, R)}odom").publish(Odometry(
+                header=Header(stamp=stamps[j], frame_id="odom"),
+                pose=Pose2D(x, y, th),
+                twist=Twist(linear_x=0.0, angular_z=0.0)))
+
+    stack = _ld06_mapper(torch, cfg, poses[0])
+    clock = SimpleNamespace(t=0.0)
+    real_time = LN.time
+    LN.time = SimpleNamespace(monotonic=lambda: clock.t)
+    pending = [[b""] for _ in range(R)]
+    captured = []
+    nodes = []
+    for i in range(R):
+        def transport(box=pending[i]):
+            data, box[0] = box[0], b""
+            return data
+        ns = robot_ns(i, R)
+        nodes.append(LN.Ld06IngestNode(cfg.scan, stack.bus, transport,
+                                       topic=f"{ns}scan",
+                                       frame_id=f"{ns}base_laser",
+                                       realtime=False))
+        stack.bus.subscribe(f"{ns}scan", callback=lambda m, i=i:
+                            captured.append((i, m)))
+    m = stack.mapper
+    tick_ms, fed = [], [0]
+
+    def feed_rotation():
+        """Rotation j onto the wire; the parser completes rotation j - 1,
+        published at its stamp after its odometry."""
+        j = fed[0]
+        if j > 0:
+            clock.t = stamps[j - 1]
+            odometry(stack.bus, j - 1)
+        for i in range(R):
+            pending[i][0] = wires[j][i]
+            nodes[i].poll()
+        fed[0] += 1
+
+    try:
+        feed_rotation()
+        torch.cuda.synchronize()
+        _cuda.reset_launches()
+        for n in LD06_SCHEDULE:
+            for _ in range(n):
+                feed_rotation()
+            t0 = time.perf_counter()
+            m.tick()
+            torch.cuda.synchronize()
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = dict(_cuda.LAUNCHES)
+    finally:
+        LN.time = real_time
+    n_pub = sum(nd.n_scans_published for nd in nodes)
+    # Decoded against the raycast: message k of robot i is rotation k.
+    per_robot = {i: [msg for r, msg in captured if r == i] for i in range(R)}
+    close, valid_rc, n_valid = 0, 0, 0
+    for i in range(R):
+        for j, msg in enumerate(per_robot[i]):
+            want = ranges[j, i]
+            got = np.asarray(msg.ranges)
+            ok = got > 0
+            n_valid += int(ok.sum())
+            close += int((np.abs(got[ok] - want[ok]) <= 0.01).sum())
+            valid_rc += int((want > 0).sum())
+    # The twin: the same messages straight onto another live stack.
+    twin = _ld06_mapper(torch, cfg, poses[0])
+    k = 0
+    for j, n in enumerate(LD06_SCHEDULE):
+        for _ in range(n):
+            odometry(twin.bus, k)
+            for i in range(R):
+                twin.bus.publisher(f"{robot_ns(i, R)}scan").publish(
+                    per_robot[i][k])
+            k += 1
+        twin.mapper.tick()
+    torch.cuda.synchronize()
+    grid_equal = bool(torch.equal(m.merged_grid(), twin.mapper.merged_grid()))
+    poses_equal = all(bool(torch.equal(a.pose, b.pose))
+                      for a, b in zip(m.states, twin.mapper.states))
+    occupied = int((m.merged_grid() > cfg.grid.occ_threshold).sum())
+    stack.shutdown()
+    twin.shutdown()
+    out = {"phase": "ld06_wire", "robots": R, "rotations": n_rot,
+           "schedule": list(LD06_SCHEDULE),
+           "raycast_ms": raycast_ms, "encode_ms": encode_ms,
+           "parser_scans_per_s": n_parsed / parse_s if parse_s else None,
+           "parser_scans": n_parsed, "scans_published": n_pub,
+           "mapper_tick_ms": _p50_p90(tick_ms), "tick_ms": tick_ms,
+           "decoded_within_1cm_of_valid": close / max(valid_rc, 1),
+           "decoded_nonzero_of_valid": n_valid / max(valid_rc, 1),
+           "grid_equal_direct_feed": grid_equal,
+           "poses_equal_direct_feed": poses_equal,
+           "occupied_cells": occupied, "launches": launches}
+    emit(out)
+    check(n_pub == R * sum(LD06_SCHEDULE),
+          f"ld06_wire: {n_pub} scans published")
+    check(close >= 0.9 * valid_rc,
+          f"ld06_wire: decoded ranges off the raycast ({close} of "
+          f"{valid_rc} valid beams within 1 cm)")
+    check(grid_equal and poses_equal,
+          "ld06_wire: the wire-fed mapper differs from the direct feed")
+    check(launches.get("sensor_model_delta", 0) > 0
+          and launches.get("window_apply", 0) > 0,
+          f"ld06_wire: K1/K5 did not launch {launches}")
+    return out
+
+
 def phase_ab(parent: str, seed: int) -> dict:
     """K1-K7, exact_bfs' frontier costs and 30 steps of the mission stack
     of the tree `parent` and of this one, timed in turns (parent, change,
@@ -7525,6 +8031,8 @@ def main(argv=None) -> int:
         phase_replay(torch, args.seed)
         coldstart_out, cs = phase_coldstart(torch, args.seed, stack_out)
         phase_coldstart_resume(torch, args.seed, cs)
+        plane_out = phase_tenancy_plane(torch, args.seed)
+        ld06_out = phase_ld06_wire(torch, args.seed)
         # The mission stack's modules the phases above did not import.
         import jax_mapping_torch.demo  # noqa: F401
         import jax_mapping_torch.resilience  # noqa: F401
@@ -7571,6 +8079,11 @@ def main(argv=None) -> int:
             coldstart_out["launches_mission"][name]
         kernels[-1]["launches_warmup"] = \
             coldstart_out["launches_warmup"].get(name, 0)
+        kernels[-1]["launches_tenancy_plane"] = \
+            plane_out["launches"].get(name, 0)
+        kernels[-1]["launches_tenancy_plane_warmup"] = \
+            plane_out["launches_warmup"].get(name, 0)
+        kernels[-1]["launches_ld06"] = ld06_out["launches"].get(name, 0)
     import torch.distributed as dist
     if dist.is_initialized():
         dist.destroy_process_group()

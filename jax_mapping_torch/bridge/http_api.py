@@ -26,8 +26,9 @@ handler never collects), and `/metrics` adds
 `jax_mapping_device_memory_bytes`. With the warm-restart tier, launch
 sets `coldstart_status` (`/status.cold_start`), and a staged restart's
 warming window stamps `/status` and `/tiles` with `state=warming`. The
-tenancy control plane is a hook (`tenancy`) that nothing sets while
-`cfg.tenancy` is refused at launch (ROADMAP A.9h).
+tenancy control plane (`tenancy`, set by launch when
+`cfg.tenancy.enabled`) serves `/status.tenancy`, `/tiles?tenant=` and the
+`jax_mapping_tenant_*` families.
 
 Re-creates the reference's management plane (SURVEY.md §1 L4) with both
 variants' routes merged:

@@ -48,11 +48,19 @@ always goes through the staged warm-up (`Stack.restart_mapper`): while
 it restores and pre-warms, the HTTP API answers from the prior epoch with
 `state=warming`.
 
-Refused with NotImplementedError naming the ROADMAP item rather than
-silently dropped: the tenancy control plane (`cfg.tenancy.enabled`,
-A.9h), and a windowed stack with the planner: the JAX package's planner
-plans with the logical grid config on the mapper's window-sized grid, in
-the wrong frame (ROADMAP re-anchor note).
+`cfg.tenancy.enabled` adds the tenancy control plane
+(`tenancy/controlplane.py`, `Stack.tenancy`) beside the stack, on its
+device, with the stack's compile cache, dispatch profiler and pipeline
+ledger and its checkpoints under `<checkpoint_dir>/tenants`; the HTTP API
+serves it (`/status.tenancy`, `/tiles?tenant=`, the
+`jax_mapping_tenant_*` families), `save_auto_checkpoint` checkpoints its
+live tenants, and `Stack.crash_controlplane` (the `controlplane_crash`
+fault) rebuilds it from its journal.
+
+Refused with NotImplementedError rather than silently dropped: a
+windowed stack with the planner: the JAX package's planner plans with the
+logical grid config on the mapper's window-sized grid, in the wrong frame
+(ROADMAP re-anchor note).
 """
 
 from __future__ import annotations
@@ -107,6 +115,10 @@ class Stack:
     voxel_mapper: Optional[VoxelMapperNode] = None   # when depth_cam
     api: Optional[MapApiServer] = None       # when http_port is given
     fault_plan: Optional[object] = None      # attached FaultPlan, if any
+    #: Mission multi-tenancy control plane
+    #: (tenancy/controlplane.TenantControlPlane) when
+    #: TenancyConfig.enabled: megabatched missions beside this stack.
+    tenancy: Optional[object] = None
     #: Causal tracing (obs/trace.Tracer) when ObsConfig.enabled; the same
     #: object rides bus.tracer (span export, /trace).
     tracer: Optional[object] = None
@@ -222,6 +234,32 @@ class Stack:
             save_keyframe_sidecar(self.auto_checkpoint_path,
                                   self.voxel_mapper.snapshot_keyframes(),
                                   config_json=self.cfg.to_json())
+        if self.tenancy is not None:
+            self.tenancy.checkpoint_all()
+
+    def crash_controlplane(self) -> dict:
+        """Kill the tenancy control plane and rebuild it from its journal
+        and checkpoints (the `controlplane_crash` FaultPlan kind): the
+        in-memory registry is dropped, a NEW plane replays
+        snapshot+journal through `restore()`, and the API swaps to it —
+        the same tenant set comes back with every epoch advanced. Returns
+        the restore report."""
+        old = self.tenancy
+        if old is None:
+            raise ValueError("crash_controlplane: no tenancy plane "
+                             "on this stack")
+        old.checkpoint_all()
+        from jax_mapping_torch.tenancy import TenantControlPlane
+        plane = TenantControlPlane(
+            self.cfg, world_res_m=old.world_res_m,
+            checkpoint_dir=old.checkpoint_dir,
+            compile_cache=self.compile_cache, devprof=self.devprof,
+            pipeline=self.pipeline, device=self.device)
+        report = plane.restore()
+        self.tenancy = plane
+        if self.api is not None:
+            self.api.tenancy = plane
+        return report
 
     def restart_mapper(self) -> None:
         """The supervisor's mapper restarter, a STAGED warm-up: rebuild the
@@ -370,8 +408,6 @@ def _refuse_unported(cfg: SlamConfig) -> None:
          "the logical grid config on the mapper's window-sized grid, in "
          "the wrong frame (ROADMAP re-anchor note); disable the planner "
          "for a windowed stack"),
-        (cfg.tenancy.enabled, "cfg.tenancy.enabled: the tenancy control "
-         "plane (tenancy/controlplane.py) is not ported yet (ROADMAP A.9h)"),
     ]
     for on, what in refused:
         if on:
@@ -535,6 +571,19 @@ def launch_sim_stack(cfg: SlamConfig, world: np.ndarray,
                   voxel_mapper=voxel_mapper, api=api, tracer=tracer,
                   pipeline=pipeline, slo=slo, devprof=devprof,
                   compile_cache=compile_cache, warmup=warmup)
+    if cfg.tenancy.enabled:
+        # The control plane beside the bridge stack, sharing its
+        # warm-restart tier and dispatch profiler. enabled=False builds
+        # nothing.
+        from jax_mapping_torch.tenancy import TenantControlPlane
+        stack.tenancy = TenantControlPlane(
+            cfg, world_res_m=res,
+            checkpoint_dir=(os.path.join(checkpoint_dir, "tenants")
+                            if checkpoint_dir else None),
+            compile_cache=compile_cache, devprof=devprof,
+            pipeline=pipeline, device=dev)
+        if api is not None:
+            api.tenancy = stack.tenancy
     if api is not None and (compile_cache is not None
                             or warmup is not None):
         # /status `cold_start`: cache counters, pool stats, the warm-up

@@ -510,9 +510,10 @@ class WorldConfig:
 class TenancyConfig:
     """Mission multi-tenancy: the tenant megabatch (`tenancy/megabatch.py`,
     many independent missions stacked on a leading tenant axis and ticked
-    as one launch chain) and the lane-health ladder
-    (`tenancy/lanehealth.py`). The control-plane fields are kept for the
-    JAX package's JSON; the port has no control plane yet."""
+    as one launch chain), the lane-health ladder
+    (`tenancy/lanehealth.py`) and the control plane that admits,
+    suspends, resumes, evicts, quarantines, journals and restores
+    missions (`tenancy/controlplane.py`, `tenancy/journal.py`)."""
 
     enabled: bool = False
     # Capacity ceiling `bucket_capacity` refuses past.

@@ -1,10 +1,11 @@
 """Deterministic chaos injection: a scripted, seeded schedule of faults.
 
 A copy of the JAX package's `resilience/faultplan.py` (host Python): the
-same kinds, refusals, composition rules, log and boundary calls. The port's
-stack has no compile cache (ROADMAP A.9g) and no tenancy control plane
-(A.9h), so `cache_wipe` and the tenant kinds take the branch a JAX stack
-without those tiers takes: they note "skipped" and do nothing else.
+same kinds, refusals, composition rules, log and boundary calls.
+`cache_wipe` acts on a stack with the cold-start tier's compile cache,
+and the tenant kinds and `controlplane_crash` on a stack with the tenancy
+control plane (`cfg.tenancy.enabled`); a stack without that tier takes
+the JAX branch: the fault notes "skipped" and does nothing else.
 
 The fault-injection knobs this repo accumulated — bus drop/reorder
 probabilities, driver read-failure injection, transport disconnects,

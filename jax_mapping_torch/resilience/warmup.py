@@ -131,14 +131,21 @@ class StagedWarmup:
 
     # -- pre-warm ------------------------------------------------------------
 
-    def prewarm(self, signatures: Optional[Dict[str, list]] = None
-                ) -> dict:
+    def prewarm(self, signatures: Optional[Dict[str, list]] = None,
+                force: bool = False, manifest: bool = True) -> dict:
         """Warm the captured entry points in priority order and run the
         readiness gate. `signatures` maps qualified names to captured
         abstract signatures (the dispatch profiler's live capture); the
-        cache manager's manifest adds its entries on top. Returns the
-        report (also kept for `snapshot()`). Never raises: a failing
-        signature is an `error` entry."""
+        cache manager's manifest adds its entries on top. `force` warms
+        the explicitly passed names even where this process already
+        dispatched them (the tenant control plane's admission, whose new
+        bucket must run before the tenant joins); names that came only
+        from the manifest keep the in-process short-circuit.
+        `manifest=False` skips the manifest merge and warms only the
+        passed signatures (an admission must not drag the whole
+        persisted sweep behind it). Returns the report (also kept for
+        `snapshot()`). Never raises: a failing signature is an `error`
+        entry."""
         from jax_mapping_torch.io.compile_cache import resolve_entry_point
         from jax_mapping_torch.obs import devprof as DP
         from jax_mapping_torch.ops import _cuda
@@ -147,7 +154,7 @@ class StagedWarmup:
         launches_at_start = dict(_cuda.LAUNCHES)
         sigs: Dict[str, list] = {}
         pooled_names = set()
-        if self.cache is not None:
+        if self.cache is not None and manifest:
             loaded = self.cache.load_aot()
             for name, ss in loaded["signatures"].items():
                 sigs.setdefault(name, []).extend(ss)
@@ -168,8 +175,9 @@ class StagedWarmup:
                 errors[name] = "no such entry point"
                 n_errors += 1
                 continue
+            forced = force and name in (signatures or {})
             todo = [s for s in sigs[name]
-                    if not self._warm(fn, DP.signature_key(s))]
+                    if forced or not self._warm(fn, DP.signature_key(s))]
             if not todo:
                 # In-process restart: this process dispatched every
                 # signature and holds its kernels; nothing to pay.

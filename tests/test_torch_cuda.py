@@ -25,7 +25,9 @@ put K1 on the relocalizer's, the bucketed and touched fuses' and the
 rendezvous merge's batches, card against CPU. The tenant megabatch's
 cases run K2 over T grids under a mask each and K3 over T tenants' fields
 under a mask a tenant (T in 1, 2, 3, 6, both routes), and a tiny megabatch
-against its missions' solo runs on the card. The mission stack's cases run
+against its missions' solo runs on the card, and a short tenancy control
+plane script on the card against its tenants' solo runs and the same
+script on the CPU. The mission stack's cases run
 `launch_sim_stack` at tiny_config(2) on the card against the CPU, and a
 stalled mapper's queue through `_step_window` (K5). The scenario case
 drives a scripted door and crowd through the sim on the card: the card's
@@ -1426,3 +1428,66 @@ def test_warmup_prewarms_kernel_signatures_on_card(dev, tmp_path):
         assert rep2["n_in_process"] == 1 and rep2["launches"] == {}
     finally:
         DP._SEEN = seen
+
+
+def _plane_script(device, ckdir):
+    """A short tenancy control-plane script at tiny_config(2) on
+    `device`: admit a, b (bucket 2), 2 ticks; admit c (bucket 3), 2
+    ticks; suspend b (bucket 2), 1 tick; resume b, 1 tick; evict a.
+    Returns (plane, status, journal bytes, states, worlds, ticks)."""
+    from jax_mapping_torch.config import TenancyConfig
+    from jax_mapping_torch.tenancy import TenantControlPlane
+    cfg = tiny_config(2).replace(tenancy=TenancyConfig(
+        enabled=True, lane_health=True, journal=True))
+    worlds = {t: W.plank_course(256, cfg.grid.resolution_m, n_planks=8,
+                                seed=k) for k, t in enumerate("abc")}
+    cp = TenantControlPlane(cfg, checkpoint_dir=str(ckdir), device=device)
+    cp.admit("a", worlds["a"], seed=0)
+    cp.admit("b", worlds["b"], seed=1)
+    cp.step(2)
+    cp.admit("c", worlds["c"], seed=2)
+    cp.step(2)
+    cp.suspend("b")
+    cp.step(1)
+    cp.resume("b")
+    cp.step(1)
+    states = {t: cp.tenant_state(t) for t in "abc"}
+    cp.evict("a")
+    st = cp.status()
+    st.pop("warmup")
+    with open(ckdir / "controlplane" / "control.journal", "rb") as f:
+        journal = f.read()
+    return cp, st, journal, states, worlds, {"a": 6, "b": 5, "c": 4}
+
+
+def test_tenancy_plane_on_card_equals_solo_and_cpu(dev, tmp_path):
+    """The plane's script on the card: each tenant bit-equal to its solo
+    `fleet_step` run on the card (its noise from its own generator); the
+    same script on the CPU gives the same status and journal bytes, and
+    states within the card-against-CPU tolerance of
+    test_fleet_step_on_card_equals_cpu."""
+    from jax_mapping_torch.tenancy import megabatch as MB
+    (tmp_path / "card").mkdir()
+    (tmp_path / "cpu").mkdir()
+    cp, st, journal, states, worlds, ticks = _plane_script(
+        dev, tmp_path / "card")
+    cfg = cp.cfg
+    res = cfg.grid.resolution_m
+    assert cp.live_batch().states.grid.is_cuda
+    assert st["n_prewarms"] == 3 and st["warmed_buckets"] == [1, 2, 3]
+    for t, n in ticks.items():
+        g = torch.Generator().manual_seed("abc".index(t))
+        s = FL.init_fleet_state(cfg, device=dev, generator=g)
+        w = torch.as_tensor(worlds[t], device=dev)
+        for _ in range(n):
+            s, _ = FL.fleet_step(cfg, s, res, w, generator=g)
+        MB._tree_map(lambda x, y: _assert_equal(x, y), states[t], s)
+    _cp2, st2, journal2, states2, _w, _t = _plane_script(
+        "cpu", tmp_path / "cpu")
+    assert st == st2
+    assert journal == journal2
+    for t in "abc":
+        torch.testing.assert_close(states[t].est_poses.cpu(),
+                                   states2[t].est_poses, rtol=0, atol=1e-3)
+        assert (states[t].grid.cpu() != states2[t].grid).float().mean() \
+            <= 1e-3

@@ -444,7 +444,10 @@ def test_launch_refuses_unported(what):
     /status.perf, and uninstalled at shutdown; cold_start.enabled, ported
     since, launches with the build cache under <checkpoint_dir>/
     compile_cache and a launch-time warm-up on /status.cold_start, and
-    shutdown points the builds back at the package's default."""
+    shutdown points the builds back at the package's default;
+    tenancy.enabled, ported since, launches the tenancy control plane
+    (its checkpoints under <checkpoint_dir>/tenants) on /status.tenancy
+    and /tiles?tenant=, and crash_controlplane rebuilds it."""
     cfg = tiny_config(2)
     if what == "obs.devprof.enabled":
         import json
@@ -494,6 +497,33 @@ def test_launch_refuses_unported(what):
                 st.shutdown()
             assert _cuda.BUILD_DIR == _cuda.DEFAULT_BUILD_DIR
         return
+    if what == "tenancy.enabled":
+        import json
+        import tempfile
+        cfg = cfg.replace(tenancy=dataclasses.replace(
+            cfg.tenancy, enabled=True, journal=True,
+            prewarm_on_admit=False))
+        world = W.empty_arena(32, 0.05)
+        with tempfile.TemporaryDirectory() as td:
+            st = launch_sim_stack(cfg, world, n_robots=2, device="cpu",
+                                  http_port=0, checkpoint_dir=td)
+            try:
+                plane = st.tenancy
+                assert st.api.tenancy is plane
+                assert plane.checkpoint_dir == os.path.join(td, "tenants")
+                plane.admit("m0", world, seed=0)
+                plane.step(1)
+                body = json.loads(st.api.handle("/status")[2])
+                assert body["tenancy"]["tenants"]["m0"]["revision"] == 1
+                assert st.api.handle("/tiles?tenant=m0&since=-1")[0] == 200
+                report = st.crash_controlplane()
+                assert report["restored"] == ["m0"]
+                assert st.tenancy is not plane
+                assert st.api.tenancy is st.tenancy
+                assert st.tenancy.epoch("m0") == 1
+            finally:
+                st.shutdown()
+        return
     if what == "obs.enabled":
         cfg = cfg.replace(obs=dataclasses.replace(cfg.obs, enabled=True))
         st = launch_sim_stack(cfg, W.empty_arena(32, 0.05), n_robots=2,
@@ -530,8 +560,7 @@ def test_launch_refuses_unported(what):
         cfg = cfg.replace(**{section: dataclasses.replace(
             getattr(cfg, section), **kw)})
         kw = {}
-    item = {"tenancy.enabled": "ROADMAP A.9h"}.get(what, "ROADMAP")
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         launch_sim_stack(cfg, W.empty_arena(32, 0.05), n_robots=2,
                          device="cpu", **kw)
 
