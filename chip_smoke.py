@@ -349,6 +349,21 @@ Phases, each printed as one JSON line:
            two bursts of 16 (K5); mapper tick p50; decoded ranges within
            0.01 m of the raycast, and the grid bit-equal to the same
            mapper fed the decoded messages directly
+  analysis the port's analysis tier on the card: the static pass over
+           jax_mapping_torch/ with its baseline (exit 0: files, findings
+           by checker, baselined); every host sync the phases above
+           recorded in their sync windows (`SyncWindow`: PyTorch's CUDA
+           sync debug mode, each warning kept with its whole Python
+           stack) held against A1 — a sync is flagged when a frame of its
+           stack under jax_mapping_torch/ lies on a line A1 reports, and
+           the phase fails on any unflagged site (the sites and their
+           stacks in chiprun_out/analysis_syncs.json); LockWatch and
+           RaceWatch over tiny_config(2) with its HTTP API, a /tiles
+           client and a /status poller, 30 steps, against the same run
+           unwatched (poses equal, observed lock edges consistent with the
+           static B1 graph, 0 races); `compilebudget --check --device
+           cuda` in a fresh process (exit 0, the entry points above one
+           variant). At most 60 s.
 
 Every phase line carries `t_s`, the seconds since the script started.
 Then one line {"kernels": [...]} (each row's launches by path, with
@@ -365,6 +380,7 @@ script, it exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
 import os
@@ -1394,18 +1410,78 @@ def _is_sync(w) -> bool:
     return "synchroniz" in msg and "prototype feature" not in msg
 
 
-def _count_syncs(torch, fn):
-    """(fn(), host syncs it made), counted by PyTorch's CUDA sync debug
-    mode, which warns at every synchronising call."""
-    import warnings
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
+#: One warning raised inside a `SyncWindow`, with the whole Python stack
+#: at the moment it was raised as (filename, lineno) pairs, outermost
+#: frame first.
+SyncRecord = collections.namedtuple(
+    "SyncRecord", "message category filename lineno stack")
+
+
+#: Every host sync any `SyncWindow` recorded in this run, in order: the
+#: analysis phase holds each one's stack against the A1 checker.
+SYNC_LOG: list = []
+
+
+class SyncWindow:
+    """PyTorch's CUDA sync debug mode over a block, which warns at every
+    synchronising call. Each warning is kept with the Python stack at the
+    moment it is raised (the frames' files and lines, walked in a
+    `warnings.showwarning` hook with no source-line lookup): a C++
+    warning's own file and line are only the innermost Python frame,
+    often inside `torch/`. `records` are
+    the block's warnings in order, `syncs` counts those that flag a
+    synchronising call, and every such one is also appended to SYNC_LOG.
+    A window opened inside another keeps its warnings to itself, as
+    `warnings.catch_warnings(record=True)` does, and the mode in force
+    before a window is restored after it. With `armed=False` the window
+    records nothing and leaves the mode alone."""
+
+    def __init__(self, torch, armed: bool = True):
+        self.torch, self.armed = torch, armed
+        self.records: list = []
+
+    def __enter__(self):
+        import warnings
+        self._cm = warnings.catch_warnings()
+        self._cm.__enter__()
+        if self.armed:
+            warnings.simplefilter("always")
+            warnings.showwarning = self._show
+            self._mode = self.torch.cuda.get_sync_debug_mode()
+            self.torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def _show(self, message, category, filename, lineno, file=None,
+              line=None):
+        import traceback
+        stack = [(f.f_code.co_filename, n)
+                 for f, n in traceback.walk_stack(sys._getframe(1))]
+        rec = SyncRecord(message, category, filename, lineno, stack[::-1])
+        self.records.append(rec)
+        if _is_sync(rec):
+            SYNC_LOG.append(rec)
+
+    def __exit__(self, *exc):
         try:
-            out = fn()
+            if self.armed:
+                self.torch.cuda.set_sync_debug_mode(self._mode)
         finally:
-            torch.cuda.set_sync_debug_mode("default")
-    return out, sum(_is_sync(w) for w in caught)
+            self._cm.__exit__(*exc)
+        return False
+
+    def __len__(self) -> int:
+        return len(self.records)
+
+    @property
+    def syncs(self) -> int:
+        return sum(_is_sync(r) for r in self.records)
+
+
+def _count_syncs(torch, fn):
+    """(fn(), host syncs it made), counted in a `SyncWindow`."""
+    with SyncWindow(torch) as win:
+        out = fn()
+    return out, win.syncs
 
 
 def _p50_p90(xs) -> dict:
@@ -4259,7 +4335,6 @@ def phase_stack(torch, seed: int):
     node. Then a burst: 16 sim and brain
     steps with no mapper tick, and one mapper tick, which must take
     `_step_window` and launch K5."""
-    import warnings
     import numpy as np
     from jax_mapping_torch.bridge.launch import launch_sim_stack
     from jax_mapping_torch.bridge.messages import Pose2D
@@ -4300,19 +4375,16 @@ def phase_stack(torch, seed: int):
         marks = []
 
         def marked_publish(corrections=()):
-            marks.append(len(caught))
+            marks.append(len(win))
             publish(corrections)
-            marks.append(len(caught))
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
+            marks.append(len(win))
+        with SyncWindow(torch) as win:
             m.publish_frontiers = marked_publish
             try:
                 mapper_tick()
             finally:
-                torch.cuda.set_sync_debug_mode("default")
                 del m.publish_frontiers
-        flags = [_is_sync(w) for w in caught]
+        flags = [_is_sync(w) for w in win.records]
         syncs.append({"tick": sum(flags), "publish": sum(
             flags[marks[0]:marks[1]]) if marks else 0})
     m.tick = counted_tick
@@ -6442,7 +6514,6 @@ def phase_scenario(torch, seed: int):
     `day_plan(150, doors, n_crowds=2, door_cycle=60, crowd_cycle=90,
     kill_steps=(100,))`. Counts are zeroed before the mission and read
     after: K1 (both modes), K2 and K3 must launch; K5 is reported."""
-    import warnings
     import numpy as np
     from jax_mapping_torch.bridge.launch import Stack
     from jax_mapping_torch.bridge.mapper import MapperNode
@@ -6490,22 +6561,17 @@ def phase_scenario(torch, seed: int):
         # own host syncs are counted here (the sync debug mode is off).
         counting = torch.cuda.get_sync_debug_mode() == 0
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        with warnings.catch_warnings(record=True) as caught:
-            if counting:
-                warnings.simplefilter("always")
-                torch.cuda.set_sync_debug_mode("warn")
+        with SyncWindow(torch, armed=counting) as win:
             t0 = time.perf_counter()
             ev[0].record()
             try:
                 orig_upload(self, w)
             finally:
                 ev[1].record()
-                if counting:
-                    torch.cuda.set_sync_debug_mode("default")
         box["uploads"].append(((time.perf_counter() - t0) * 1e3,
                                int(w.nbytes), ev))
         if counting:
-            box["upload_syncs"] += sum(_is_sync(m) for m in caught)
+            box["upload_syncs"] += win.syncs
 
     def decay(self):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -6527,15 +6593,10 @@ def phase_scenario(torch, seed: int):
         k = self._steps_run
         if k in SCENARIO_SYNC_STEPS.values():
             n_up = self.sim.n_world_updates
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                torch.cuda.set_sync_debug_mode("warn")
-                try:
-                    orig_run(self, 1)
-                finally:
-                    torch.cuda.set_sync_debug_mode("default")
+            with SyncWindow(torch) as win:
+                orig_run(self, 1)
             box["syncs"][k] = {
-                "syncs": sum(_is_sync(w) for w in caught),
+                "syncs": win.syncs,
                 "uploads": self.sim.n_world_updates - n_up}
         else:
             orig_run(self, 1)
@@ -6951,9 +7012,6 @@ class ProfilerCost:
         self.count_syncs = False
 
     def _count(self, fn):
-        import warnings
-        cuda = self.torch.cuda
-
         def counted(*args, **kwargs):
             self.calls += 1
             if not self.count_syncs:
@@ -6962,18 +7020,17 @@ class ProfilerCost:
                     return fn(*args, **kwargs)
                 finally:
                     self.s += time.perf_counter() - t0
-            mode = cuda.get_sync_debug_mode()
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                cuda.set_sync_debug_mode("warn")
-                t0 = time.perf_counter()
-                try:
-                    return fn(*args, **kwargs)
-                finally:
-                    self.s += time.perf_counter() - t0
-                    cuda.set_sync_debug_mode(mode)
-                    self.syncs += sum(_is_sync(w) for w in caught)
-                    self.sync_calls += 1
+            win = SyncWindow(self.torch)
+            try:
+                with win:
+                    t0 = time.perf_counter()
+                    try:
+                        return fn(*args, **kwargs)
+                    finally:
+                        self.s += time.perf_counter() - t0
+            finally:
+                self.syncs += win.syncs
+                self.sync_calls += 1
         return counted
 
     def __enter__(self):
@@ -7053,7 +7110,6 @@ def phase_coldstart(torch, seed: int, stack_out: dict):
     devprof on against off, must give bit-equal grids and estimates.
     Ends with `save_compile_snapshots()` for `coldstart_resume`."""
     import json
-    import warnings
     from jax_mapping_torch.bridge.launch import launch_sim_stack
     from jax_mapping_torch.bridge.messages import Pose2D
     from jax_mapping_torch.obs.ledger import CostLedger
@@ -7110,14 +7166,9 @@ def phase_coldstart(torch, seed: int, stack_out: dict):
     def counted_tick():
         if st._steps_run not in STACK_SYNC_TICKS:
             return mapper_tick()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                mapper_tick()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        syncs.append(sum(_is_sync(w) for w in caught))
+        with SyncWindow(torch) as win:
+            mapper_tick()
+        syncs.append(win.syncs)
     m0.tick = counted_tick
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -7393,26 +7444,22 @@ class _PlaneSyncs:
         self.rows = []
 
     def step(self, plane) -> None:
-        import warnings
         from jax_mapping_torch.tenancy import megabatch as MB
         torch, orig, marks = self.torch, MB.megabatch_tick, []
 
         def marked(*a, **k):
-            marks.append(len(caught))
+            marks.append(len(win))
             try:
                 return orig(*a, **k)
             finally:
-                marks.append(len(caught))
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
+                marks.append(len(win))
+        with SyncWindow(torch) as win:
             MB.megabatch_tick = marked
             try:
                 plane.step(1)
             finally:
-                torch.cuda.set_sync_debug_mode("default")
                 MB.megabatch_tick = orig
-        flags = [_is_sync(w) for w in caught]
+        flags = [_is_sync(w) for w in win.records]
         inside = sum(flags[marks[0]:marks[1]])
         self.rows.append({"megabatch_tick": inside,
                           "plane_own": sum(flags) - inside})
@@ -7845,6 +7892,315 @@ def phase_ld06_wire(torch, seed: int):
     return out
 
 
+#: The analysis phase's watched stack: tiny_config(2) on
+#: rooms_with_doors(96, seed=1), this many steps, watched and unwatched.
+ANALYSIS_STEPS = 30
+#: Seconds the phase may take (its static pass, the two stacks and the
+#: compile budget's subprocess).
+ANALYSIS_LIMIT_S = 60.0
+
+
+def _a1_spans(findings) -> dict:
+    """path -> [(line, end_line)] of every A1 finding, found or baselined:
+    the lines the checker says sync."""
+    out: dict = {}
+    for f in findings:
+        if f.checker == "A1-host-sync":
+            out.setdefault(f.path, []).append((f.line, f.end_line or f.line))
+    return out
+
+
+def _helper_spans(registry) -> dict:
+    """path -> [(first, last line)] of the bodies of the sync helpers A1
+    summarises: a call to one is a sync site at its caller."""
+    out: dict = {}
+    for key in registry.sync_helpers:
+        mod, func, _cls = registry.by_symbol[key]
+        out.setdefault(mod.path, []).append((func.lineno, func.end_lineno))
+    return out
+
+
+def sync_sites(spans: dict, helpers: dict) -> dict:
+    """Every host sync of SYNC_LOG held against the A1 checker. A sync's
+    site is its innermost frame under jax_mapping_torch/ (`path:line`),
+    or its innermost frame outside torch and warnings when the stack has
+    none. The sync is flagged when its site lies on a line A1 reports,
+    or, where the site lies in a sync helper's body, when the frame that
+    called the helper does (the one level of calls A1 models). A sync
+    that only some outer package frame's A1 line covers is counted apart
+    (`outer_only`): it is not flagged. Returns {site: {"n", "flagged",
+    "outer_only", "stack"}}."""
+    def rel(fn):
+        return os.path.relpath(fn, HERE).replace(os.sep, "/")
+
+    def on(spans_of, fn, ln):
+        return any(a <= ln <= b for a, b in spans_of.get(rel(fn), ()))
+
+    pkg = os.path.join(HERE, "jax_mapping_torch") + os.sep
+    sites: dict = {}
+    for rec in SYNC_LOG:
+        idx = [i for i, (fn, _ln) in enumerate(rec.stack)
+               if fn.startswith(pkg)]
+        flagged = outer = False
+        if idx:
+            fn, ln = rec.stack[idx[-1]]
+            key = "%s:%d" % (rel(fn), ln)
+            flagged = on(spans, fn, ln) or (
+                idx[-1] > 0 and on(helpers, fn, ln)
+                and on(spans, *rec.stack[idx[-1] - 1]))
+            outer = not flagged and any(on(spans, *rec.stack[i])
+                                        for i in idx[:-1])
+        else:
+            outside = [(fn, ln) for fn, ln in rec.stack
+                       if "/torch/" not in fn
+                       and not fn.endswith("warnings.py")]
+            key = "%s:%d" % (rel(outside[-1][0]), outside[-1][1]) \
+                if outside else "?"
+        s = sites.setdefault(key, {
+            "n": 0, "flagged": 0, "outer_only": 0,
+            "stack": ["%s:%d" % (rel(rec.stack[i][0]), rec.stack[i][1])
+                      for i in idx]})
+        s["n"] += 1
+        s["flagged"] += flagged
+        s["outer_only"] += outer
+    return sites
+
+
+def _sync_hook_cost(torch, depth: int, n: int = 200,
+                    rounds: int = 3) -> dict:
+    """Microseconds per sync of a loop of `n` `.item()` calls at a stack
+    `depth` frames deep, in a SyncWindow and in a plain
+    `warnings.catch_warnings(record=True)` window under the same sync
+    debug mode, alternating for `rounds` rounds (medians): what the
+    stack capture adds to a time taken inside a window. The loop's syncs
+    are taken back out of SYNC_LOG."""
+    import traceback
+    import warnings
+    x = torch.ones((), device=DEV)
+
+    def here():
+        return len(list(traceback.walk_stack(sys._getframe(1))))
+
+    def loop():
+        t = time.perf_counter()
+        for _ in range(n):
+            x.item()
+        return time.perf_counter() - t
+
+    def at(k, fn):
+        return fn() if k <= 0 else at(k - 1, fn)
+
+    def plain():
+        with warnings.catch_warnings(record=True):
+            warnings.simplefilter("always")
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return at(depth - here(), loop)
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+
+    def hooked():
+        n0 = len(SYNC_LOG)
+        with SyncWindow(torch):
+            dt = at(depth - here(), loop)
+        del SYNC_LOG[n0:]
+        return dt
+
+    times = {"plain": [], "window": []}
+    for _ in range(rounds):
+        times["plain"].append(plain())
+        times["window"].append(hooked())
+    return {k: statistics.median(v) / n * 1e6 for k, v in times.items()}
+
+
+def _analysis_stack(torch, seed: int, watched: bool) -> dict:
+    """tiny_config(2) on the card with its HTTP API, a /tiles client and a
+    /status poller on threads of their own, ANALYSIS_STEPS steps with
+    simulated-clock stamps; when `watched`, under LockWatch (the bus, the
+    brain's and the mapper's state locks, each node's callback lock) and
+    RaceWatch (the protection map's groups of the mapper, the grid tile
+    store and the event channel). Returns the brain's poses, and the
+    watches' edges and reports."""
+    import threading
+    import urllib.request
+    import numpy as np
+    from jax_mapping_torch.analysis.lockwatch import LockWatch
+    from jax_mapping_torch.analysis.protection import groups_by_class
+    from jax_mapping_torch.analysis.racewatch import RaceWatch
+    from jax_mapping_torch.bridge.launch import launch_sim_stack
+    from jax_mapping_torch.config import tiny_config
+    from jax_mapping_torch.serving.client import DeltaMapClient
+    from jax_mapping_torch.sim import world as W
+    cfg = tiny_config(2)
+    world, _doors = W.rooms_with_doors(96, cfg.grid.resolution_m, seed=1)
+    st = launch_sim_stack(cfg, world, n_robots=2, seed=seed, device=DEV,
+                          http_port=0)
+    saved = _sim_clock(st, cfg)
+    lw, rw = LockWatch(), RaceWatch()
+    stop, errors, polls = threading.Event(), [], [0, 0]
+    base = f"http://127.0.0.1:{st.api.port}"
+
+    def tiles():
+        client = DeltaMapClient(base)
+        while not stop.is_set():
+            try:
+                client.poll()
+                polls[0] += 1
+            except Exception as e:                    # noqa: BLE001
+                errors.append(f"/tiles: {e}")
+            stop.wait(0.05)
+
+    def status():
+        while not stop.is_set():
+            try:
+                urllib.request.urlopen(f"{base}/status", timeout=10).read()
+                polls[1] += 1
+            except Exception as e:                    # noqa: BLE001
+                errors.append(f"/status: {e}")
+            stop.wait(0.05)
+
+    threads = [threading.Thread(target=tiles), threading.Thread(
+        target=status)]
+    try:
+        if watched:
+            lw.watch(st.bus, "_lock")
+            lw.watch(st.brain, "_state_lock")
+            lw.watch(st.mapper, "_state_lock")
+            for node in (st.sim, st.brain, st.mapper):
+                lw.watch(node, "_cb_lock", name=f"Node._cb_lock@{node.name}")
+            by = groups_by_class()
+            rw.watch_object(st.mapper, by["MapperNode"][0], name="mapper")
+            rw.watch_object(st.api.serving.map_store, by["TileStore"][0],
+                            name="grid-store")
+            rw.watch_object(st.api.serving.events, by["EventChannel"][0],
+                            name="events")
+        for t in threads:
+            t.start()
+        st.brain.start_exploring()
+        st.run_steps(ANALYSIS_STEPS)
+        st.mapper.publish_map()
+        torch.cuda.synchronize()
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=30)
+        rw.unwatch_all()
+        lw.unwatch_all()
+        for m, t in saved:
+            m.time = t
+        poses = np.array(st.brain.poses)
+        st.shutdown()
+    check(not errors, f"analysis: HTTP clients failed: {errors[:3]}")
+    return {"poses": poses, "edges": lw.edges(), "cycle": lw.cycle(),
+            "reports": [r.message for r in rw.reports()],
+            "fields": {k: v.state for k, v in rw.field_states().items()},
+            "polls": polls}
+
+
+def phase_analysis(torch, seed: int) -> dict:
+    """The port's analysis tier on the card: the static pass over the
+    package with its baseline (exit 0), every host sync the earlier
+    phases' sync windows recorded held against A1, LockWatch and
+    RaceWatch over a short stack against an unwatched one, and the
+    compile budget's check in a fresh process."""
+    import numpy as np
+    from jax_mapping_torch.analysis import core as AC
+    from jax_mapping_torch.analysis.lock_discipline import (
+        LockGraph, build_lock_graph)
+    t0 = time.perf_counter()
+    mods = AC.load_package_modules()
+    checkers = AC.all_checkers()
+    res = AC.analyze_modules(mods, AC.Baseline.load(
+        AC.default_baseline_path()), checkers)
+    t_static = time.perf_counter() - t0
+    by_checker = collections.Counter(f.checker for f in res.all_findings)
+    # The A checkers share one registry: the first one's is A1's.
+    sites = sync_sites(_a1_spans(res.all_findings),
+                       _helper_spans(checkers[0].registry(mods)))
+    unflagged = sorted(k for k, v in sites.items() if v["flagged"] < v["n"])
+    outer_only = sorted(k for k, v in sites.items() if v["outer_only"])
+    n_records = len(SYNC_LOG)
+    depth = int(statistics.median(len(r.stack) for r in SYNC_LOG)) \
+        if SYNC_LOG else 0
+    hook_us = _sync_hook_cost(torch, depth)
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "analysis_syncs.json"), "w") as f:
+        json.dump(sites, f, indent=0, sort_keys=True)
+
+    plain = _analysis_stack(torch, seed, watched=False)
+    watched = _analysis_stack(torch, seed, watched=True)
+    static = build_lock_graph(mods).edge_set()
+    observed = watched["edges"]
+    reversed_ = sorted(f"{a} -> {b}" for a, b in observed
+                       if (b, a) in static)
+    union_cycles = LockGraph(edges={e: None for e in static | observed}
+                             ).sccs()
+
+    t1 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out_json = os.path.join(tmp, "budget.json")
+        r = subprocess.run(
+            [sys.executable, "-m", "jax_mapping_torch.analysis.compilebudget",
+             "--check", "--device", "cuda", "-o", out_json],
+            capture_output=True, text=True, cwd=HERE, timeout=300)
+        budget = json.load(open(out_json)) if os.path.exists(out_json) \
+            else {}
+    t_budget = time.perf_counter() - t1
+    measured = budget.get("measured", {})
+    seconds = time.perf_counter() - t0
+    emit({"phase": "analysis", "files": res.n_files,
+          "findings_by_checker": dict(sorted(by_checker.items())),
+          "new_findings": len(res.findings),
+          "baselined": len(res.baselined),
+          "unused_suppressions": len(res.unused_suppressions),
+          "static_s": round(t_static, 2),
+          "sync_records": n_records,
+          "sync_sites": len(sites),
+          "sync_sites_flagged": len(sites) - len(unflagged),
+          "unflagged_sites": unflagged,
+          "outer_frame_only_sites": outer_only,
+          "sync_stack_depth_median": depth,
+          "sync_us_window": hook_us["window"],
+          "sync_us_plain_window": hook_us["plain"],
+          "lock_edges_static": len(static),
+          "lock_edges_observed": sorted(f"{a} -> {b}" for a, b in observed),
+          "lock_edges_reversed": reversed_,
+          "lock_cycle": watched["cycle"],
+          "lock_union_cycles": union_cycles,
+          "races": watched["reports"],
+          "race_fields": len(watched["fields"]),
+          "http_polls": watched["polls"],
+          "poses_equal_unwatched": bool(np.array_equal(
+              plain["poses"], watched["poses"])),
+          "compile_budget_rc": r.returncode,
+          "compile_budget_violations": budget.get("violations"),
+          "compile_budget_over_1": {k: v for k, v in sorted(
+              measured.items()) if v > 1},
+          "compile_budget_entry_points": len(measured),
+          "compile_budget_s": round(t_budget, 1),
+          "seconds": round(seconds, 1)})
+    check(not res.findings, "analysis: the static pass has new findings: "
+          + "; ".join(f.format().splitlines()[0] for f in res.findings[:5]))
+    check(not unflagged, f"analysis: {len(unflagged)} host-sync site(s) "
+          f"A1 does not report: {unflagged[:10]}")
+    check(SYNC_LOG, "analysis: no sync window recorded a sync")
+    check(observed and not reversed_ and watched["cycle"] is None
+          and not union_cycles,
+          "analysis: the observed lock order contradicts the static graph")
+    check(not watched["reports"], f"analysis: races {watched['reports']}")
+    check(watched["fields"], "analysis: RaceWatch saw no field")
+    check(min(watched["polls"]) > 0, "analysis: a client never polled")
+    check(np.array_equal(plain["poses"], watched["poses"]),
+          "analysis: the watched stack's poses differ from the unwatched")
+    check(r.returncode == 0, f"analysis: compilebudget --check exit "
+          f"{r.returncode}: {r.stdout[-1500:]} {r.stderr[-1500:]}")
+    check(seconds <= ANALYSIS_LIMIT_S,
+          f"analysis: {seconds:.1f} s over its {ANALYSIS_LIMIT_S} s")
+    return {"sites": len(sites), "unflagged": unflagged}
+
+
 def phase_ab(parent: str, seed: int) -> dict:
     """K1-K7, exact_bfs' frontier costs and 30 steps of the mission stack
     of the tree `parent` and of this one, timed in turns (parent, change,
@@ -8033,6 +8389,7 @@ def main(argv=None) -> int:
         phase_coldstart_resume(torch, args.seed, cs)
         plane_out = phase_tenancy_plane(torch, args.seed)
         ld06_out = phase_ld06_wire(torch, args.seed)
+        phase_analysis(torch, args.seed)
         # The mission stack's modules the phases above did not import.
         import jax_mapping_torch.demo  # noqa: F401
         import jax_mapping_torch.resilience  # noqa: F401

@@ -52,6 +52,10 @@ from jax_mapping_torch.resilience.health import (
 )
 from jax_mapping_torch.resilience.supervisor import Heartbeater
 
+#: Values in a robot's `prox.horizontal` row (five front, two rear); the
+#: packed `brain_tick` input lays them out at a fixed width.
+PROX_WIDTH = 7
+
 
 def robot_ns(i: int, n_robots: int) -> str:
     """Topic/frame namespace: '' for a single robot (reference layout),
@@ -592,7 +596,7 @@ class ThymioBrain(Node):
         try:
             R = self.n_robots
             wheel_raw = np.zeros((R, 2), np.int32)
-            prox = np.zeros((R, 7), np.int32)
+            prox = np.zeros((R, PROX_WIDTH), np.int32)
             for i in range(R):
                 wheel_raw[i, 0] = self.driver[i][MOTOR_LEFT_SPEED]
                 wheel_raw[i, 1] = self.driver[i][MOTOR_RIGHT_SPEED]
@@ -705,8 +709,7 @@ class ThymioBrain(Node):
             [poses, wheel_raw, prox, goals_xy, exploring[:, None],
              goal_valid[:, None], ranges], axis=1).astype(np.float32)
         x = torch.as_tensor(packed, device=self.device)
-        nprox = prox.shape[1]
-        g0 = 5 + nprox
+        g0 = 5 + PROX_WIDTH
         out = brain_tick(
             self.cfg, x[:, 0:3], x[:, 3:5].to(torch.int32),
             x[:, 5:g0].to(torch.int32), x[:, g0 + 4:], x[:, g0 + 2] != 0,

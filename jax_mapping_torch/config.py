@@ -181,10 +181,10 @@ class FrontierConfig:
 
 @_frozen
 class AnalysisConfig:
-    """Canonical scenario of the compile budget (`obs/ledger.py`
-    `measure_scenario`, the JAX package's `analysis/compilebudget.py`):
+    """Canonical scenario of the compile budget
+    (`analysis/compilebudget.py` `measure_scenario`, as in the JAX package):
     a deterministic tiny-config stack drive whose per-entry-point variant
-    counts the committed `obs/compile_budget.json` pins. Not part of
+    counts the committed `analysis/compile_budget.json` pins. Not part of
     `SlamConfig`: it configures the measurement, not the stack."""
 
     budget_n_robots: int = 2

@@ -31,8 +31,8 @@ package's dumps.
                            records.
     cost-ledger [-o OUT] [--budget JSON] [--device DEV]
                            Drive the canonical compile-budget scenario
-                           (obs/ledger.py measure_scenario) under the
-                           dispatch profiler on DEV (default cuda),
+                           (analysis/compilebudget.py measure_scenario)
+                           under the dispatch profiler on DEV (default cuda),
                            collect the cost ledger (FLOPs, bytes per
                            entry point and variant) and print it as
                            JSON (or write it to OUT). With --budget,

@@ -24,20 +24,19 @@ are comparable between variants and runs of the port, not with JAX's.
 Collection is explicit (the CLI `python -m jax_mapping_torch.obs
 cost-ledger`, tests, the smoke): an HTTP handler never collects.
 `cross_check()` holds the result to the port's copy of the JAX compile
-budget (`compile_budget.json` here: JAX's names mapped to the port's,
-JAX's maxima and notes).
-
-`measure_scenario` is the port's counterpart of the JAX package's
-canonical compile-budget scenario (`analysis/compilebudget.py`), which
-this module keeps until `analysis/` is ported.
+budget (`analysis/compile_budget.json`: JAX's names mapped to the port's,
+JAX's maxima and notes), read through `analysis/compilebudget.py`, which
+also holds the canonical scenario `run_cost_ledger` drives (as the JAX
+package's `obs/ledger.py` reads `analysis/`).
 """
 
 from __future__ import annotations
 
-import json
-import os
 import threading
 from typing import Dict, List, Optional, Tuple
+
+from jax_mapping_torch.analysis.compilebudget import (
+    Budget, default_budget_path, measure_scenario)
 
 #: Float operations of the sensor model on one cell within max range of a
 #: scan (the function's work there, whatever a kernel culls; the cells are
@@ -385,139 +384,6 @@ def _sig_label(sig) -> str:
     if kwargs:
         label += walk(kwargs)
     return label
-
-
-# -- the compile budget --------------------------------------------------------
-
-def default_budget_path() -> str:
-    return os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                        "compile_budget.json")
-
-
-class Budget:
-    """The committed per-entry-point variant maxima (JAX's
-    `analysis/compilebudget.Budget`, on the port's names)."""
-
-    def __init__(self, entries: List[dict]):
-        self.entries = list(entries)
-        self.by_name = {e["name"]: e for e in self.entries}
-
-    @classmethod
-    def load(cls, path: str) -> "Budget":
-        with open(path) as f:
-            data = json.load(f)
-        if data.get("version") != 1:
-            raise ValueError(f"{path}: unsupported budget version "
-                             f"{data.get('version')!r}")
-        return cls(data.get("budgets", []))
-
-    def check(self, measured: Dict[str, int]
-              ) -> Tuple[List[str], List[str], List[str]]:
-        """(over_budget, unknown, stale) violation descriptions."""
-        over, unknown = [], []
-        for name, count in sorted(measured.items()):
-            e = self.by_name.get(name)
-            if e is None:
-                unknown.append(f"{name}: compiled {count} variant(s) but "
-                               "has no budget entry")
-            elif count > e["max"]:
-                over.append(f"{name}: {count} compiled variant(s) "
-                            f"exceeds budget {e['max']}")
-        stale = [f"{e['name']}: budgeted {e['max']} but never compiled in "
-                 "the canonical scenario"
-                 for e in self.entries if e["name"] not in measured]
-        return over, unknown, stale
-
-
-# -- the canonical scenario ----------------------------------------------------
-
-def measure_scenario(profiler, analysis_cfg=None, device="cuda"
-                     ) -> Dict[str, int]:
-    """Run the canonical deterministic scenario with `profiler` installed
-    and return the variants each entry point compiled while profiled
-    (JAX: `analysis/compilebudget.measure_scenario`, on `AnalysisConfig`'s
-    budget defaults): a 2-robot tiny stack on plank_course(96) for 16
-    steps, a map publish and two serving refreshes, bucketed fuses at
-    B = 3, 5, 6, megabatch steps at the tenant counts (3, 5, 6) on
-    micro_config, and the windowed world's fuse, shift and shift back.
-    Meant for a fresh process, as JAX's is for cold jit caches."""
-    import dataclasses
-
-    import numpy as np
-    import torch
-
-    from jax_mapping_torch.bridge.launch import launch_sim_stack
-    from jax_mapping_torch.config import (AnalysisConfig, micro_config,
-                                          tiny_config)
-    from jax_mapping_torch.models import fleet as FM
-    from jax_mapping_torch.ops import grid as G
-    from jax_mapping_torch.sim import world as W
-    from jax_mapping_torch.tenancy import megabatch as MBT
-    from jax_mapping_torch.world.store import WorldStore
-
-    a = analysis_cfg or AnalysisConfig()
-    dev = torch.device(device)
-    cfg = tiny_config(n_robots=a.budget_n_robots)
-    world = W.plank_course(a.budget_world_cells, cfg.grid.resolution_m,
-                           n_planks=4, seed=a.budget_seed)
-    st = launch_sim_stack(cfg, world, n_robots=a.budget_n_robots,
-                          http_port=0, realtime=False,
-                          seed=a.budget_seed, device=dev)
-    try:
-        st.brain.start_exploring()
-        st.run_steps(a.budget_steps)
-        st.mapper.publish_map()
-        # Serving-side work (gray, pyramid, tile hashes) runs on refresh:
-        # two refreshes take the first-install and the diff paths.
-        if st.api is not None and st.api.serving is not None \
-                and st.api.serving.map_store is not None:
-            st.api.serving.map_store.refresh()
-            st.api.serving.map_store.refresh()
-        # Bucketed fuses: B = 5 and 6 share the 6-bucket, 3 has its own —
-        # two variants of `fuse_scans_masked`; a third is a bucketing
-        # regression.
-        gcfg, scfg = cfg.grid, cfg.scan
-        gr = G.empty_grid(gcfg, dev)
-        for nb in (3, 5, 6):
-            G.fuse_scans_bucketed(
-                gcfg, scfg, gr,
-                torch.ones((nb, scfg.padded_beams), dtype=torch.float32,
-                           device=dev),
-                torch.zeros((nb, 3), dtype=torch.float32, device=dev))
-        # Tenant buckets: one variant of `megabatch_step` per bucket.
-        mcfg = micro_config()
-        mworld = torch.as_tensor(W.empty_arena(
-            mcfg.grid.size_cells, mcfg.grid.resolution_m), device=dev)
-        mstate = FM.init_fleet_state(mcfg, device=dev,
-                                     generator=torch.Generator(
-                                         ).manual_seed(0))
-        for nt in a.budget_tenant_counts:
-            b = MBT.make_tenant_batch([mstate] * nt, [mworld] * nt,
-                                      [0] * nt)
-            # The wheel noise is drawn on the host (a CPU generator).
-            MBT.megabatch_step(mcfg, b, mcfg.grid.resolution_m,
-                               generator=torch.Generator().manual_seed(0))
-        # The windowed world: one fuse at global coordinates, a shift
-        # with a content-bearing leaving band (extract), a shift back
-        # (host-hit rehydrate = scatter), a prefetch poll.
-        wcfg = cfg.replace(
-            grid=dataclasses.replace(cfg.grid, size_cells=768),
-            world=dataclasses.replace(cfg.world, windowed=True,
-                                      window_tiles=4, margin_tiles=1))
-        wstore = WorldStore(wcfg)
-        win = G.empty_grid(wstore.cfg.grid, dev)
-        win = wstore.fuse_scan_global(
-            win, np.full((cfg.scan.padded_beams,), 1.0, np.float32),
-            np.zeros((3,), np.float32))
-        win = wstore.shift(win, 2, 2)
-        win = wstore.shift(win, -2, -2)
-        win, _ = wstore.poll_prefetch(win)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        wstore.close()
-    finally:
-        st.shutdown()
-    return {k: v for k, v in profiler.recompiles().items() if v > 0}
 
 
 def import_all() -> None:

@@ -15,7 +15,7 @@ the mapper is a staged path, not restore-and-go:
    epoch with `state=warming` instead of blocking (`bridge/http_api.py`);
 3. **ready** — a readiness gate compares the per-entry-point variant
    counts (`devprof.variant_counts`) with the port's compile budget
-   (`obs/compile_budget.json`), relative to the pre-warm baseline, and
+   (`analysis/compile_budget.json`), relative to the pre-warm baseline, and
    reports (never raises) what this warm-up grew past its maximum; the
    dispatch profiler then re-baselines so that warmed variants never
    count as live recompiles.
@@ -252,7 +252,8 @@ class StagedWarmup:
         a long-lived process the variants it already held are not this
         warm-up's doing."""
         from jax_mapping_torch.obs import devprof as DP
-        from jax_mapping_torch.obs.ledger import Budget, default_budget_path
+        from jax_mapping_torch.analysis.compilebudget import (
+            Budget, default_budget_path)
         try:
             budget = Budget.load(self.budget_path or default_budget_path())
         except Exception:                           # noqa: BLE001

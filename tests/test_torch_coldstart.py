@@ -466,9 +466,9 @@ def test_staged_warmup_racewatch_converges_on_declared_lock():
     """Eraser refinement over the warm-up state machine: a reader thread
     hammers state()/snapshot() while the driver walks the stages — zero
     reports, every watched field's candidate lockset converges on
-    `_lock` (the JAX package's protection map, by class name)."""
-    from jax_mapping.analysis.protection import groups_by_class
-    from jax_mapping.analysis.racewatch import RaceWatch
+    `_lock` (the port's protection map, `analysis/protection.py`)."""
+    from jax_mapping_torch.analysis.protection import groups_by_class
+    from jax_mapping_torch.analysis.racewatch import RaceWatch
     wu = StagedWarmup()
     watch = RaceWatch()
     try:
@@ -586,7 +586,8 @@ def test_resume_in_fresh_process_prewarms_the_manifest(tmp_path,
     # entry points whose variants in this mission exceed the budget
     # (warm_cost_fields' 1- and 2-robot sub-batches here, where the
     # canonical scenario makes one).
-    from jax_mapping_torch.obs.ledger import Budget, default_budget_path
+    from jax_mapping_torch.analysis.compilebudget import (
+        Budget, default_budget_path)
     over = sorted(e["name"] for e in
                   Budget.load(default_budget_path()).entries
                   if variants.get(e["name"], 0) > e["max"])

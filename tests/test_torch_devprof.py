@@ -15,7 +15,6 @@ maximum of the port's copy.
 """
 
 import json
-import subprocess
 import sys
 import types
 
@@ -28,7 +27,8 @@ from jax_mapping_torch.config import DevProfConfig
 from jax_mapping_torch.obs import CostLedger, DispatchProfiler
 from jax_mapping_torch.obs import devprof as DP
 from jax_mapping_torch.obs import ledger as L
-from tests.torch_jaxref import REPO, clean_cpu_env, run_reference
+from tests import torch_budget_run
+from tests.torch_jaxref import run_reference
 
 _FIXTURE_PREFIX = "devprof_fixture"
 
@@ -383,7 +383,7 @@ STATIC_ADDED = {"world.store.scatter_tile": {"t"}}
 NOT_PORTED: dict = {}
 
 REGISTRY_REF = '''
-import importlib, inspect, json, pkgutil
+import importlib, inspect, json, os, pkgutil
 import jax_mapping
 for m in pkgutil.walk_packages(jax_mapping.__path__,
                                prefix="jax_mapping."):
@@ -391,9 +391,7 @@ for m in pkgutil.walk_packages(jax_mapping.__path__,
         importlib.import_module(m.name)
     except Exception:
         pass
-from jax_mapping.analysis.compilebudget import snapshot_cache_sizes
-names = sorted(snapshot_cache_sizes())
-seen, static = set(), {}
+seen, static, names = set(), {}, []
 for mod_name, mod in sorted(sys.modules.items()):
     if mod is None or not mod_name.startswith("jax_mapping"):
         continue
@@ -409,8 +407,14 @@ for mod_name, mod in sorted(sys.modules.items()):
         owner = fn.__module__ if fn.__module__.startswith("jax_mapping") \\
             else mod_name
         static[f"{owner}.{fn.__name__}"] = sorted(st)
-from jax_mapping.analysis.compilebudget import default_budget_path
-with open(default_budget_path()) as f:
+        try:
+            fn._cache_size()
+        except Exception:
+            continue
+        names.append(f"{owner}.{fn.__name__}")
+names.sort()
+with open(os.path.join(os.path.dirname(jax_mapping.__file__), "analysis",
+                       "compile_budget.json")) as f:
     budget = json.load(f)
 OUT["names"] = np.array(json.dumps(names))
 OUT["static"] = np.array(json.dumps(static))
@@ -577,18 +581,10 @@ def test_ledger_k6_k7_arithmetic_equals_smoke_rows(B):
 @pytest.fixture(scope="module")
 def cost_ledger_run(tmp_path_factory):
     """`python -m jax_mapping_torch.obs cost-ledger --device cpu --budget
-    <the port's copy>` in a fresh process (cold, as the budget is
-    defined): its exit code and JSON."""
-    out = tmp_path_factory.mktemp("ledger") / "ledger.json"
-    env = clean_cpu_env()
-    env["PYTHONPATH"] = str(REPO)
-    r = subprocess.run(
-        [sys.executable, "-m", "jax_mapping_torch.obs", "cost-ledger",
-         "--device", "cpu", "--budget", L.default_budget_path(),
-         "-o", str(out)], capture_output=True, text=True, cwd=str(REPO),
-        env=env, timeout=600)
-    doc = json.loads(out.read_text()) if out.exists() else None
-    return r, doc
+    <the port's budget>` in a fresh process (cold, as the budget is
+    defined): its exit code and JSON, shared with the analysis self-check
+    (`tests/torch_budget_run.py`)."""
+    return torch_budget_run.cost_ledger_run(tmp_path_factory)
 
 
 def test_cost_ledger_cli_passes_the_budget(cost_ledger_run):

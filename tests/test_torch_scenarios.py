@@ -683,7 +683,8 @@ def test_devprof_live_recompile_guard(mission):
     """After the mission's warm-up, continued stepping of the live stack
     mints ZERO new variants in any profiled entry point; the budgeted
     entry points the mission dispatched all carry recompile telemetry."""
-    from jax_mapping_torch.obs.ledger import Budget, default_budget_path
+    from jax_mapping_torch.analysis.compilebudget import (
+        Budget, default_budget_path)
     st = mission["stack"]
     before = st.devprof.recompiles()
     st.run_steps(4)

@@ -620,12 +620,12 @@ def test_concurrent_hammer_no_stale_tiles(stack):
 
 
 def test_racewatch_clean_on_live_stack_with_serving(stack):
-    """The JAX package's lockset race watch (it imports no JAX) over the
-    port's live serving stack: the mapper, the grid tile store and the
+    """The port's lockset race watch (`analysis/racewatch.py`) over its
+    live serving stack: the mapper, the grid tile store and the
     event channel, hammered from the tile poller, SSE and long-poll
     threads, converge on their declared locks with no report."""
-    from jax_mapping.analysis.protection import groups_by_class
-    from jax_mapping.analysis.racewatch import RaceWatch
+    from jax_mapping_torch.analysis.protection import groups_by_class
+    from jax_mapping_torch.analysis.racewatch import RaceWatch
 
     by = groups_by_class()
     base = _base(stack)

@@ -486,11 +486,11 @@ def test_live_recompile_guard_with_tenancy_armed(world_np):
 
 
 def test_racewatch_admit_evict_cross_thread(world_np):
-    """Eraser lockset gate (the JAX package's racewatch, as it is):
+    """Eraser lockset gate (the port's `analysis/racewatch.py`):
     concurrent admit/evict churn, stepping and status polling produce no
     race report, and the batch field's lockset converges on `_lock`."""
-    from jax_mapping.analysis.protection import groups_by_class
-    from jax_mapping.analysis.racewatch import RaceWatch
+    from jax_mapping_torch.analysis.protection import groups_by_class
+    from jax_mapping_torch.analysis.racewatch import RaceWatch
 
     cp = _plane(MCFG.replace(tenancy=TenancyConfig(
         enabled=True, prewarm_on_admit=False)))

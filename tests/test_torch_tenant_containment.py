@@ -464,10 +464,10 @@ def test_client_tenant_gone_and_quarantine_stamp(world_np):
 def test_racewatch_quarantine_vs_status(world_np):
     """/status and /metrics polling races the stepping thread through
     poison, quarantine, probes and readmission: no race report, and the
-    ladder's lockset converges on `_lock` (the JAX package's racewatch,
-    as it is)."""
-    from jax_mapping.analysis.protection import groups_by_class
-    from jax_mapping.analysis.racewatch import RaceWatch
+    ladder's lockset converges on `_lock` (the port's
+    `analysis/racewatch.py`)."""
+    from jax_mapping_torch.analysis.protection import groups_by_class
+    from jax_mapping_torch.analysis.racewatch import RaceWatch
 
     cp = _plane()
     cp.admit("sick", world_np, seed=0)

@@ -468,12 +468,12 @@ def test_checkpoint_payload_spill_backed_flushes_host(tmp_path):
 def test_racewatch_evict_vs_serve_vs_status():
     """One tick thread shifting, evicting, rehydrating and holding
     pressure against three threads composing serving mosaics, reading
-    status and taking checkpoint payloads: the JAX package's RaceWatch,
-    with its protection groups for `WorldStore` and `MemoryGovernor`
+    status and taking checkpoint payloads: the port's RaceWatch, with
+    its protection groups for `WorldStore` and `MemoryGovernor`
     attached to the port's objects, reports nothing, and the cross-thread
     `_gen` converges on the store's lock."""
-    from jax_mapping.analysis.protection import groups_by_class
-    from jax_mapping.analysis.racewatch import RaceWatch
+    from jax_mapping_torch.analysis.protection import groups_by_class
+    from jax_mapping_torch.analysis.racewatch import RaceWatch
     cfg = _wcfg(host_tile_budget=64)
     store = WorldStore(cfg)
     win = G.empty_grid(store.cfg.grid, "cpu")
