@@ -1668,7 +1668,10 @@ class MapApiServer:
                              for s in labeled_histogram_samples(
                                  f'fn="{fn}"', h["edges_s"],
                                  h["buckets"], h["sum_s"],
-                                 h["count"]))),
+                                 h["count"])),
+                       "Host time a call of each entry point: the "
+                       "enqueue of its device work plus any host sync "
+                       "inside it, not device time."),
                 Family("jax_mapping_jit_recompiles_total", "counter",
                        tuple((f'{{fn="{fn}"}}', str(n))
                              for fn, n in recs.items())),

@@ -36,9 +36,12 @@ from jax_mapping_torch.ops import posegraph as PG
 from jax_mapping_torch.ops import scan_match as M
 from jax_mapping_torch.ops.odometry import pose_between, rk2_step, wrap_angle
 from jax_mapping_torch.sim import lidar, thymio
+from jax_mapping_torch.utils.profiling import global_metrics, span
 
 _ODO_W = (50.0, 100.0)          # odometry edge information (t, theta)
 _LOOP_W = (200.0, 400.0)        # verified loop edge information
+
+counters = global_metrics.counters
 
 
 class FleetState(NamedTuple):
@@ -172,6 +175,7 @@ def _verify_and_optimize(cfg: SlamConfig, graphs: PG.PoseGraph,
     fine_acc = torch.zeros(R, dtype=torch.bool, device=dev)
     fine_resp = torch.zeros(R, dtype=torch.float32, device=dev)
     run = (attempt | use_x).tolist()
+    counters.inc("tick.loop_attempts", sum(run))
     host = torch.stack([vrobot, vcand, vk]).tolist()
     for r in range(R):
         if not run[r]:
@@ -201,6 +205,7 @@ def _verify_and_optimize(cfg: SlamConfig, graphs: PG.PoseGraph,
 
     graphs3 = graphs2
     closed_idx = torch.nonzero(closed).flatten()
+    counters.inc("tick.loops_closed", closed_idx.numel())
     if closed_idx.numel():
         opt = PG.optimize(cfg.loop, PG.index(graphs2, closed_idx))
         graphs3 = graphs2._replace(poses=graphs2.poses.index_copy(
@@ -222,11 +227,13 @@ def _close_loops(cfg: SlamConfig, graphs: PG.PoseGraph, grid: torch.Tensor,
         xcand, xattempt)
     if bool(closed.any()):
         R, cap, beams = rings.shape
+        folded = G.scans_folded()
         grid = G.fuse_scans_masked(
             cfg.grid, cfg.scan, G.empty_grid(cfg.grid, grid.device),
             rings.reshape(R * cap, beams),
             graphs3.poses[:, :cap].reshape(R * cap, 3),
             graphs3.pose_valid[:, :cap].reshape(R * cap))
+        counters.inc("tick.scans_refused", G.scans_folded() - folded)
     return graphs3, grid, est2, closed
 
 
@@ -298,48 +305,60 @@ def _tick_sense(cfg: SlamConfig, state: FleetState, world_res_m: float,
         return _unflat(x, lead)
 
     sim_poses = flat(state.sim.poses)
-    scans = lidar.simulate_scans(cfg.scan, world, world_res_m, n_samples,
-                                 sim_poses, tenant=tenant)
-    prox = lidar.ir_proximity(world, world_res_m, sim_poses, tenant=tenant)
-    fr = F.compute_frontiers(cfg.frontier, cfg.grid, state.grid,
-                             state.est_poses)
-    a = fr.assignment.long().clamp_min(0)
-    goals = torch.gather(fr.targets, -2, a[..., None].expand(*a.shape, 2))
-    goal_valid = fr.assignment >= 0
-    if cfg.frontier.planned_goals:
-        # A waypoint along the min-plus shortest path to the assigned
-        # target replaces the straight-line goal wherever a plan exists;
-        # over the megabatch's T grids, one cost-field call for all.
-        wps, wvalid = F.assigned_waypoints(cfg.frontier, cfg.grid,
-                                           state.grid, state.est_poses,
-                                           fr.targets, fr.assignment)
-        goals = torch.where(wvalid[..., None], wps, goals)
+    with span("tick.sim"):
+        scans = lidar.simulate_scans(cfg.scan, world, world_res_m,
+                                     n_samples, sim_poses, tenant=tenant)
+        prox = lidar.ir_proximity(world, world_res_m, sim_poses,
+                                  tenant=tenant)
+    with span("tick.frontier"):
+        fr = F.compute_frontiers(cfg.frontier, cfg.grid, state.grid,
+                                 state.est_poses)
+        a = fr.assignment.long().clamp_min(0)
+        goals = torch.gather(fr.targets, -2,
+                             a[..., None].expand(*a.shape, 2))
+        goal_valid = fr.assignment >= 0
+        if cfg.frontier.planned_goals:
+            # A waypoint along the min-plus shortest path to the assigned
+            # target replaces the straight-line goal wherever a plan
+            # exists; over the megabatch's T grids, one cost-field call
+            # for all.
+            wps, wvalid = F.assigned_waypoints(cfg.frontier, cfg.grid,
+                                               state.grid, state.est_poses,
+                                               fr.targets, fr.assignment)
+            goals = torch.where(wvalid[..., None], wps, goals)
     est0 = flat(state.est_poses)
-    pol = frontier_policy(cfg.robot, cfg.scan, est0, flat(goals),
-                          flat(goal_valid), scans, prox,
-                          flat(state.exploring))
-    # step_fleet's own noise fraction, as in the JAX fleet tick (which
-    # does not pass RobotConfig.speed_noise_frac either).
-    sim2, measured = thymio.step_fleet(
-        cfg.robot, thymio.FleetSimState(sim_poses,
-                                        flat(state.sim.wheel_speeds)),
-        pol.targets.to(torch.float32), dt, wheel_normals=wheel_normals,
-        generator=generator)
-    # Odometry, then the key-scan gate.
-    est = rk2_step(cfg.robot, est0, measured[:, 0], measured[:, 1], dt)
-    last_key = flat(state.last_key_poses)
-    d = _norm2(est[:, :2] - last_key[:, :2])
-    dth = torch.abs(wrap_angle(est[:, 2] - last_key[:, 2]))
-    is_key = (d > cfg.matcher.min_travel_m) | \
-        (dth > cfg.matcher.min_heading_rad)
-    res = M.match_batch(cfg.grid, cfg.scan, cfg.matcher, state.grid, scans,
-                        est, tenant=tenant)
-    est = torch.where((is_key & res.accepted)[:, None], res.pose, est)
+    with span("tick.policy"):
+        pol = frontier_policy(cfg.robot, cfg.scan, est0, flat(goals),
+                              flat(goal_valid), scans, prox,
+                              flat(state.exploring))
+    with span("tick.motion"):
+        # step_fleet's own noise fraction, as in the JAX fleet tick (which
+        # does not pass RobotConfig.speed_noise_frac either).
+        sim2, measured = thymio.step_fleet(
+            cfg.robot, thymio.FleetSimState(sim_poses,
+                                            flat(state.sim.wheel_speeds)),
+            pol.targets.to(torch.float32), dt, wheel_normals=wheel_normals,
+            generator=generator)
+        # Odometry, then the key-scan gate.
+        est = rk2_step(cfg.robot, est0, measured[:, 0], measured[:, 1], dt)
+        last_key = flat(state.last_key_poses)
+        d = _norm2(est[:, :2] - last_key[:, :2])
+        dth = torch.abs(wrap_angle(est[:, 2] - last_key[:, 2]))
+        is_key = (d > cfg.matcher.min_travel_m) | \
+            (dth > cfg.matcher.min_heading_rad)
+    with span("tick.match"):
+        res = M.match_batch(cfg.grid, cfg.scan, cfg.matcher, state.grid,
+                            scans, est, tenant=tenant)
+        est = torch.where((is_key & res.accepted)[:, None], res.pose, est)
+    counters.inc("tick.scans_matched", scans.shape[0])
     if cfg.mode == "localization":
         grid = state.grid
     else:
-        grid = G.fuse_scans_masked(cfg.grid, cfg.scan, state.grid, scans,
-                                   est, is_key, tenant=tenant)
+        with span("tick.fuse"):
+            folded = G.scans_folded()
+            grid = G.fuse_scans_masked(cfg.grid, cfg.scan, state.grid,
+                                       scans, est, is_key, tenant=tenant)
+        counters.inc("tick.scans_fused", G.scans_folded() - folded)
     return _TickSense(
         sim2=thymio.FleetSimState(*(unflat(x) for x in sim2)),
         pol=PolicyOut(*(unflat(x) for x in pol)), fr=fr,
@@ -354,24 +373,25 @@ def _tick_graph(cfg: SlamConfig, graphs: PG.PoseGraph, rings: torch.Tensor,
     cand, attempt, xrobot, xcand, xattempt), on (R, ...) robots or the
     megabatch's (T, R, ...); cross-robot candidates stay within a
     mission."""
-    lead = tuple(est.shape[:-1])
-    if cfg.mode == "localization":
-        zi = torch.zeros(lead, dtype=torch.int32, device=est.device)
-        zb = torch.zeros(lead, dtype=torch.bool, device=est.device)
-        return graphs, rings, zi, zi, zb, zi, zi, zb
-    g, rings, k_idx = _update_graphs(
-        cfg, PG.PoseGraph(*(_flat(x, lead) for x in graphs)),
-        _flat(est, lead), _flat(is_key, lead), _flat(scans, lead),
-        _flat(rings, lead))
-    cand, cand_found = PG.loop_candidate(cfg.loop, g, k_idx)
-    graphs = PG.PoseGraph(*(_unflat(x, lead) for x in g))
-    rings, k_idx, cand, cand_found = (_unflat(x, lead) for x in
-                                      (rings, k_idx, cand, cand_found))
-    attempt = is_key & cand_found & bool(cfg.loop.enabled)
-    xrobot, xcand, xfound = _cross_candidates(cfg, graphs, est)
-    xattempt = is_key & ~accepted & xfound & ~attempt & \
-        bool(cfg.loop.enabled) & bool(cfg.loop.cross_robot)
-    return graphs, rings, k_idx, cand, attempt, xrobot, xcand, xattempt
+    with span("tick.graph"):
+        lead = tuple(est.shape[:-1])
+        if cfg.mode == "localization":
+            zi = torch.zeros(lead, dtype=torch.int32, device=est.device)
+            zb = torch.zeros(lead, dtype=torch.bool, device=est.device)
+            return graphs, rings, zi, zi, zb, zi, zi, zb
+        g, rings, k_idx = _update_graphs(
+            cfg, PG.PoseGraph(*(_flat(x, lead) for x in graphs)),
+            _flat(est, lead), _flat(is_key, lead), _flat(scans, lead),
+            _flat(rings, lead))
+        cand, cand_found = PG.loop_candidate(cfg.loop, g, k_idx)
+        graphs = PG.PoseGraph(*(_unflat(x, lead) for x in g))
+        rings, k_idx, cand, cand_found = (_unflat(x, lead) for x in
+                                          (rings, k_idx, cand, cand_found))
+        attempt = is_key & cand_found & bool(cfg.loop.enabled)
+        xrobot, xcand, xfound = _cross_candidates(cfg, graphs, est)
+        xattempt = is_key & ~accepted & xfound & ~attempt & \
+            bool(cfg.loop.enabled) & bool(cfg.loop.cross_robot)
+        return graphs, rings, k_idx, cand, attempt, xrobot, xcand, xattempt
 
 
 def _tick_pre(cfg: SlamConfig, state: FleetState, world_res_m: float,
@@ -417,17 +437,21 @@ def fleet_step(cfg: SlamConfig, state: FleetState, world_res_m: float,
     wheel_normals: (R, 2) standard normals of this tick's wheel noise;
     None draws them from `generator`. Returns (state, diag)."""
     ensure_valid_mode(cfg)
-    pre = _tick_pre(cfg, state, world_res_m, world, wheel_normals,
-                    generator)
-    if cfg.mode == "localization":
-        grid, graphs, est = pre.grid, pre.graphs, pre.est
-        closed = torch.zeros_like(pre.is_key)
-    elif bool((pre.attempt | pre.xattempt).any()):   # one host sync a tick
-        graphs, grid, est, closed = _close_loops(
-            cfg, pre.graphs, pre.grid, pre.rings, pre.est, pre.scans,
-            pre.k_idx, pre.cand, pre.attempt, pre.xrobot, pre.xcand,
-            pre.xattempt)
-    else:
-        graphs, grid, est = pre.graphs, pre.grid, pre.est
-        closed = torch.zeros_like(pre.attempt)
-    return _tick_finish(cfg, state, pre, grid, graphs, est, closed)
+    counters.inc("fleet.ticks")
+    with span("fleet.tick"):
+        pre = _tick_pre(cfg, state, world_res_m, world, wheel_normals,
+                        generator)
+        with span("tick.loop"):
+            if cfg.mode == "localization":
+                grid, graphs, est = pre.grid, pre.graphs, pre.est
+                closed = torch.zeros_like(pre.is_key)
+            elif bool((pre.attempt | pre.xattempt).any()):   # one host sync a tick
+                graphs, grid, est, closed = _close_loops(
+                    cfg, pre.graphs, pre.grid, pre.rings, pre.est, pre.scans,
+                    pre.k_idx, pre.cand, pre.attempt, pre.xrobot, pre.xcand,
+                    pre.xattempt)
+            else:
+                graphs, grid, est = pre.graphs, pre.grid, pre.est
+                closed = torch.zeros_like(pre.attempt)
+        with span("tick.finish"):
+            return _tick_finish(cfg, state, pre, grid, graphs, est, closed)

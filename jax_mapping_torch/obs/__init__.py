@@ -28,7 +28,8 @@ Port of the JAX package's `obs` package, host half (stdlib only):
 * `devprof`  — `DispatchProfiler`: the device half's dispatch
                attribution over the port's marked entry points (host
                time a call, recompiles as new signature keys, captured
-               signatures, the card's memory watermarks). Gated by
+               signatures, the card's memory watermarks; each call a
+               `utils.profiling.span` named by its entry point). Gated by
                `ObsConfig.devprof.enabled`.
 * `ledger`   — `CostLedger`: FLOPs and bytes per captured signature, from
                an aten-op count on zeros and the kernels' own arithmetic;

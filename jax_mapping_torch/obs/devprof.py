@@ -10,10 +10,14 @@ with JAX's static argument names kept beside each mark):
   defines) and rebinds EVERY alias of each marked function to one
   pass-through `_ProfiledFn` wrapper; `uninstall()` restores the sites
   that still hold it.
-* Each call records host wall time around the call (JAX's blocked-on-
-  dispatch time: no CUDA event and no synchronisation on the call's
-  path; what the card itself spends is the smoke's `device_ms`) into a
-  fixed log-bucket histogram (`HIST_EDGES_S`) and a call counter.
+* Each call records host wall time around the call into a fixed
+  log-bucket histogram (`HIST_EDGES_S`) and a call counter. That is the
+  host's time a call: the enqueue of its device work plus any host sync
+  inside it, not the device's time (no CUDA event and no
+  synchronisation on the call's path), as JAX's blocked-on-dispatch
+  time is. Each profiled call also runs inside `span(<its name>)`, so a
+  `utils.profiling.device_trace` around the stack attributes the
+  device's own time to each entry point by launch correlation.
 * A "compiled variant" is a new signature key of the function: each
   tensor leaf as (shape, dtype, device), NamedTuples walked by field,
   static arguments by value, a traced Python scalar by its type only
@@ -54,7 +58,7 @@ import time
 import types
 from typing import Dict, List, Optional, Tuple
 
-from jax_mapping_torch.utils.profiling import HIST_EDGES_S
+from jax_mapping_torch.utils.profiling import HIST_EDGES_S, span
 
 #: Process-global install guard: module-attribute rebinding is
 #: process-wide, so at most one profiler may be installed at a time.
@@ -489,7 +493,8 @@ class _ProfiledFn:
         _tls.depth = 1
         t0 = time.perf_counter()
         try:
-            return self._fn(*args, **kwargs)
+            with span(self._name):
+                return self._fn(*args, **kwargs)
         finally:
             dt = time.perf_counter() - t0
             _tls.depth = 0
@@ -688,7 +693,8 @@ class DispatchProfiler:
 
     def histograms(self) -> Dict[str, dict]:
         """Per-function fixed log-bucket dispatch histograms — the
-        `jax_mapping_device_dispatch_seconds` family source."""
+        `jax_mapping_device_dispatch_seconds` family source: host time a
+        call (the enqueue plus any sync inside), not device time."""
         with self._lock:
             return {
                 name: {

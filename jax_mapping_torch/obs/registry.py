@@ -44,6 +44,7 @@ class Family(NamedTuple):
     name: str
     mtype: str                        # counter | gauge | histogram | summary
     samples: Tuple[Sample, ...]
+    help: str = ""                    # a `# HELP` line when set
 
 
 class MetricsRegistry:
@@ -83,6 +84,8 @@ class MetricsRegistry:
         lines: List[str] = []
         for src in sources:
             for fam in (src() or ()):
+                if fam.help:
+                    lines.append(f"# HELP {fam.name} {fam.help}")
                 lines.append(f"# TYPE {fam.name} {fam.mtype}")
                 for suffix, value in fam.samples:
                     lines.append(f"{fam.name}{suffix} {value}")

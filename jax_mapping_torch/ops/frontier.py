@@ -36,6 +36,7 @@ from jax_mapping_torch.config import FrontierConfig, GridConfig
 from jax_mapping_torch.obs import ledger
 from jax_mapping_torch.ops import _cuda
 from jax_mapping_torch.ops import costfield as CF
+from jax_mapping_torch.utils.profiling import span
 
 _BIG = 1e9
 
@@ -327,37 +328,39 @@ def _cluster_hierarchical(cfg: FrontierConfig, grid_cfg: GridConfig,
     block. `origin_rc` as in `_summarize`."""
     c = cfg.cluster_downsample
     T = mask.shape[0]
-    mask2 = _pool_any(mask, c)
-    w2 = _pool_sum(mask, c)
-    cfg_c = dataclasses.replace(
-        cfg, label_prop_iters=max(1, -(-cfg.label_prop_iters // c)))
-    labels2 = label_components(cfg_c, mask2)
-    centroids, targets2, sizes, slots2, rep_rc = _summarize(
-        cfg, grid_cfg, labels2, weights=w2, scale=c, origin_rc=origin_rc)
+    with span("frontier.labels"):
+        mask2 = _pool_any(mask, c)
+        w2 = _pool_sum(mask, c)
+        cfg_c = dataclasses.replace(
+            cfg, label_prop_iters=max(1, -(-cfg.label_prop_iters // c)))
+        labels2 = label_components(cfg_c, mask2)
+    with span("frontier.clusters"):
+        centroids, targets2, sizes, slots2, rep_rc = _summarize(
+            cfg, grid_cfg, labels2, weights=w2, scale=c, origin_rc=origin_rc)
 
-    res1 = grid_cfg.resolution_m * cfg.downsample
-    ox, oy = grid_cfg.origin_m
-    ar = torch.arange(c, device=mask.device)
-    tt = torch.arange(T, device=mask.device)[:, None, None, None]
-    rr = rep_rc[..., 0, None] * c + ar                         # (T, K, c)
-    cc = rep_rc[..., 1, None] * c + ar
-    win = mask[tt, rr[..., :, None], cc[..., None, :]].reshape(
-        T, -1, c * c)
-    idx = torch.argmax(win.to(torch.uint8), dim=-1)            # first True
-    any_fine = win.any(dim=-1)
-    fr = rep_rc[..., 0] * c + torch.div(idx, c, rounding_mode="floor")
-    fc = rep_rc[..., 1] * c + idx % c
-    if origin_rc is not None:
-        fr = fr + origin_rc[0]
-        fc = fc + origin_rc[1]
-    fine = torch.stack([(fc.to(torch.float32) + 0.5) * res1 + ox,
-                        (fr.to(torch.float32) + 0.5) * res1 + oy], -1)
-    targets = torch.where(any_fine[..., None], fine, targets2)
-    targets = torch.where((sizes > 0)[..., None], targets, _BIG)
+        res1 = grid_cfg.resolution_m * cfg.downsample
+        ox, oy = grid_cfg.origin_m
+        ar = torch.arange(c, device=mask.device)
+        tt = torch.arange(T, device=mask.device)[:, None, None, None]
+        rr = rep_rc[..., 0, None] * c + ar                         # (T, K, c)
+        cc = rep_rc[..., 1, None] * c + ar
+        win = mask[tt, rr[..., :, None], cc[..., None, :]].reshape(
+            T, -1, c * c)
+        idx = torch.argmax(win.to(torch.uint8), dim=-1)            # first True
+        any_fine = win.any(dim=-1)
+        fr = rep_rc[..., 0] * c + torch.div(idx, c, rounding_mode="floor")
+        fc = rep_rc[..., 1] * c + idx % c
+        if origin_rc is not None:
+            fr = fr + origin_rc[0]
+            fc = fc + origin_rc[1]
+        fine = torch.stack([(fc.to(torch.float32) + 0.5) * res1 + ox,
+                            (fr.to(torch.float32) + 0.5) * res1 + oy], -1)
+        targets = torch.where(any_fine[..., None], fine, targets2)
+        targets = torch.where((sizes > 0)[..., None], targets, _BIG)
 
-    labels = torch.where(mask, _upsample(labels2, c), -1)
-    slots = torch.where(mask, _upsample(slots2, c), -1)
-    return labels, slots, centroids, targets, sizes, rep_rc, mask2
+        labels = torch.where(mask, _upsample(labels2, c), -1)
+        slots = torch.where(mask, _upsample(slots2, c), -1)
+        return labels, slots, centroids, targets, sizes, rep_rc, mask2
 
 
 # ---------------------------------------------------------------------------
@@ -563,20 +566,23 @@ def compute_frontiers_from_masks(cfg: FrontierConfig, grid_cfg: GridConfig,
     res = grid_cfg.resolution_m * cfg.downsample
     ox, oy = grid_cfg.origin_m
     n = free.shape[-1]
-    bfs_passable, bfs_res = bfs_passability(cfg, grid_cfg, free, unknown,
-                                            mask)
+    with span("frontier.costs"):
+        bfs_passable, bfs_res = bfs_passability(cfg, grid_cfg, free,
+                                                unknown, mask)
     if c == 1:
-        labels = label_components(cfg, mask)
-        centroids, targets, sizes, slots, _ = _summarize(
-            cfg, grid_cfg, labels, weights=None, scale=1,
-            origin_rc=origin_rc)
-        tgt_r = _to_int32(div(targets[..., 1] - oy, res))
-        tgt_c = _to_int32(div(targets[..., 0] - ox, res))
-        if origin_rc is not None:
-            tgt_r = tgt_r - origin_rc[0]
-            tgt_c = tgt_c - origin_rc[1]
-        tgt_r = tgt_r.clamp(0, n - 1)
-        tgt_c = tgt_c.clamp(0, n - 1)
+        with span("frontier.labels"):
+            labels = label_components(cfg, mask)
+        with span("frontier.clusters"):
+            centroids, targets, sizes, slots, _ = _summarize(
+                cfg, grid_cfg, labels, weights=None, scale=1,
+                origin_rc=origin_rc)
+            tgt_r = _to_int32(div(targets[..., 1] - oy, res))
+            tgt_c = _to_int32(div(targets[..., 0] - ox, res))
+            if origin_rc is not None:
+                tgt_r = tgt_r - origin_rc[0]
+                tgt_c = tgt_c - origin_rc[1]
+            tgt_r = tgt_r.clamp(0, n - 1)
+            tgt_c = tgt_c.clamp(0, n - 1)
         bfs_scale = 1.0
     else:
         labels, slots, centroids, targets, sizes, rep_rc, _ = \
@@ -604,28 +610,30 @@ def compute_frontiers_from_masks(cfg: FrontierConfig, grid_cfg: GridConfig,
                 cfg, bfs_iters=max(1, -(-cfg.bfs_iters // c))))
             T, R = rr.shape
             nb = bfs_passable.shape[-1]
-            exact = cost_to_go(
-                bfs_cfg, bfs_passable[:, None].expand(T, R, nb, nb)
-                .reshape(T * R, nb, nb),
-                torch.stack([rr, cc], -1).reshape(T * R, 1, 2),
-                torch.ones((T * R, 1), dtype=torch.bool,
-                           device=free.device))
+            with span("frontier.costs"):
+                exact = cost_to_go(
+                    bfs_cfg, bfs_passable[:, None].expand(T, R, nb, nb)
+                    .reshape(T * R, nb, nb),
+                    torch.stack([rr, cc], -1).reshape(T * R, 1, 2),
+                    torch.ones((T * R, 1), dtype=torch.bool,
+                               device=free.device))
             costs = _gather_costs(exact.reshape(T, R, nb, nb), tgt_r,
                                   tgt_c) * bfs_scale
         else:
             robot_rc = torch.stack([rr, cc], dim=-1)           # (T, R, 2)
-            if warm_fields is not None:
-                fields = CF.warm_cost_fields(
-                    ~bfs_passable[0], robot_rc[0], warm_fields,
-                    cfg.warm_extra_iters if warm_iters is None
-                    else warm_iters)[None]
-            elif batched:
-                fields = CF.cost_fields(~bfs_passable, robot_rc,
-                                        cfg.mg_levels, cfg.mg_refine_iters)
-            else:
-                fields = CF.cost_fields(~bfs_passable[0], robot_rc[0],
-                                        cfg.mg_levels,
-                                        cfg.mg_refine_iters)[None]
+            with span("frontier.costs"):
+                if warm_fields is not None:
+                    fields = CF.warm_cost_fields(
+                        ~bfs_passable[0], robot_rc[0], warm_fields,
+                        cfg.warm_extra_iters if warm_iters is None
+                        else warm_iters)[None]
+                elif batched:
+                    fields = CF.cost_fields(~bfs_passable, robot_rc,
+                                            cfg.mg_levels, cfg.mg_refine_iters)
+                else:
+                    fields = CF.cost_fields(~bfs_passable[0], robot_rc[0],
+                                            cfg.mg_levels,
+                                            cfg.mg_refine_iters)[None]
             costs = _gather_costs(fields, tgt_r, tgt_c) * bfs_scale
         costs = torch.clamp_max(costs, _BIG)
     else:
@@ -652,7 +660,8 @@ def compute_frontiers_from_masks(cfg: FrontierConfig, grid_cfg: GridConfig,
         # auction's `< _BIG` gate.
         costs = torch.where(costs < _BIG, costs * scale, costs)
     costs = torch.where((sizes > 0)[:, None, :], costs, _BIG)
-    assignment = assign_frontiers(costs)
+    with span("frontier.assign"):
+        assignment = assign_frontiers(costs)
     result = FrontierResult(mask=mask, labels=labels, slots=slots,
                             centroids=centroids, targets=targets,
                             sizes=sizes, assignment=assignment, costs=costs)

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -215,6 +216,18 @@ def _classify_batch(grid_cfg: GridConfig, scan_cfg: ScanConfig,
     return deltas, origins
 
 
+#: The calling thread's running count of scans its folds applied.
+_FOLDED = threading.local()
+
+
+def scans_folded() -> int:
+    """Scans the calling thread's folds have applied so far (rows whose
+    mask is False, padding included, are not applied). A caller reads it
+    before and after a fusion to count that fusion's scans, with no
+    device read: the fold already has the mask on the host."""
+    return getattr(_FOLDED, "n", 0)
+
+
 def _fold(grid_cfg: GridConfig, grid_arr: torch.Tensor,
           deltas: torch.Tensor, origins: torch.Tensor,
           mask_b: Optional[torch.Tensor], clamp: bool = True,
@@ -234,6 +247,7 @@ def _fold(grid_cfg: GridConfig, grid_arr: torch.Tensor,
     if tenant is not None:
         cols.append(tenant.to(torch.int32)[:, None])
     host = torch.cat(cols, dim=1).tolist()
+    _FOLDED.n = scans_folded() + sum(row[2] for row in host)
     for b, row in enumerate(host):
         if row[2]:
             apply_patch(grid_cfg, grid_arr if tenant is None

@@ -37,6 +37,7 @@ from jax_mapping_torch._util import const, div, entry_point, full_f32
 from jax_mapping_torch.config import GridConfig, MatcherConfig, ScanConfig
 from jax_mapping_torch.ops import grid as G
 from jax_mapping_torch.ops import sensor_kernel as SK
+from jax_mapping_torch.utils.profiling import span
 
 
 class MatchResult(NamedTuple):
@@ -404,22 +405,24 @@ def match_batch(grid_cfg: GridConfig, scan_cfg: ScanConfig,
     R = ranges_b.shape[0]
     P = grid_cfg.patch_cells
     dev = grid_arr.device
-    origin = G.patch_origin(grid_cfg, guesses_b[:, :2])          # (R, 2)
-    ar = torch.arange(P, device=dev)
-    rows = (origin[:, 0:1].long() + ar)[:, :, None]
-    cols = (origin[:, 1:2].long() + ar)[:, None, :]
-    if tenant is None:
-        patch = grid_arr[rows, cols]                             # (R, P, P)
-        lane_rows = None
-    else:
-        patch = grid_arr[tenant.long()[:, None, None], rows, cols]
-        lane_rows = R // grid_arr.shape[0]
-    with _lanes(lane_rows):
+    stride, n_steps = window_params(grid_cfg, m_cfg)
+    n_levels = bnb_num_levels(m_cfg, n_steps) if m_cfg.pruned else 0
+    with span("match.field"):
+        origin = G.patch_origin(grid_cfg, guesses_b[:, :2])      # (R, 2)
+        ar = torch.arange(P, device=dev)
+        rows = (origin[:, 0:1].long() + ar)[:, :, None]
+        cols = (origin[:, 1:2].long() + ar)[:, None, :]
+        if tenant is None:
+            patch = grid_arr[rows, cols]                         # (R, P, P)
+            lane_rows = None
+        else:
+            patch = grid_arr[tenant.long()[:, None, None], rows, cols]
+            lane_rows = R // grid_arr.shape[0]
         field = likelihood_field(grid_cfg, m_cfg, patch)
-        stride, n_steps = window_params(grid_cfg, m_cfg)
-        n_levels = bnb_num_levels(m_cfg, n_steps) if m_cfg.pruned else 0
         if n_levels > 0:
             levels = build_levels(field, n_steps, stride, n_levels)
+    with _lanes(lane_rows):
+        if n_levels > 0:
             return _match_bnb(grid_cfg, scan_cfg, m_cfg, levels, origin,
                               ranges_b, guesses_b, n_levels)
         return _match_exhaustive(grid_cfg, scan_cfg, m_cfg, field, origin,
@@ -490,44 +493,50 @@ def _match_exhaustive(grid_cfg: GridConfig, scan_cfg: ScanConfig,
     res = grid_cfg.resolution_m
     stride, n_steps = window_params(grid_cfg, m_cfg)
     nw = 2 * n_steps + 1
-    dth_c = _angle_grid(m_cfg.coarse_angle_half_rad,
-                        m_cfg.coarse_angle_step_rad, dev)
-    A_c = dth_c.shape[0]
-    rasters_c, mass_c = _raster_batch(grid_cfg, scan_cfg, ranges,
-                                      _coarse_poses(guess, dth_c), origin)
-    mass_ref = torch.clamp_min(mass_c.amax(dim=1), 1e-6)
-    resp_c = _conv_scores(field, rasters_c, mass_ref, n_steps, stride)
     step_m = stride * res
-    offs = torch.arange(-n_steps, n_steps + 1, dtype=torch.float32,
-                        device=dev) * step_m
-    d2_c = offs[None, :] * offs[None, :] + offs[:, None] * offs[:, None]
-    pen_c = _pen_dist(m_cfg, d2_c)[None] * \
-        _pen_angle(m_cfg, dth_c)[:, None, None]
-    best_c = torch.argmax((resp_c * pen_c[None]).reshape(R, -1), dim=1)
-    ai_c = torch.div(best_c, nw * nw, rounding_mode="floor")
-    sy_c = torch.div(best_c % (nw * nw), nw, rounding_mode="floor")
-    sx_c = best_c % nw
-    rr = _rows(R, dev)
-    coarse_resp = resp_c[rr, ai_c, sy_c, sx_c]
-    dth0 = dth_c[ai_c]
-    shift0 = torch.stack([(sx_c - n_steps).to(torch.float32) * step_m,
-                          (sy_c - n_steps).to(torch.float32) * step_m], -1)
-    pose, fine_resp = _fine_stages(grid_cfg, scan_cfg, m_cfg, field, origin,
-                                   ranges, guess, mass_ref, dth0, shift0)
+    with span("match.search"):
+        dth_c = _angle_grid(m_cfg.coarse_angle_half_rad,
+                            m_cfg.coarse_angle_step_rad, dev)
+        A_c = dth_c.shape[0]
+        rasters_c, mass_c = _raster_batch(grid_cfg, scan_cfg, ranges,
+                                          _coarse_poses(guess, dth_c),
+                                          origin)
+        mass_ref = torch.clamp_min(mass_c.amax(dim=1), 1e-6)
+        resp_c = _conv_scores(field, rasters_c, mass_ref, n_steps, stride)
+        offs = torch.arange(-n_steps, n_steps + 1, dtype=torch.float32,
+                            device=dev) * step_m
+        d2_c = offs[None, :] * offs[None, :] + offs[:, None] * offs[:, None]
+        pen_c = _pen_dist(m_cfg, d2_c)[None] * \
+            _pen_angle(m_cfg, dth_c)[:, None, None]
+        best_c = torch.argmax((resp_c * pen_c[None]).reshape(R, -1), dim=1)
+        ai_c = torch.div(best_c, nw * nw, rounding_mode="floor")
+        sy_c = torch.div(best_c % (nw * nw), nw, rounding_mode="floor")
+        sx_c = best_c % nw
+        rr = _rows(R, dev)
+        coarse_resp = resp_c[rr, ai_c, sy_c, sx_c]
+    with span("match.refine"):
+        dth0 = dth_c[ai_c]
+        shift0 = torch.stack([(sx_c - n_steps).to(torch.float32) * step_m,
+                              (sy_c - n_steps).to(torch.float32) * step_m],
+                             -1)
+        pose, fine_resp = _fine_stages(grid_cfg, scan_cfg, m_cfg, field,
+                                       origin, ranges, guess, mass_ref,
+                                       dth0, shift0)
 
-    var_x, var_y = _xy_cov(resp_c[rr, ai_c], offs)
-    _, var_th = _softmax_moments(resp_c.amax(dim=(2, 3)), dth_c)
-    cov = torch.stack([
-        torch.clamp_min(var_x, (step_m / 2) ** 2 / 3),
-        torch.clamp_min(var_y, (step_m / 2) ** 2 / 3),
-        torch.clamp_min(var_th, (m_cfg.coarse_angle_step_rad / 2) ** 2 / 3),
-    ], -1)
-    return MatchResult(
-        pose=pose, response=fine_resp, coarse_response=coarse_resp,
-        accepted=fine_resp >= m_cfg.min_response, cov=cov,
-        n_candidates=torch.full((R,), A_c * nw * nw, dtype=torch.int32,
-                                device=dev),
-        prune_ratio=torch.zeros(R, dtype=torch.float32, device=dev))
+        var_x, var_y = _xy_cov(resp_c[rr, ai_c], offs)
+        _, var_th = _softmax_moments(resp_c.amax(dim=(2, 3)), dth_c)
+        cov = torch.stack([
+            torch.clamp_min(var_x, (step_m / 2) ** 2 / 3),
+            torch.clamp_min(var_y, (step_m / 2) ** 2 / 3),
+            torch.clamp_min(var_th,
+                            (m_cfg.coarse_angle_step_rad / 2) ** 2 / 3),
+        ], -1)
+        return MatchResult(
+            pose=pose, response=fine_resp, coarse_response=coarse_resp,
+            accepted=fine_resp >= m_cfg.min_response, cov=cov,
+            n_candidates=torch.full((R,), A_c * nw * nw, dtype=torch.int32,
+                                    device=dev),
+            prune_ratio=torch.zeros(R, dtype=torch.float32, device=dev))
 
 
 def _fine_stages(grid_cfg: GridConfig, scan_cfg: ScanConfig,
@@ -616,11 +625,12 @@ def _match_bnb(grid_cfg: GridConfig, scan_cfg: ScanConfig,
                m_cfg: MatcherConfig, levels, origin: torch.Tensor,
                ranges: torch.Tensor, guess: torch.Tensor,
                n_levels: int) -> MatchResult:
-    dth_c, rasters_c, mass_ref = _bnb_setup(grid_cfg, scan_cfg, m_cfg,
-                                            origin, ranges, guess)
     stride, n_steps = window_params(grid_cfg, m_cfg)
-    resp_top = _bnb_top(levels, rasters_c, mass_ref, n_steps, stride,
-                        n_levels)
+    with span("match.search"):
+        dth_c, rasters_c, mass_ref = _bnb_setup(grid_cfg, scan_cfg, m_cfg,
+                                                origin, ranges, guess)
+        resp_top = _bnb_top(levels, rasters_c, mass_ref, n_steps, stride,
+                            n_levels)
     return _bnb_finish(grid_cfg, scan_cfg, m_cfg, levels, resp_top,
                        rasters_c, mass_ref, dth_c, origin, ranges, guess,
                        n_levels)
@@ -644,38 +654,43 @@ def _bnb_finish(grid_cfg: GridConfig, scan_cfg: ScanConfig,
     A_c = dth_c.shape[0]
     pad = n_steps * stride
 
-    ai_c, iy_b, ix_b, coarse_resp, n_scored = _bnb_winner(
-        m_cfg, levels, resp_top, rasters_c, mass_ref, dth_c, n_steps,
-        stride, step_m, n_levels)
-    field = levels[0][:, pad:-pad, pad:-pad]
-    dth0 = dth_c[ai_c]
-    shift0 = torch.stack([(ix_b - n_steps).to(torch.float32) * step_m,
-                          (iy_b - n_steps).to(torch.float32) * step_m], -1)
-    pose, fine_resp = _fine_stages(grid_cfg, scan_cfg, m_cfg, field, origin,
-                                   ranges, guess, mass_ref, dth0, shift0)
+    with span("match.search"):
+        ai_c, iy_b, ix_b, coarse_resp, n_scored = _bnb_winner(
+            m_cfg, levels, resp_top, rasters_c, mass_ref, dth_c, n_steps,
+            stride, step_m, n_levels)
+    with span("match.refine"):
+        field = levels[0][:, pad:-pad, pad:-pad]
+        dth0 = dth_c[ai_c]
+        shift0 = torch.stack([(ix_b - n_steps).to(torch.float32) * step_m,
+                              (iy_b - n_steps).to(torch.float32) * step_m],
+                             -1)
+        pose, fine_resp = _fine_stages(grid_cfg, scan_cfg, m_cfg, field,
+                                       origin, ranges, guess, mass_ref,
+                                       dth0, shift0)
 
-    Mb = -(-nw // 2)
-    r1 = _block_reduce(rasters_c[rr, ai_c][:, None], 2, "sum")
-    surf = _conv_scores_grid(levels[1], r1, mass_ref, Mb,
-                             stride)[:, 0, :, :Mb]
-    n_scored += Mb * Mb
-    offs = (torch.arange(Mb, dtype=torch.float32, device=dev) * 2.0 + 0.5
-            - n_steps) * step_m
-    var_x, var_y = _xy_cov(surf, offs)
-    _, var_th = _softmax_moments(resp_top.amax(dim=(2, 3)), dth_c)
-    cov = torch.stack([
-        torch.clamp_min(var_x, step_m ** 2 / 3),
-        torch.clamp_min(var_y, step_m ** 2 / 3),
-        torch.clamp_min(var_th, (m_cfg.coarse_angle_step_rad / 2) ** 2 / 3),
-    ], -1)
-    total = A_c * nw * nw
-    return MatchResult(
-        pose=pose, response=fine_resp, coarse_response=coarse_resp,
-        accepted=fine_resp >= m_cfg.min_response, cov=cov,
-        n_candidates=torch.full((R,), n_scored, dtype=torch.int32,
-                                device=dev),
-        prune_ratio=torch.full((R,), max(0.0, 1.0 - n_scored / total),
-                               dtype=torch.float32, device=dev))
+        Mb = -(-nw // 2)
+        r1 = _block_reduce(rasters_c[rr, ai_c][:, None], 2, "sum")
+        surf = _conv_scores_grid(levels[1], r1, mass_ref, Mb,
+                                 stride)[:, 0, :, :Mb]
+        n_scored += Mb * Mb
+        offs = (torch.arange(Mb, dtype=torch.float32, device=dev) * 2.0
+                + 0.5 - n_steps) * step_m
+        var_x, var_y = _xy_cov(surf, offs)
+        _, var_th = _softmax_moments(resp_top.amax(dim=(2, 3)), dth_c)
+        cov = torch.stack([
+            torch.clamp_min(var_x, step_m ** 2 / 3),
+            torch.clamp_min(var_y, step_m ** 2 / 3),
+            torch.clamp_min(var_th,
+                            (m_cfg.coarse_angle_step_rad / 2) ** 2 / 3),
+        ], -1)
+        total = A_c * nw * nw
+        return MatchResult(
+            pose=pose, response=fine_resp, coarse_response=coarse_resp,
+            accepted=fine_resp >= m_cfg.min_response, cov=cov,
+            n_candidates=torch.full((R,), n_scored, dtype=torch.int32,
+                                    device=dev),
+            prune_ratio=torch.full((R,), max(0.0, 1.0 - n_scored / total),
+                                   dtype=torch.float32, device=dev))
 
 
 # ---------------------------------------------------------------------------

@@ -78,6 +78,7 @@ from jax_mapping_torch.obs.recorder import flight_recorder
 from jax_mapping_torch.tenancy import megabatch as MB
 from jax_mapping_torch.tenancy.lanehealth import (HEALTHY, QUARANTINED,
                                                   LaneHealthLadder)
+from jax_mapping_torch.utils.profiling import span
 
 #: The megabatch entry point's registry-qualified name (the devprof /
 #: compile-budget naming contract).
@@ -421,7 +422,7 @@ class TenantControlPlane:
         for k in range(n):
             stamped = []
             events = []
-            with self._lock:
+            with self._lock, span("plane.tick"):
                 if not self._order:
                     return None
                 refreshed = self._refreshed_worlds()
@@ -438,9 +439,10 @@ class TenantControlPlane:
                     self.cfg, batch, self.world_res_m,
                     wheel_normals=normals)
                 tick = self.n_ticks + 1
-                frozen = (self._fold_health_locked(
-                    health, batch_before, pre_keys, tick, events)
-                    if armed else ())
+                with span("plane.health"):
+                    frozen = (self._fold_health_locked(
+                        health, batch_before, pre_keys, tick, events)
+                        if armed else ())
                 for tid in self._order:
                     m = self._missions[tid]
                     if m.state != "active" or tid in frozen:
@@ -452,7 +454,8 @@ class TenantControlPlane:
                     m.steps += 1
                     stamped.append((tid, m.revision, m.steps))
                 if armed:
-                    self._run_probes_locked(tick, events)
+                    with span("plane.health"):
+                        self._run_probes_locked(tick, events)
                 self._last_diag = diag
                 self.n_ticks = tick
             for name, kw in events:

@@ -46,6 +46,7 @@ import torch
 from jax_mapping_torch._util import entry_point
 from jax_mapping_torch.config import SlamConfig, ensure_valid_mode
 from jax_mapping_torch.models import fleet as FL
+from jax_mapping_torch.utils.profiling import global_metrics, span
 
 #: The bit-exact tenant ladder: the subset of {2^k} u {3 * 2^(k-1)} whose
 #: megabatch lanes are verified bit-identical to solo `fleet_step` runs.
@@ -54,6 +55,8 @@ from jax_mapping_torch.models import fleet as FL
 #: on the H100 at the default SlamConfig by chip_smoke.py's tenancy phase
 #: (buckets 3 and 6).
 EXACT_BUCKETS = (1, 2, 3, 6, 12)
+
+counters = global_metrics.counters
 
 
 def windowed_mission_config(cfg: SlamConfig) -> SlamConfig:
@@ -257,15 +260,17 @@ def megabatch_step(cfg: SlamConfig, batch: TenantBatch, world_res_m: float,
                       cand=cand, attempt=attempt, xrobot=xrobot,
                       xcand=xcand, xattempt=xattempt)
     pending = (attempt | xattempt).any(dim=-1) & batch.active
-    states2, diag = FL._tick_finish(cfg, st, pre, pre.grid, pre.graphs,
-                                    pre.est, torch.zeros_like(pre.is_key))
-    health = _health_word(cfg, batch, states2, diag)
 
     def freeze(new, old):
         act = batch.active.reshape((-1,) + (1,) * (new.dim() - 1))
         return torch.where(act, new, old)
 
-    states2 = _tree_map(freeze, states2, st)
+    with span("tick.finish"):
+        states2, diag = FL._tick_finish(cfg, st, pre, pre.grid, pre.graphs,
+                                        pre.est,
+                                        torch.zeros_like(pre.is_key))
+        health = _health_word(cfg, batch, states2, diag)
+        states2 = _tree_map(freeze, states2, st)
     return batch._replace(states=states2), diag, pending, health
 
 
@@ -279,25 +284,32 @@ def megabatch_tick(cfg: SlamConfig, batch: TenantBatch, world_res_m: float,
     the host in one read. Returns ``(batch, diag, health)``, health a
     numpy (B,) uint32 array; a re-run lane's word is derived on the host
     from the solo tick (`lane_health_host`)."""
-    normals = _normals(batch, wheel_normals, generator)
-    new_batch, diag, pending, health = megabatch_step(
-        cfg, batch, world_res_m, normals)
-    pending_l, health_l = torch.stack(
-        [pending.to(torch.int32), health]).tolist()        # one host read
-    lane_armed = cfg.tenancy.enabled and cfg.tenancy.lane_health
-    for i, p in enumerate(pending_l):
-        if not p:
-            continue
-        before = lane_state(batch, i)
-        s1, d1 = FL.fleet_step(cfg, before, world_res_m, batch.worlds[i],
-                               wheel_normals=normals[i])
-        # Every leaf of the step's output is a fresh tensor (the freeze
-        # and the tick allocate), so lane i is written in place.
-        _tree_set(new_batch.states, i, s1)
-        _tree_set(diag, i, d1)
-        if lane_armed:
-            health_l[i] = lane_health_host(cfg, before, s1, d1)
-    return new_batch, diag, np.asarray(health_l, np.uint32)
+    counters.inc("megabatch.ticks")
+    with span("megabatch.tick"):
+        normals = _normals(batch, wheel_normals, generator)
+        new_batch, diag, pending, health = megabatch_step(
+            cfg, batch, world_res_m, normals)
+        with span("megabatch.read"):
+            pending_l, health_l = torch.stack(
+                [pending.to(torch.int32), health]).tolist()  # one host read
+        counters.inc("megabatch.lanes_rerun", sum(pending_l))
+        lane_armed = cfg.tenancy.enabled and cfg.tenancy.lane_health
+        for i, p in enumerate(pending_l):
+            if not p:
+                continue
+            with span("megabatch.rerun"):
+                before = lane_state(batch, i)
+                s1, d1 = FL.fleet_step(cfg, before, world_res_m,
+                                       batch.worlds[i],
+                                       wheel_normals=normals[i])
+                # Every leaf of the step's output is a fresh tensor (the
+                # freeze and the tick allocate), so lane i is written in
+                # place.
+                _tree_set(new_batch.states, i, s1)
+                _tree_set(diag, i, d1)
+                if lane_armed:
+                    health_l[i] = lane_health_host(cfg, before, s1, d1)
+        return new_batch, diag, np.asarray(health_l, np.uint32)
 
 
 def lane_state(batch: TenantBatch, i: int) -> FL.FleetState:

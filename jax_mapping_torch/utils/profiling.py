@@ -8,6 +8,8 @@ the enqueue, not the kernel. Three tools:
 
   * `device_trace(dir)` — context manager around `torch.profiler` for
     host and CUDA traces viewable in TensorBoard/Perfetto;
+  * `span(name)` — a named stage of the port's own code, an annotation in
+    that trace while a profiler records and a no-op otherwise;
   * `StageTimer` — named wall-clock stages with count/mean/EWMA/max, for
     host-side loops (brain tick, mapper tick, HTTP handlers);
   * `Counters` — monotonic event counters (scans fused, drops, matches,
@@ -28,7 +30,13 @@ from typing import Dict, Iterator, Optional, Tuple
 
 
 class Counters:
-    """Thread-safe monotonic counters."""
+    """Thread-safe monotonic counters.
+
+    The fleet and megabatch ticks count here, from values the host
+    already holds (no device read): `fleet.ticks`, `megabatch.ticks`,
+    `megabatch.lanes_rerun`, `tick.scans_matched`, `tick.scans_fused`,
+    `tick.loop_attempts`, `tick.loops_closed` and `tick.scans_refused`
+    (scans re-fused after a closure)."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
@@ -152,14 +160,44 @@ class Metrics:
 
 global_metrics = Metrics()
 
+#: torch.autograd.profiler, bound on the first span so that importing
+#: this module imports no torch.
+_profiler = None
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named stage of the port: `with span("tick.match"): ...`.
+
+    While a `torch.profiler` records in this process, the span is a
+    `record_function` range, an annotation in the profiler's own trace
+    on its clock: device work launched inside it is attributed to it by
+    the launch's correlation id. Otherwise it is a shared no-op context,
+    after one read of the flag that the profiler sets when it starts
+    (entering `record_function` with nothing recording costs ~100 times
+    that read). Names are dotted `<layer>.<stage>` names; the profiler
+    keeps the spans in memory and writes them out with its trace
+    (`device_trace`)."""
+    global _profiler
+    if _profiler is None:
+        import torch.autograd.profiler as _profiler
+    if not _profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _profiler.record_function(name)
+
 
 @contextlib.contextmanager
 def device_trace(log_dir: str) -> Iterator[Optional[str]]:
     """torch.profiler trace (CPU and, with a card, CUDA activity) around
     a block, written on exit to `<log_dir>/device_trace.pt.trace.json`: a
     Chrome trace that Perfetto and TensorBoard's PyTorch profiler plugin
-    both load. Yields the log dir, or None if the profiler could not start
-    (it must never take the control loop down)."""
+    both load. The port's `span`s inside the block are in it as
+    `user_annotation` events (the fleet and megabatch tick's stages
+    `tick.*`, the matcher's `match.field` / `match.search` /
+    `match.refine`, the frontier stage's `frontier.*`, and with the
+    dispatch profiler installed each entry point by its name). Yields the
+    log dir, or None if the profiler could not start (it must never take
+    the control loop down)."""
     import os
 
     import torch

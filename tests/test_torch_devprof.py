@@ -105,6 +105,34 @@ def test_wrapper_is_transparent(fixture_mod):
         prof.uninstall()
 
 
+def test_profiled_call_is_a_span_in_the_trace(fixture_mod, tmp_path):
+    """Under a recording profiler each profiled call is an annotation
+    named by its entry point (nested calls are not), so a trace puts the
+    device's own time on each entry point; the `/metrics` histogram's
+    HELP line says it is host time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from jax_mapping_torch.obs.registry import Family, MetricsRegistry
+    prof, _ = _install(fixture_mod)
+    try:
+        p = profile(activities=[ProfilerActivity.CPU])
+        p.start()
+        fixture_mod.scaled(2, torch.ones((4, 4)))
+        p.stop()
+        p.export_chrome_trace(str(tmp_path / "t.json"))
+    finally:
+        prof.uninstall()
+    ev = json.loads((tmp_path / "t.json").read_text())["traceEvents"]
+    names = [e["name"] for e in ev if e.get("cat") == "user_annotation"]
+    assert names == [f"{_FIXTURE_PREFIX}.scaled"]
+    reg = MetricsRegistry().add_source(lambda: (
+        Family("a_seconds", "histogram", (("_count", "1"),), "Host time."),
+        Family("b_total", "counter", (("", "2"),))))
+    assert reg.render() == ("# HELP a_seconds Host time.\n"
+                            "# TYPE a_seconds histogram\na_seconds_count 1\n"
+                            "# TYPE b_total counter\nb_total 2\n")
+
+
 def test_recompile_detection_and_signature_capture(fixture_mod):
     prof, _ = _install(fixture_mod)
     try:

@@ -216,6 +216,29 @@ def test_teacher_forced_closure_fires(ref):
                                    atol=1e-3)
 
 
+def test_closure_tick_counters(ref):
+    """The tick counters on the closure mission's first closing tick:
+    `tick.loops_closed` grows by the robots that closed, after at least
+    as many attempts, and `tick.scans_refused` by every valid ring scan
+    the repair re-fused."""
+    from jax_mapping_torch.utils import global_metrics
+    world = torch.as_tensor(W.rooms_world(64, 0.05))
+    t = next(t for t in range(CLOSURE_TICKS)
+             if ref[f"b{t}.loop_closed"].any())
+    counts = global_metrics.counters
+    before = counts.snapshot()
+    got, diag = _step(CLOSURE, ref, world, "b", t)
+
+    def grew(name):
+        return counts.get(name) - before.get(name, 0)
+
+    assert grew("tick.loops_closed") == int(diag.loop_closed.sum()) > 0
+    assert grew("tick.loop_attempts") >= grew("tick.loops_closed")
+    cap = CLOSURE.loop.max_poses
+    assert grew("tick.scans_refused") == \
+        int(got.graphs.pose_valid[:, :cap].sum())
+
+
 def test_teacher_forced_closure_mission_keys(ref):
     """Every tick of the closure mission agrees on the key gate."""
     world = torch.as_tensor(W.rooms_world(64, 0.05))
