@@ -211,8 +211,9 @@ Phases, each printed as one JSON line:
            scans (K4 subtotals of 512, then one apply)
   kernels  each kernel against its plain PyTorch version on the same
            inputs at the main paths' shapes (K6/K7 on the voxel phases'
-           inputs); exact equality is required. K1 at every batch the
-           fleet and mapper launch it with (deltas 64, 8 and 1; rasters
+           inputs); exact equality is required (K8: see below). K1 at
+           every batch the fleet and mapper launch it with (deltas 64, 8
+           and 1; rasters
            168, 392, 21, 49), K4/K5 at 15, 16, 17 and 256 scans, each with the
            share of (tile, scan) pairs in each tile class (from the plain
            mirror) and bound / time; edge rows (a pose off its patch, on
@@ -242,7 +243,14 @@ Phases, each printed as one JSON line:
            every K1 row with its launches on the stacks. K3 with a mask
            per field (exact_bfs' 8 fields, and 3 tenants' 24, 256^2 x
            257 sweeps in one launch), planned_goals' target fields over
-           3 tenants, and K6 at the depth stack's 8 images
+           3 tenants, and K6 at the depth stack's 8 images. K8 at each
+           call site of one `match_batch` (the top bound, the descent's
+           three levels, the fine angles, the level-1 covariance surface)
+           on the inputs it gets from the fleet's 8 robots and from the
+           12-tenant batch's 96 rows: within 1e-6 relative of a float64
+           evaluation of the same sums, against its plain version on the
+           same tensors, its 32 x 32 tiles not skipped, and its launches
+           a call, equal at 8 and 96 rows
   parity   a tiny mission, each tick run on the card and on the CPU from
            the same state with the same wheel noise; then with each
            frontier option on (the assignment must agree exactly); one
@@ -324,7 +332,7 @@ Phases, each printed as one JSON line:
            against off (bit-equal), and the signature manifest saved
   coldstart_resume  two fresh processes of this script resume the
            coldstart stack from its checkpoint: cold (an empty cache root:
-           nvcc builds the five libraries) and warm (the coldstart root:
+           nvcc builds every library) and warm (the coldstart root:
            found, the manifest pre-warmed as `aot`); seconds from each
            process's start to its first fused scan, libraries built; the
            resumed grids bit-equal
@@ -777,7 +785,7 @@ def phase_fleet(torch, cfg, world, ticks: int, seed: int):
     check(bool(torch.isfinite(diag.pose_err).all()), "non-finite pose_err")
     check(observed > 0, "the fleet observed no cell")
     check(keys > 0, "no tick had a key robot")
-    for name in FLEET_KERNELS:
+    for name in FLEET_KERNELS + ("match_correlate",):
         check(launches[name] > 0,
               f"kernel {name} never launched on the fleet path")
     # K2 once a tick, K3 once a level (three a tick), all cluster launches.
@@ -997,7 +1005,11 @@ def phase_kernels(torch, cfg, world, mapped, seed: int, fleet: dict,
     options (`recs`, by tag: exact_bfs' 8 fields under 8 masks in one
     launch, 3 tenants' 24, the depth-camera stack's) and the depth stack's
     K6 batch (`k6`, with its launches a step); planned_goals' fields over
-    the megabatch's grids are made here."""
+    the megabatch's grids are made here. K8 at the fleet's 8 robots near
+    walls, each scan matched a few cm off against a map fused from it,
+    and its 12-tenant rows (`tenancy["k8_rows"]`, made by the tenancy
+    phase): within K8_REL_TOL of float64 rather than exact, launching
+    as often for 96 rows as for 8."""
     from jax_mapping_torch.ops import costfield as CF
     from jax_mapping_torch.ops import frontier as F
     from jax_mapping_torch.ops import grid as G
@@ -1133,11 +1145,31 @@ def phase_kernels(torch, cfg, world, mapped, seed: int, fleet: dict,
     rows[f"voxel_image_stack_depth_b{int(d.shape[0])}"] = _k6_row(
         torch, cfg, d, p, o,
         launches_per_stack_step=options["k6_launches_per_step"])
+    fused = G.fuse_scans_masked(
+        cfg.grid, cfg.scan, G.empty_grid(cfg.grid, dev), scans, guess,
+        torch.ones(R, dtype=torch.bool, device=dev))
+    rows.update(k8_rows(torch, cfg, fused, scans, guess + torch.tensor(
+        [0.03, -0.02, 0.01], device=dev)))
+    del fused
+    rows.update(tenancy["k8_rows"])
     emit({"phase": "kernels", "rows": rows})
     for name, r in rows.items():
         check(r["mismatches"] == 0,
               f"kernel {name} differs from its plain version in "
               f"{r['mismatches']} elements (max abs {r['max_abs_err']})")
+    k8_calls = {k: r["launches_per_match_batch"] for k, r in rows.items()
+                if "launches_per_match_batch" in r}
+    check(len(k8_calls) == 2 and all(
+        n == 2 * len(rows[k]["sites"]) for k, n in k8_calls.items()),
+          f"K8's launches a match_batch are not 2 a site at 8 and at 96 "
+          f"rows: {k8_calls}")
+    for name, r in rows.items():
+        if "plain_float64_max_rel_err" in r:
+            check(r["plain_max_rel_err"] <= K8_REL_TOL
+                  + r["plain_float64_max_rel_err"],
+                  f"{name} is {r['plain_max_rel_err']:.3g} from its plain "
+                  f"version, beyond {K8_REL_TOL} + the plain version's own "
+                  f"{r['plain_float64_max_rel_err']:.3g} from float64")
     return rows
 
 
@@ -2117,6 +2149,159 @@ class SweepRecorder:
     def __exit__(self, *exc):
         for (mod, name), fn in zip(self.mods, self.orig):
             setattr(mod, name, fn)
+
+
+class K8Recorder:
+    """Records the inputs of every K8 call (`match_kernel.window_scores`,
+    dense, and `candidate_scores`, a candidate list) made while the
+    context is open, in call order, by reference."""
+
+    def __enter__(self):
+        from jax_mapping_torch.ops import match_kernel as MK
+        self.mk = MK
+        self.orig = (MK.window_scores, MK.candidate_scores)
+        self.calls = []
+        MK.window_scores = self._recorded("dense", self.orig[0])
+        MK.candidate_scores = self._recorded("list", self.orig[1])
+        return self
+
+    def _recorded(self, mode, fn):
+        def recorded(*args):
+            self.calls.append((mode, args))
+            return fn(*args)
+        return recorded
+
+    def __exit__(self, *exc):
+        self.mk.window_scores, self.mk.candidate_scores = self.orig
+
+
+#: K8's relative tolerance against a float64 evaluation of the same sums.
+K8_REL_TOL = 1e-6
+
+
+def _k8_site_names(n_levels: int) -> list:
+    """K8's call sites in one pruned `match_batch`, in call order: the
+    top bound, the descent's levels from the coarsest, the fine angles,
+    the level-1 covariance surface."""
+    return (["top"] + [f"level{lv}" for lv in range(n_levels - 1, -1, -1)]
+            + ["fine", "surface"])
+
+
+def _k8_float64(args, mode: str):
+    """A K8 call's scores, flat in output order, each sum in float64 from
+    the same float32 inputs (tests/torch_kernel_inputs.py)."""
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import torch_kernel_inputs as KI
+    if mode == "dense":
+        fld, ras, mass, n_out, stride = args
+        R, A, P, _ = ras.shape
+        starts, _ = KI.dense_starts(R, A, *fld.shape[-2:], P, n_out, stride,
+                                    fld.device)
+    else:
+        fld, ras, a_idx, oy, ox, mass = args
+        starts = KI.list_starts(a_idx, oy, ox, *fld.shape[-2:],
+                                ras.shape[-1])
+    return KI.direct64(fld, ras, *starts, mass)
+
+
+def _rel_err(got, want):
+    """|got - want| / |want| elementwise, flat, in float64 (where want is
+    0: 0 if got is 0 too, else 1)."""
+    import torch
+    got, want = got.double().reshape(-1), want.double().reshape(-1)
+    err = (got - want).abs() / want.abs().clamp_min(1e-30)
+    return torch.where(want == 0, (got != 0).double(), err)
+
+
+def k8_rows(torch, cfg, grid, scans, guess, tenant=None) -> dict:
+    """K8 at each of its call sites in one `match_batch` of `cfg` (R rows:
+    8 robots on one map, or a tenant megabatch's rows with `tenant`), on
+    the inputs that call gave it. Per site: the kernel against a float64
+    evaluation of the same sums (`mismatches`: scores off it by more
+    than K8_REL_TOL relative) and against its plain version on the same
+    card tensors (TF32 off; it sums in another order, so the two may
+    differ by K8's and the plain version's distances from the float64
+    sums together), the wrapper's time, the kernels alone, the plain
+    version's time, and the bound from the ledger's arithmetic. Row
+    `match_correlate_b<R>` sums the sites: one `match_batch`'s K8 work,
+    with the K8 launches that call made. `phase_kernels` checks them."""
+    from jax_mapping_torch._util import full_f32
+    from jax_mapping_torch.ops import _cuda
+    from jax_mapping_torch.ops import match_kernel as MK
+    from jax_mapping_torch.ops import scan_match as M
+
+    def call():
+        return M.match_batch(cfg.grid, cfg.scan, cfg.matcher, grid, scans,
+                             guess, tenant=tenant)
+
+    call()
+    torch.cuda.synchronize()
+    before = _cuda.LAUNCHES["match_correlate"]
+    with K8Recorder() as rec:
+        call()
+    launches = _cuda.LAUNCHES["match_correlate"] - before
+    _stride, n_steps = M.window_params(cfg.grid, cfg.matcher)
+    names = _k8_site_names(M.bnb_num_levels(cfg.matcher, n_steps))
+    check([m for m, _ in rec.calls] == ["dense"] + ["list"] * (
+        len(names) - 3) + ["dense"] * 2,
+        f"K8's calls in match_batch: {[m for m, _ in rec.calls]}")
+    full_f32()
+    R = scans.shape[0]
+    rows, costs = {}, []
+    for site, (mode, args) in zip(names, rec.calls):
+        if mode == "dense":
+            kernel, plain = MK.window_scores, MK.window_scores_plain
+            fld, ras, mass = args[:3]
+        else:
+            kernel, plain = MK.candidate_scores, MK.candidate_scores_plain
+            fld, ras, mass = args[0], args[1], args[5]
+        got = kernel(*args)
+        want = plain(*args)
+        exact = _k8_float64(args, mode)
+        rel = _rel_err(got, exact)
+        cost = (L.match_correlate_cost(ras, fld, got.numel())
+                if mode == "dense" else
+                L.match_correlate_cost(ras, fld, got.numel(),
+                                       index_bytes=3 * 8 * got.numel()))
+        costs.append(cost)
+        row = dict(
+            shape=list(got.shape), raster=list(ras.shape),
+            field=list(fld.shape), scores=got.numel(),
+            mismatches=int((rel > K8_REL_TOL).sum()),
+            float64_max_rel_err=float(rel.max()),
+            plain_float64_max_rel_err=float(_rel_err(want, exact).max()),
+            plain_max_rel_err=float(_rel_err(got, want).max()),
+            max_abs_err=float((got.double() - want.double()).abs().max()),
+            nonzero_tile_share=_tile_nonzero_share(torch, ras),
+            ms=cuda_ms(lambda: kernel(*args)),
+            device_ms=device_ms(lambda: kernel(*args), "correlate_",
+                                per_call=True),
+            plain_ms=cuda_ms(lambda: plain(*args), reps=5, warmup=1),
+            library_ms=None, **bound(*cost))
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        rows[f"match_correlate_b{R}_{site}"] = row
+        del got, want, exact, rel
+    sites = list(rows.values())
+    total = {k: (None if None in [v[k] for v in sites]
+                 else sum(v[k] for v in sites))
+             for k in ("ms", "device_ms", "plain_ms")}
+    rows[f"match_correlate_b{R}"] = dict(
+        sites=names, mismatches=sum(v["mismatches"] for v in sites),
+        float64_max_rel_err=max(v["float64_max_rel_err"] for v in sites),
+        plain_max_rel_err=max(v["plain_max_rel_err"] for v in sites),
+        max_abs_err=max(v["max_abs_err"] for v in sites),
+        launches_per_match_batch=launches, **total, library_ms=None,
+        **bound(sum(c[0] for c in costs), sum(c[1] for c in costs)))
+    return rows
+
+
+def _tile_nonzero_share(torch, ras) -> float:
+    """Share of K8's 32 x 32 raster tiles (ragged at the edge) that hold a
+    non-zero cell: the tiles the kernel does not skip. Rasters are >= 0."""
+    R, A, P, _ = ras.shape
+    tiles = torch.nn.functional.max_pool2d(ras.reshape(R * A, 1, P, P), 32,
+                                           ceil_mode=True)
+    return float((tiles > 0).float().mean())
 
 
 def _ulps(a, b):
@@ -3911,12 +4096,10 @@ def _tenant_run(torch, cfg, n_active: int, bucket: int, seed: int,
     return out, b, solo, worlds
 
 
-def _matcher_split(torch, cfg, b) -> dict:
-    """The megabatch's `match_batch` (every lane's scans at its sim poses
-    against its own grid) with the per-lane split of the reductions and
-    correlations, without it, and as one solo call a lane: mismatched
-    elements of each field against the solo calls, and CUDA-event ms."""
-    from jax_mapping_torch.ops import scan_match as M
+def _megabatch_match_inputs(torch, cfg, b) -> tuple:
+    """A tenant batch's `match_batch` inputs, (grid, scans, guesses,
+    tenant): every lane's scans simulated at its sim poses in its world,
+    against its own grid from its estimates, the rows in tenant order."""
     from jax_mapping_torch.sim import lidar
     res = cfg.grid.resolution_m
     ns = int(cfg.scan.range_max_m / (res * 0.5))
@@ -3925,7 +4108,19 @@ def _matcher_split(torch, cfg, b) -> dict:
     scans = lidar.simulate_scans(cfg.scan, b.worlds, res, ns,
                                  b.states.sim.poses.reshape(B * R, 3),
                                  tenant=ten)
-    est = b.states.est_poses.reshape(B * R, 3)
+    return (b.states.grid, scans, b.states.est_poses.reshape(B * R, 3),
+            ten)
+
+
+def _matcher_split(torch, cfg, b) -> dict:
+    """The megabatch's `match_batch` (every lane's scans at its sim poses
+    against its own grid) with the per-lane split of the float
+    reductions (the correlations are K8's, whole either way), without
+    it, and as one solo call a lane: mismatched elements of each field
+    against the solo calls, and CUDA-event ms."""
+    from jax_mapping_torch.ops import scan_match as M
+    B, R = b.active.shape[0], cfg.fleet.n_robots
+    _grid, scans, est, ten = _megabatch_match_inputs(torch, cfg, b)
 
     def batched():
         return M.match_batch(cfg.grid, cfg.scan, cfg.matcher,
@@ -4050,9 +4245,10 @@ def phase_tenancy(torch, cfg, seed: int):
     Then each frontier option of TENANT_OPTIONS alone at 3 tenants (K3 a
     tick: exact_bfs 1, all 24 fields under a mask each; decay_aware 3;
     planned_goals 6), and the default options at 12 tenants (bucket 12),
-    each lane again against its solo run. Returns (the path's K1
-    counts, the first run's grids and poses, the line, the option runs'
-    K2/K3 calls)."""
+    each lane again against its solo run; K8 at each call site of the
+    12-tenant batch's `match_batch` (`k8_rows`). Returns (the path's K1
+    counts, the first run's grids and poses with the K8 rows, the line,
+    the option runs' K2/K3 calls)."""
     import dataclasses
     from jax_mapping_torch.config import TenancyConfig
     cfg = cfg.replace(tenancy=TenancyConfig(enabled=True, lane_health=True))
@@ -4086,7 +4282,9 @@ def phase_tenancy(torch, cfg, seed: int):
     with K3MaskCount() as km:
         run, b, solo, worlds = _tenant_run(torch, cfg, n_active, bucket,
                                            seed, km)
-    del b, solo, worlds
+    del solo, worlds
+    k8 = k8_rows(torch, cfg, *_megabatch_match_inputs(torch, cfg, b))
+    del b
     runs[f"T{n_active}_in_{bucket}"] = run
     k1.append(run.pop("k1_launches_by_batch"))
     out = {"phase": "tenancy", "config": "SlamConfig(), lane_health",
@@ -4101,7 +4299,7 @@ def phase_tenancy(torch, cfg, seed: int):
     n_runs = len(TENANT_RUNS) + len(TENANT_OPTIONS) + 1
     return ({"per": f"{n_runs} runs of {TENANT_TICKS} ticks",
              "k1_launches_by_batch": _k1_sum(k1)},
-            {"grids": grids, "poses": poses}, out, recs)
+            {"grids": grids, "poses": poses, "k8_rows": k8}, out, recs)
 
 
 def tenancy_kernel_rows(torch, cfg, world, gen, fleet: dict, mapper: dict,
@@ -7366,7 +7564,7 @@ def phase_coldstart_resume(torch, seed: int, cs: dict) -> dict:
     """A resume in a fresh process, cold and warm: two processes of this
     script (`--coldstart-child`), each launching the coldstart stack from
     the coldstart phase's checkpoint, resuming, pre-warming and fusing one
-    scan. Cold: an empty cache root, so nvcc builds the five libraries.
+    scan. Cold: an empty cache root, so nvcc builds every library.
     Warm: the coldstart phase's root, so they are found and the
     manifest's signatures pre-warm as `aot`. Seconds from each process's
     start to its first fused scan, libraries built, the warm-up reports;
@@ -7400,8 +7598,11 @@ def phase_coldstart_resume(torch, seed: int, cs: dict) -> dict:
                                                       grids["warm"])),
            "resumed_occupied_cells": int((grids["warm"] > 0.5).sum())}
     emit(out)
-    check(runs["cold"]["builds"] == 5,
-          f"the cold process built {runs['cold']['builds']} libraries, not 5")
+    from jax_mapping_torch.ops import _cuda
+    n_libs = len(_cuda.SOURCES)
+    check(runs["cold"]["builds"] == n_libs,
+          f"the cold process built {runs['cold']['builds']} libraries, "
+          f"not {n_libs}")
     check(runs["warm"]["builds"] == 0,
           f"the warm process built {runs['warm']['builds']} libraries")
     check(runs["warm"]["launch_warmup"]["n_aot"] > 0,
@@ -8257,15 +8458,18 @@ KERNEL_ROWS = (
      "jax_mapping/ops/voxel_kernel.py:274"),
     ("voxel_summed", "jax_mapping_torch/csrc/voxel_model.cu",
      "jax_mapping/ops/voxel_kernel.py:331"),
+    ("match_correlate", "jax_mapping_torch/csrc/match_correlate.cu",
+     "jax_mapping/ops/scan_match.py:211"),
 )
 
 #: The kernel-check row each kernel's line reports: K4/K5 at the mapper's
 #: window of W - 1 = 15 scans, K6 at one voxel tick's 8 images, K7 at the
-#: bench's 32-image window.
+#: bench's 32-image window, K8 summed over the fleet's `match_batch`.
 _LINE_ROW = {"window_delta": "window_delta_b15",
              "window_apply": "window_apply_b15",
              "voxel_image": "voxel_image_b8",
-             "voxel_summed": "voxel_summed_window_b32"}
+             "voxel_summed": "voxel_summed_window_b32",
+             "match_correlate": "match_correlate_b8"}
 
 
 def main(argv=None) -> int:
@@ -8401,7 +8605,7 @@ def main(argv=None) -> int:
         return 1
 
     # Launches come from each kernel's main-path run: the fleet ticks for
-    # K1-K3, the mapper ticks for K5, the fused_fusion=False windows for K4,
+    # K1-K3 and K8, the mapper ticks for K5, the fused_fusion=False windows for K4,
     # the voxel ticks for K6, the bench's voxel window for K7.
     launches = {**fleet["launches"],
                 "window_apply": mapper["launches"]["window_apply"],
@@ -8420,7 +8624,7 @@ def main(argv=None) -> int:
             "bound_by": r["bound_by"],
             # No single PyTorch call computes any of these functions.
             "library_ms": None})
-        if name in FLEET_KERNELS:
+        if name in FLEET_KERNELS + ("match_correlate",):
             kernels[-1]["launches_tenancy"] = sum(
                 run["launches"][name]
                 for run in tenancy_out["runs"].values())

@@ -12,7 +12,7 @@ zeros (`devprof.materialize_zeros`), and counts what it does:
 * the port's own kernels, which are ctypes calls that the mode cannot
   see, by their shape arithmetic: each wrapper reports its kernel's
   bytes (each input read once, each output written once) and operations
-  (`sensor_model_cost` ... `voxel_summed_cost` below) to this thread's
+  (`sensor_model_cost` ... `match_correlate_cost` below) to this thread's
   sink (`ops/_cuda.note_cost`). `chip_smoke.py` computes its `bound`
   column from the same functions. On the CPU a wrapper runs its plain
   version, whose aten ops the mode counts instead.
@@ -166,6 +166,19 @@ def voxel_summed_cost(vox, cam, poses, origins, ny: int, nx: int
     ops, _ = voxel_ops(vox, cam, poses, origins, ny, nx,
                        group=VK.Z_CHUNK)
     return voxel_summed_bytes(vox, cam, int(poses.shape[0]), ny, nx), ops
+
+
+def match_correlate_cost(rasters, field, n_scores: int,
+                         index_bytes: int = 0) -> Tuple[int, int]:
+    """K8: n_scores dot products of a (P, P) raster with a P x P window
+    of its row's field. Reads the (R, A, P, P) rasters, the (R, H, W)
+    fields, the row masses and any candidate indices once, writes the
+    scores; a multiply and an add a cell a score (the function's work,
+    whatever zero products the kernel leaves out)."""
+    R, A, P, _ = rasters.shape
+    H, W = field.shape[-2], field.shape[-1]
+    return (4 * (R * A * P * P + R * H * W + R + n_scores) + index_bytes,
+            2 * P * P * n_scores)
 
 
 # -- counting aten ops ---------------------------------------------------------

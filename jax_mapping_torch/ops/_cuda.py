@@ -45,6 +45,7 @@ SOURCES = {
     "costfield_relax": "costfield_relax.cu",
     "window_fuse": "window_fuse.cu",
     "voxel_model": "voxel_model.cu",
+    "match_correlate": "match_correlate.cu",
 }
 
 #: nvcc flags. --fmad=false: no multiply-add contraction, so every float
@@ -64,6 +65,7 @@ LAUNCHES: Dict[str, int] = {
     "window_apply": 0,
     "voxel_image": 0,
     "voxel_summed": 0,
+    "match_correlate": 0,
 }
 
 #: Kernel name -> route ("cluster<C>" or "global") -> launches since the
@@ -83,6 +85,7 @@ KERNELS = {
     "costfield_relax": ("costfield_relax",),
     "window_fuse": ("window_delta", "window_apply"),
     "voxel_model": ("voxel_image", "voxel_summed"),
+    "match_correlate": ("match_correlate",),
 }
 
 #: Libraries nvcc built in this process, and libraries found built.
@@ -117,6 +120,9 @@ _SIGNATURES = {
                     "window_apply_launch": [*_WINDOW_ARGS, _F, _F, _P]},
     "voxel_model": {"voxel_image_launch": [*_VOXEL_ARGS, _P],
                     "voxel_summed_launch": [*_VOXEL_ARGS, _P]},
+    "match_correlate": {
+        "match_correlate_dense_launch": [_P] * 5 + [_I] * 8 + [_P],
+        "match_correlate_list_launch": [_P] * 8 + [_I] * 6 + [_P]},
 }
 
 

@@ -9,13 +9,16 @@ is branch and bound over an admissible max-pyramid of the field.
 
 Every function carries a leading robot axis R where the JAX package
 vmaps. The tenant megabatch matches T missions' scans in one call
-(`match_batch` with a `tenant` index into a (T, N, N) stack of maps): K1
-rasterises every row at once, while the float reductions and the
-correlations run one mission's rows at a time (`_per_lane`), at the solo
-call's shapes. Run whole, the batch sums some responses in another order
-than the solo calls (1.8e-7 apart on the H100 at 3 and 6 missions, the
-chip smoke's tenancy phase). The correlation is a grouped `conv1d` in
-full f32 (TF32 off);
+(`match_batch` with a `tenant` index into a (T, N, N) stack of maps).
+Every correlation (the top bound, each B&B level, the fine angles, the
+level-1 covariance surface, the exhaustive sweep) is kernel K8
+(`ops/match_kernel.py`) on the card, in full f32: its sums follow the
+shapes alone, so it takes every row at once and each mission's result is
+its solo call's. K1 rasterises every row at once too, while the other
+float reductions (raster masses, block sums, softmax moments, the
+sub-cell einsum) and, on the CPU, the plain correlations run one
+mission's rows at a time (`_per_lane`), at the solo call's shapes: run
+whole, they may sum in another order than the solo calls.
 `coarse_bf16` is a TPU-only knob and is ignored, as on the JAX CPU path.
 Top-k keeps jax.lax.top_k's order (the lower index first among equal
 values) through a stable sort. The cached entry points at the end
@@ -36,6 +39,7 @@ import torch.nn.functional as Fn
 from jax_mapping_torch._util import const, div, entry_point, full_f32
 from jax_mapping_torch.config import GridConfig, MatcherConfig, ScanConfig
 from jax_mapping_torch.ops import grid as G
+from jax_mapping_torch.ops import match_kernel as MK
 from jax_mapping_torch.ops import sensor_kernel as SK
 from jax_mapping_torch.utils.profiling import span
 
@@ -94,6 +98,16 @@ def _per_lane(fn, *xs):
     if isinstance(outs[0], tuple):
         return tuple(torch.cat(o) for o in zip(*outs))
     return torch.cat(outs)
+
+
+def _lanes_on_cpu(fn, *xs):
+    """fn(*xs) for K8's call sites: the whole batch in one call on the
+    card, where K8 sums in an order of the shapes alone, and one
+    mission's rows at a time (`_per_lane`) on the CPU, where the plain
+    versions' sums may follow the batch."""
+    if xs[0].device.type == "cuda":
+        return fn(*xs)
+    return _per_lane(fn, *xs)
 
 
 # ---------------------------------------------------------------------------
@@ -182,28 +196,12 @@ def _conv_scores_grid(fpad: torch.Tensor, rasters: torch.Tensor,
                       mass_ref: torch.Tensor, n_out: int,
                       stride: int) -> torch.Tensor:
     """resp[r, a, my, mx] = <rasters[r, a], fpad[r, my*stride : +P,
-    mx*stride : +P]> / mass_ref[r], as a grouped 1-D convolution whose
-    channels are patch rows. Window starts past the edge clamp, as
+    mx*stride : +P]> / mass_ref[r] (kernel K8's dense mode,
+    `match_kernel.window_scores`). Window starts past the edge clamp, as
     jax.lax.dynamic_slice clamps them."""
-    return _per_lane(lambda f, r, m: _conv_scores_one(f, r, m, n_out,
-                                                      stride),
-                     fpad, rasters, mass_ref)
-
-
-def _conv_scores_one(fpad: torch.Tensor, rasters: torch.Tensor,
-                     mass_ref: torch.Tensor, n_out: int,
-                     stride: int) -> torch.Tensor:
-    R, A, P, _ = rasters.shape
-    H, W = fpad.shape[-2], fpad.shape[-1]
-    dev = fpad.device
-    starts = torch.clamp_max(torch.arange(n_out, device=dev) * stride, H - P)
-    rows = starts[:, None] + torch.arange(P, device=dev)         # (n_out, P)
-    windows = fpad[:, rows, :]                                  # (R, n, P, W)
-    windows = windows.permute(1, 0, 2, 3).reshape(n_out, R * P, W)
-    out = Fn.conv1d(windows, rasters.reshape(R * A, P, P), stride=stride,
-                    groups=R)                                   # (n, R*A, L)
-    out = out.reshape(n_out, R, A, -1).permute(1, 2, 0, 3)
-    return out / mass_ref[:, None, None, None]
+    return _lanes_on_cpu(lambda f, r, m: MK.window_scores(f, r, m, n_out,
+                                                          stride),
+                         fpad, rasters, mass_ref)
 
 
 def _conv_scores(field: torch.Tensor, rasters: torch.Tensor,
@@ -291,38 +289,14 @@ def _axis_min_off(i0: torch.Tensor, lv: int, n_steps: int) -> torch.Tensor:
                        torch.minimum(lo.abs(), hi.abs()))
 
 
-#: Candidate windows gathered per step of `_bnb_scores` (bounds its
-#: transient memory to about this many P x P float windows per robot).
-_BNB_CHUNK = 16
-
-
 def _bnb_scores(lvl: torch.Tensor, rasters: torch.Tensor, a_idx, oy, ox,
                 mass_ref: torch.Tensor) -> torch.Tensor:
     """(R, K) scores <rasters[r, a_k], lvl[r, oy_k : +P, ox_k : +P]> /
-    mass_ref[r]; slice starts clamp like jax.lax.dynamic_slice."""
-    return _per_lane(_bnb_scores_one, lvl, rasters, a_idx, oy, ox,
-                     mass_ref)
-
-
-def _bnb_scores_one(lvl: torch.Tensor, rasters: torch.Tensor, a_idx, oy, ox,
-                    mass_ref: torch.Tensor) -> torch.Tensor:
-    R, _, P, _ = rasters.shape
-    H, W = lvl.shape[-2], lvl.shape[-1]
-    dev = lvl.device
-    K = a_idx.shape[1]
-    ar = torch.arange(P, device=dev)
-    rr = _rows(R, dev)[:, None]
-    out = []
-    for s in range(0, K, _BNB_CHUNK):
-        e = min(K, s + _BNB_CHUNK)
-        y0 = oy[:, s:e].clamp(0, H - P)
-        x0 = ox[:, s:e].clamp(0, W - P)
-        rows = (y0[..., None] + ar)[..., :, None]               # (R,k,P,1)
-        cols = (x0[..., None] + ar)[..., None, :]               # (R,k,1,P)
-        sl = lvl[rr[..., None, None], rows, cols]               # (R,k,P,P)
-        ra = rasters[rr, a_idx[:, s:e]]                         # (R,k,P,P)
-        out.append(torch.einsum("rkij,rkij->rk", sl, ra))
-    return torch.cat(out, dim=1) / mass_ref[:, None]
+    mass_ref[r] (kernel K8's candidate mode,
+    `match_kernel.candidate_scores`); slice starts clamp like
+    jax.lax.dynamic_slice."""
+    return _lanes_on_cpu(MK.candidate_scores, lvl, rasters, a_idx, oy, ox,
+                         mass_ref)
 
 
 def _bnb_winner(m_cfg: MatcherConfig, levels, resp_top: torch.Tensor,

@@ -17,9 +17,11 @@ solo tick by construction.
 Bit-identity contract: a lane inside a megabatch equals its solo
 `fleet_step` bit for bit, on the buckets of `EXACT_BUCKETS`. The stages
 compute each lane's values with the same operations as a solo call;
-where a float reduction or a cuDNN / cuBLAS call could sum in another
-order at another batch size (the matcher), it runs one lane's rows at a
-time at the solo shapes (`ops/scan_match._per_lane`). The ladder is
+where a float reduction or a cuBLAS call could sum in another order at
+another batch size (the matcher), it runs one lane's rows at a time at
+the solo shapes (`ops/scan_match._per_lane`); the matcher's
+correlations run every lane at once through kernel K8, whose sums follow
+the shapes alone (`ops/match_kernel.py`). The ladder is
 measured, not assumed: on the CPU by tests/test_torch_tenancy.py, on the
 card by chip_smoke.py's tenancy phase.
 

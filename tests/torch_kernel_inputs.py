@@ -7,9 +7,11 @@ K7): poses at the edges of the (tile, image) cull and the z interval
 (tests/test_torch_voxel_tiles.py). The exploration path's inputs: the
 incremental publish's seeded missions
 (tests/test_torch_frontier_incremental.py) and the planner's walled map
-(tests/test_torch_planner.py). The rendezvous merge's stand-in mapper
-(`StandInMapper`). Plain numpy and PyTorch; no pytest and no JAX, so
-chip_smoke.py and the card tests can import it on the card's machine.
+(tests/test_torch_planner.py). The score starts of K8's two modes and a
+float64 evaluation of its sums (tests/test_torch_match_kernel.py). The
+rendezvous merge's stand-in mapper (`StandInMapper`). Plain numpy and
+PyTorch; no pytest and no JAX, so chip_smoke.py and the card tests can
+import it on the card's machine.
 """
 
 import math
@@ -347,6 +349,49 @@ def walled_map(cfg):
     goal = np.array([ox + (n // f.downsample - 10) * res, oy + 10 * res],
                     np.float32)
     return lo, sealed, {"start": start, "goal": goal}
+
+
+# ---------------------------------------------------------------------------
+# The matcher's window correlations (K8)
+# ---------------------------------------------------------------------------
+
+
+def dense_starts(R, A, H, W_, P, n_out, stride, device):
+    """The (r, a, y0, x0) of every dense score, in output order."""
+    L = (W_ - P) // stride + 1
+    r, a, my, mx = torch.meshgrid(
+        torch.arange(R), torch.arange(A), torch.arange(n_out),
+        torch.arange(L), indexing="ij")
+    y0 = torch.clamp_max(my * stride, H - P)
+    return [t.reshape(-1).to(device) for t in (r, a, y0, mx * stride)], L
+
+
+def list_starts(a_idx, oy, ox, H, W_, P):
+    """The (r, a, y0, x0) of every candidate score, starts clamped."""
+    R, K = a_idx.shape
+    r = torch.arange(R, device=a_idx.device)[:, None].expand(R, K)
+    return [t.reshape(-1) for t in (r, a_idx, oy.clamp(0, H - P),
+                                    ox.clamp(0, W_ - P))]
+
+
+def k8_windows(field, rasters, r, a, y0, x0):
+    """Score i's raster and its P x P field window, gathered."""
+    P = rasters.shape[-1]
+    ar = torch.arange(P, device=field.device)
+    fw = field[r[:, None, None], (y0[:, None] + ar)[:, :, None],
+               (x0[:, None] + ar)[:, None, :]]
+    return rasters[r, a], fw
+
+
+def direct64(field, rasters, r, a, y0, x0, mass, chunk=64):
+    """Each score's sum in float64 from the same float32 inputs."""
+    out = []
+    for s in range(0, r.numel(), chunk):
+        sl = slice(s, s + chunk)
+        ra, fw = k8_windows(field, rasters, r[sl], a[sl], y0[sl], x0[sl])
+        out.append((ra.double() * fw.double()).sum(dim=(1, 2))
+                   / mass[r[sl]].double())
+    return torch.cat(out)
 
 
 # ---------------------------------------------------------------------------
